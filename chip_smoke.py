@@ -17,11 +17,27 @@ Phases, each printed as it runs; any failure exits non-zero:
       tokens -> [16, 256, 256, 3] images, f32, seeded random weights), with
       the kernel's launch count checked; run cold, then warm;
   (e) the kernel route and the ``fused=False`` module route sample identical
-      tokens at temperature 1e-4.
+      tokens at temperature 1e-4;
+  (f) the ShuffleNet bottleneck and downsample kernels against their plain
+      versions at every distinct unit shape of the gaussian3d U-Net forward
+      (state [16, 256, 96, 1], base 64, mults (1, 2, 4, 8)), in f32 and
+      bf16, the downsample's silu(x + t_vec) prologue included; each shape's
+      kernel time, plain time and bound; then, in f32, at shapes off that
+      path (the U-Net on the mnist config's odd grids, short last row tiles,
+      widths that fill no whole tile of the pointwise products);
+  (g) the second path: ``vq_vae_gan_diffusion_torch.generate`` on
+      configs/inference_config_vqdiffusion.yml at full width (16 samples,
+      1000 clipped DDPM steps of the U-Net, cosine argmax to [16, 256]
+      indices, VQVAE decode to [16, 256, 256, 3] images, f32, seeded random
+      weights), with both kernels' launch counts checked; cold, then warm;
+  (h) the kernel route against the ``fused_sampler: False`` module route:
+      one full-width U-Net forward, and a 20-step chain at full width with
+      the same noise (at least 99% of indices equal).
 
-Before the last line it prints one JSON line describing every kernel of the
-path, and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+Each path, (d) and (g), runs with every kernel's launch count set to 0 just
+before it and read just after. Before the last line it prints one JSON line
+describing every kernel of the paths, and the card's name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -35,8 +51,11 @@ import time
 import torch
 
 CONFIG = "configs/inference_config_small.yml"
+VQD_CONFIG = "configs/inference_config_vqdiffusion.yml"
 # full width of the GPT prior in CONFIG, at --n-samples 16
 L, C, H, B, N = 12, 1024, 16, 16, 256
+# full width of the gaussian3d prior in VQD_CONFIG: state [B, N, 96, 1]
+GAUSSIAN_DIM, UNET_BASE, UNET_MULTS, STEPS = 96, 64, (1, 2, 4, 8), 1000
 F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
 
@@ -170,6 +189,19 @@ def phase_kernel(card: str) -> dict:
     return result
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its kernel's name in the JSON line."""
+    from vq_vae_gan_diffusion_torch.ops.gpt_decode import fused_decode_stack
+    from vq_vae_gan_diffusion_torch.ops.shuffle import fused_bottleneck, fused_downsample
+    return {"gpt_decode_stack": fused_decode_stack, "shuffle_bottleneck": fused_bottleneck,
+            "shuffle_downsample": fused_downsample}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
 def phase_main() -> int:
     """The main path through the user's entry point, cold then warm. Returns
     the kernel launches counted in the cold run."""
@@ -180,7 +212,7 @@ def phase_main() -> int:
     counted = None
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        fused_decode_stack.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv)
         total = time.perf_counter() - t0
@@ -227,6 +259,261 @@ def phase_routes() -> None:
         raise AssertionError("kernel route and module route sampled different tokens")
 
 
+def unet_unit_shapes(h: int = N, w: int = GAUSSIAN_DIM, base: int = UNET_BASE,
+                     mults=UNET_MULTS) -> list:
+    """(kernel, H, W, C_in, C_out) of every ShuffleNet unit of one U-Net
+    forward, in order (models/unet_shuffle.py): each encoder block 4
+    bottlenecks ("K1") and a downsample ("K2", which halves H and W,
+    rounding up), 3 mid bottlenecks, each decoder block 5 bottlenecks on the
+    upsampled input concatenated with its skip."""
+    dims = [base] + [base * m for m in mults]
+    pairs = list(zip(dims[:-1], dims[1:]))
+    units, skips, c = [], [], base
+    for _, c_out in pairs:
+        units += [("K1", h, w, c, c)] * 3 + [("K1", h, w, c, c_out // 2),
+                                             ("K2", h, w, c_out // 2, c_out)]
+        skips.append((h, w, c_out // 2))
+        h, w, c = (h + 1) // 2, (w + 1) // 2, c_out
+    units += [("K1", h, w, c, c)] * 2 + [("K1", h, w, c, c // 2)]
+    c //= 2
+    for c_in, _ in reversed(pairs):
+        h, w, skip = skips.pop()
+        c += skip
+        units += [("K1", h, w, c, c)] * 3 + [("K1", h, w, c, c // 2),
+                                             ("K1", h, w, c // 2, c_in // 2)]
+        c = c_in // 2
+    return units
+
+
+def random_unit(kind: str, c_in: int, c_out: int, dtype: torch.dtype,
+                gen: torch.Generator) -> dict:
+    """A folded unit with N(0, 1/fan_in) weights and N(0, 1) biases."""
+    co2 = c_out // 2
+    c1, mid = (c_in // 2, c_in // 2) if kind == "K1" else (c_in, co2)
+
+    def rnd(*shape, fan=1):
+        return (torch.randn(*shape, generator=gen, device="cuda") / math.sqrt(fan)).to(dtype)
+    return dict(k1=rnd(3, 3, c1, fan=9), b1=rnd(c1), w1=rnd(c1, co2, fan=c1), c1=rnd(co2),
+                w2=rnd(c1, mid, fan=c1), c2=rnd(mid), k2=rnd(3, 3, mid, fan=9), b2=rnd(mid),
+                w3=rnd(mid, co2, fan=mid), c3=rnd(co2))
+
+
+def unit_bound(kind: str, h: int, w: int, c_in: int, c_out: int, dtype: torch.dtype,
+               name: str) -> tuple[float, float]:
+    """(ms by bytes, ms by operations) of one unit at batch B: its input read
+    once, its parameters read once and its output written once, over the
+    memory rate; both depthwise convolutions and the three pointwise
+    products (2 operations a multiply-add) over the peak rate of the type."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    co2, p_in = c_out // 2, B * h * w
+    if kind == "K1":
+        ch, p_out = c_in // 2, p_in
+        ops = 2 * p_in * (18 * ch + 2 * ch * co2 + ch * ch)
+        params = 20 * ch + ch * ch + 2 * ch * co2 + 2 * co2
+    else:
+        p_out = p_in // 4
+        ops = 2 * (p_out * (9 * c_in + 9 * co2 + co2 * co2) + (p_in + p_out) * c_in * co2)
+        params = 10 * c_in + 10 * co2 + 2 * c_in * co2 + co2 * co2 + 3 * co2
+    bytes_ = (p_in * c_in + p_out * c_out + params) * es
+    peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
+    return 1e3 * bytes_ / hbm_bytes_per_s(name), 1e3 * ops / peak
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+                scale: float | None = None) -> float:
+    """max |got - want|, after failing unless finite and <= tol * scale;
+    scale defaults to max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item()) if scale is None else scale
+    if err > tol * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3e} above {tol} of scale {scale:.3f}")
+    return err
+
+
+def phase_units(card: str) -> dict:
+    """The bottleneck and downsample kernels against reference_bottleneck /
+    reference_downsample at every distinct unit shape of the U-Net forward.
+
+    Tolerance: max |kernel - plain| <= tol * max(1, max |plain|). f32, tol
+    1e-4: both sum the same f32 products in other orders, over at most 9
+    taps and 512 channels. bf16, tol 2e-2: both round x, the weights, the
+    depthwise sums, the first pointwise output and the unit's output to
+    bf16 at the same places, but a different f32 sum order can move one of
+    them across a bf16 rounding boundary (one step, 2^-8 of it), which the
+    next pointwise product carries on and the output's own rounding can
+    widen to one step of the output's binade (2^-8 = 3.9e-3 of scale).
+
+    Times are per call, at each shape, by CUDA events over back-to-back
+    calls; the returned means are per call over one forward's 39 bottleneck
+    and 4 downsample calls.
+    """
+    from vq_vae_gan_diffusion_torch.ops.shuffle import (fused_bottleneck, fused_downsample,
+                                                        reference_bottleneck,
+                                                        reference_downsample)
+    units = unet_unit_shapes()
+    counts: dict = {}
+    for u in units:
+        counts[u] = counts.get(u, 0) + 1
+    if [k for k, *_ in units].count("K1") != 39 or len(units) != 43:
+        raise AssertionError(f"unexpected unit list {units}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    result = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+                   "ops_ms": 0.0, "bound_ms": 0.0, "calls": 0} for k in ("K1", "K2")}
+        for (kind, h, w, c_in, c_out), count in counts.items():
+            p = random_unit(kind, c_in, c_out, dtype, gen)
+            x = torch.randn(B, h, w, c_in, generator=gen, device="cuda").to(dtype)
+            kernel, plain = ((fused_bottleneck, reference_bottleneck) if kind == "K1"
+                             else (fused_downsample, reference_downsample))
+            what = f"{tag} {kind} {h}x{w} {c_in}->{c_out}"
+            got, want = kernel(x, p), plain(x, p)
+            torch.cuda.synchronize()
+            err = check_close(what, got, want, tol)
+            if kind == "K2":
+                t_vec = torch.randn(B, c_in, generator=gen, device="cuda").to(dtype)
+                got_t, want_t = kernel(x, p, t_vec), plain(x, p, t_vec)
+                torch.cuda.synchronize()
+                err_t = check_close(what + " t_vec", got_t, want_t, tol)
+                print(f"(f) {what} with the silu(x + t_vec) prologue: max abs err {err_t:.3e}")
+                err = max(err, err_t)
+            ms = cuda_ms(lambda: kernel(x, p), reps=20)
+            plain_ms = cuda_ms(lambda: plain(x, p), reps=3)
+            by_bytes, by_ops = unit_bound(kind, h, w, c_in, c_out, dtype, card)
+            bound = max(by_bytes, by_ops)
+            print(f"(f) {what} (x{count} a forward): max abs err {err:.3e}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
+                  f"{'bytes' if by_bytes >= by_ops else 'operations'}")
+            a = acc[kind]
+            a["max_abs_err"] = max(a["max_abs_err"], err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", by_bytes),
+                             ("ops_ms", by_ops), ("bound_ms", bound)):
+                a[key] += count * val
+            a["calls"] += count
+            del x, p, got, want
+        for kind, a in acc.items():
+            n = a.pop("calls")
+            for key in ("ms", "plain_ms", "bound_ms"):
+                a[key] /= n
+            a["bound_by"] = "bytes" if a.pop("bytes_ms") >= a.pop("ops_ms") else "operations"
+            print(f"(f) {tag} {kind}: mean over one forward's {n} calls: kernel {a['ms']:.4f} ms, "
+                  f"plain {a['plain_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms by "
+                  f"{a['bound_by']}; {n * a['ms']:.3f} ms a forward; {card}")
+        result[dtype] = acc
+    return result
+
+
+def phase_other_shapes() -> None:
+    """Both kernels against their plain versions in f32, tolerance 1e-4 as
+    above, at shapes off the main path: every unit of the U-Net on the
+    mnist config's state [16, 49, 96, 1] (odd grids, whose last row tile is
+    short; a downsample on an odd grid stays plain ops, as in apply_folded),
+    a downsample with a short last row tile, and widths that fill no whole
+    k-chunk or n-tile of the pointwise products."""
+    from vq_vae_gan_diffusion_torch.ops.shuffle import (fused_bottleneck, fused_downsample,
+                                                        reference_bottleneck,
+                                                        reference_downsample)
+    cases = {u for u in unet_unit_shapes(h=49) if u[0] == "K1" or u[1] % 2 == u[2] % 2 == 0}
+    cases |= {("K2", 98, 96, 32, 64), ("K1", 13, 7, 24, 12), ("K2", 14, 10, 20, 12)}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for kind, h, w, c_in, c_out in sorted(cases):
+        p = random_unit(kind, c_in, c_out, torch.float32, gen)
+        x = torch.randn(B, h, w, c_in, generator=gen, device="cuda")
+        kernel, plain = ((fused_bottleneck, reference_bottleneck) if kind == "K1"
+                         else (fused_downsample, reference_downsample))
+        got, want = kernel(x, p), plain(x, p)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(f"f32 {kind} {h}x{w} {c_in}->{c_out}", got, want, 1e-4))
+    print(f"(f) f32, {len(cases)} shapes off the main path (mnist geometry 49x96 .. 4x6, "
+          f"short row tiles, narrow widths): max abs err {worst:.3e}")
+
+
+def phase_vqdiffusion() -> dict:
+    """The gaussian3d path through the user's entry point, cold then warm.
+    Returns the launches of each kernel counted in the cold run."""
+    from vq_vae_gan_diffusion_torch import generate
+
+    wrappers = kernel_wrappers()
+    argv = ["--config", VQD_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    counted = None
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate.run(argv)
+        total = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        counted = launches if counted is None else counted
+        idx, images = out["indices"], out["images"]
+        if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= 1024:
+            raise AssertionError(f"indices {tuple(idx.shape)} not [16, 256] in [0, 1024)")
+        if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
+            raise AssertionError(f"images {tuple(images.shape)} not finite of [16,256,256,3]")
+        want = {"gpt_decode_stack": 0, "shuffle_bottleneck": 39 * STEPS,
+                "shuffle_downsample": 4 * STEPS}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        sec = out["seconds"]
+        print(f"(g) {run}: {launches['shuffle_bottleneck']} bottleneck and "
+              f"{launches['shuffle_downsample']} downsample launches; {STEPS}-step chain "
+              f"{sec['sample']:.3f} s ({1e3 * sec['sample'] / STEPS:.3f} ms a reverse step: "
+              f"one U-Net forward and the update); VQVAE decode {sec['decode']:.3f} s; total "
+              f"{total:.2f} s; max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{len(set(idx.flatten().tolist()))} distinct indices; grid {out['path']}")
+    return counted
+
+
+def phase_vqd_routes() -> None:
+    """Kernel route against the unfused module at full width, on weights
+    with non-trivial BatchNorm statistics (so a wrong fold shows): one U-Net
+    forward within 1e-3 of max |module| (both true f32, TF32 off; the two
+    sum every product in other orders through 43 units, and each unit
+    carries the differences of the units before it), and a 20-step chain
+    with the same noise giving at least 99% equal indices (the JAX
+    package's bar, tests/test_shuffle_pallas.py)."""
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.shuffle_infer import apply_folded, fold_unet
+    from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import VQDiffusionComposite
+
+    steps = 20
+    cfg = load_config(VQD_CONFIG).replace_path("architecture.vqdiffusion.diffusion_steps", steps)
+    comp = VQDiffusionComposite(cfg)
+    comp.unet.init_weights(torch.Generator().manual_seed(5))
+    bn_gen = torch.Generator().manual_seed(7)
+    for m in comp.unet.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.weight.data = 1 + 0.1 * torch.randn(m.weight.shape, generator=bn_gen)
+            m.bias.data = 0.1 * torch.randn(m.bias.shape, generator=bn_gen)
+            m.running_mean = 0.1 * torch.randn(m.running_mean.shape, generator=bn_gen)
+            m.running_var = 0.5 + torch.rand(m.running_var.shape, generator=bn_gen)
+    comp = comp.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(B, N, GAUSSIAN_DIM, 1, generator=gen, device="cuda")
+    t = torch.randint(0, steps, (B,), generator=gen, device="cuda")
+    with torch.no_grad():
+        ref = comp.unet(x, None, t)
+    err = check_close("U-Net forward, kernel route vs module", apply_folded(
+        fold_unet(comp.unet), x, t), ref, 1e-3, scale=ref.abs().max().item())
+    print(f"(h) one U-Net forward [16, 256, 96, 1], kernel route vs fused_sampler False: "
+          f"max abs err {err:.3e}, max |module| {ref.abs().max().item():.3f}")
+    x_t = torch.randn(B, N, GAUSSIAN_DIM, 1, generator=gen, device="cuda")
+    noise = [torch.randn_like(x_t) for _ in range(steps)]
+    idx = {}
+    for mode in ("packed", False):
+        comp.fused_sampler = mode
+        idx[mode] = comp.sample(B, x_T=x_t, step_noise=noise)
+    agree = (idx["packed"] == idx[False]).float().mean().item()
+    print(f"(h) {steps}-step chain, same noise: {100 * agree:.2f}% of {B} x {N} indices equal")
+    if agree < 0.99:
+        raise AssertionError(f"kernel and module routes agree on only {100 * agree:.2f}%")
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -235,6 +522,10 @@ def main() -> int:
     timing = phase_kernel(card)
     launches = phase_main()
     phase_routes()
+    units = phase_units(card)
+    phase_other_shapes()
+    vqd_launches = phase_vqdiffusion()
+    phase_vqd_routes()
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",
@@ -244,6 +535,19 @@ def main() -> int:
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": None,
     }]
+    # the bottleneck kernel also stands for fused_bottleneck (:142), the same
+    # function on unpacked NHWC
+    for name, kind, replaces in (
+            ("shuffle_bottleneck", "K1", "vq_vae_gan_diffusion_tpu/ops/shuffle_pallas.py:437"),
+            ("shuffle_downsample", "K2", "vq_vae_gan_diffusion_tpu/ops/shuffle_pallas.py:630")):
+        u = units[torch.float32][kind]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "vq_vae_gan_diffusion_torch/csrc/shuffle_units.cu", "replaces": replaces,
+            "launches": vqd_launches[name], "max_abs_err": u["max_abs_err"], "ms": u["ms"],
+            "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
+            "library_ms": None,
+        })
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite numbers for {k['name']}")

@@ -63,6 +63,17 @@ class Config(Mapping):
     def to_dict(self) -> dict:
         return copy.deepcopy(self._data)
 
+    def replace_path(self, path: str, value: Any) -> "Config":
+        """A copy with a dotted path overridden, e.g.
+        ``cfg.replace_path('architecture.vqdiffusion.fused_sampler', False)``."""
+        data = self.to_dict()
+        node = data
+        keys = path.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+        return Config(data)
+
     def __repr__(self) -> str:
         return f"Config({self._data!r})"
 

@@ -1,18 +1,23 @@
 """Generation entry point of the port (mirrors the root ``generate.py`` for the
-``*_transformer`` models).
+``*_transformer`` models and the gaussian3d ``vqdiffusion`` prior).
 
 Usage::
 
     python -m vq_vae_gan_diffusion_torch.generate \\
         --config configs/inference_config_small.yml [--n-samples 16] [--seed 42] \\
-        [--ckpt PATH] [--device cuda|cpu]
+        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off|pallas|packed]
 
-Samples ``--n-samples`` token grids with the GPT prior, decodes them with the
-VQVAE and writes ``samples_epoch0.jpg`` under
+Samples ``--n-samples`` index grids with the config's prior (the GPT prior
+for ``vqvae_transformer`` / ``vqgan_transformer``, the gaussian3d diffusion
+prior for ``vqdiffusion``, as in ``configs/inference_config_vqdiffusion.yml``),
+decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 ``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. ``--ckpt`` loads
-a port checkpoint (``torch.save({"vqvae": ..., "gpt": ...})``); without one it
-tries ``architecture.<model>.resume_path`` and, when that is missing, warns
-and keeps the seeded fresh init. It runs on CUDA unless ``--device cpu``.
+a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``);
+without one it tries ``architecture.<model>.resume_path`` and, when that is
+missing, warns and keeps the seeded fresh init. ``--fused-sampler``
+overrides ``architecture.vqdiffusion.fused_sampler``: ``off`` runs the
+unfused U-Net module, any other value the CUDA kernels. It runs on CUDA
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,8 +32,7 @@ from .config import TRANSFORMER_MODELS, load_config, validate
 # the ROADMAP slice that ports each family's generation path
 _LATER_SLICES = {
     "vqvae": "slice 2 (stage-1 VQGAN)", "vqgan": "slice 2 (stage-1 VQGAN)",
-    "vqdiffusion": "slice 4 (gaussian3d prior) or slice 5 (discrete priors)",
-    "gaussiandiffusion3d": "slice 4 (gaussian3d prior)",
+    "gaussiandiffusion3d": "slice 4 (pixel-space gaussian3d worker)",
     "c_vqdiffusion": "slice 7 (other families)",
     "v_vqdiffusion": "slice 7 (other families)",
     "gaussiandiffusion2d": "slice 7 (other families)",
@@ -37,7 +41,7 @@ _LATER_SLICES = {
 
 
 def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
-    """Parse ``argv``, generate, and return the worker's result (tokens,
+    """Parse ``argv``, generate, and return the worker's result (codes,
     images, the grid's path, phase seconds) with the run dir."""
     parser = argparse.ArgumentParser(description="PyTorch/CUDA generation")
     parser.add_argument("--config", type=str, default="configs/inference_config_small.yml")
@@ -47,17 +51,23 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                         help="port checkpoint (else architecture.<model>.resume_path)")
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
+    parser.add_argument("--fused-sampler", type=str, default=None,
+                        choices=["on", "off", "pallas", "packed"],
+                        help="override architecture.vqdiffusion.fused_sampler")
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in TRANSFORMER_MODELS:
+    if model_name not in TRANSFORMER_MODELS + ("vqdiffusion",):
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
+    if args.fused_sampler is not None and "vqdiffusion" in config.architecture:
+        val = {"on": True, "off": False}.get(args.fused_sampler, args.fused_sampler)
+        config = config.replace_path("architecture.vqdiffusion.fused_sampler", val)
 
-    from .train import VQTransformerWorker
+    from .train import VQDiffusionWorker, VQTransformerWorker
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -65,8 +75,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     run_dir = create_run_dir(str(config.trainer.log_dir), dataset_name,
                              f"{model_name}_generate", args.config)
     logger = setup_logging(run_dir)
-    worker = VQTransformerWorker(config, run_dir, logger, seed=args.seed,
-                                 device=str(device))
+    worker_cls = VQDiffusionWorker if model_name == "vqdiffusion" else VQTransformerWorker
+    worker = worker_cls(config, run_dir, logger, seed=args.seed, device=str(device))
     worker.init_state()
     ckpt = args.ckpt
     if ckpt is None:

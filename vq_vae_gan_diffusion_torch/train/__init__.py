@@ -1,3 +1,4 @@
+from .vq_diffusion_worker import VQDiffusionWorker
 from .vq_transformer_worker import VQTransformerWorker
 
-__all__ = ["VQTransformerWorker"]
+__all__ = ["VQDiffusionWorker", "VQTransformerWorker"]

@@ -6,7 +6,9 @@ modules use, ready for ``load_state_dict(..., strict=True)``. The mapping
 is this package's own copy:
 
 - Dense kernels [in, out] -> Linear weights [out, in];
-- Conv kernels HWIO -> OIHW;
+- Conv kernels HWIO -> OIHW (depthwise [3, 3, 1, C] -> [C, 1, 3, 3]);
+- BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
+  running_var, with ``num_batches_tracked`` 0;
 - the port's GroupNorm keeps its affine under ``.group_norm``, the JAX
   package's under a nested ``GroupNorm_0``;
 - minGPT's causal-mask buffer is regenerated from the positional-embedding
@@ -121,6 +123,60 @@ def vqvae_state_from_jax(params: Dict[str, Any], cfg: Config) -> State:
     out["codebook.codebook.weight"] = _t(params["codebook"]["embedding"])
     _conv(out, "quant_conv", params["quant_conv"])
     _conv(out, "post_quant_conv", params["post_quant_conv"])
+    return out
+
+
+def _bn(out: State, p: str, sub_p, sub_s) -> None:
+    out[f"{p}.weight"] = _t(sub_p["scale"])
+    out[f"{p}.bias"] = _t(sub_p["bias"])
+    out[f"{p}.running_mean"] = _t(sub_s["mean"])
+    out[f"{p}.running_var"] = _t(sub_s["var"])
+    out[f"{p}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _conv_bn_silu(out: State, p: str, sub_p, sub_s) -> None:
+    _conv(out, f"{p}.module.0", sub_p["conv"])
+    _bn(out, f"{p}.module.1", sub_p["bn"], sub_s["bn"])
+
+
+def _shuffle_unit(out: State, p: str, sub_p, sub_s) -> None:
+    """A ResidualBottleneck or ResidualDownsample (the same names)."""
+    _conv(out, f"{p}.branch1.0", sub_p["b1_dw"])
+    _bn(out, f"{p}.branch1.1", sub_p["b1_bn"], sub_s["b1_bn"])
+    _conv_bn_silu(out, f"{p}.branch1.2", sub_p["b1_pw"], sub_s["b1_pw"])
+    _conv_bn_silu(out, f"{p}.branch2.0", sub_p["b2_pw1"], sub_s["b2_pw1"])
+    _conv(out, f"{p}.branch2.1", sub_p["b2_dw"])
+    _bn(out, f"{p}.branch2.2", sub_p["b2_bn"], sub_s["b2_bn"])
+    _conv_bn_silu(out, f"{p}.branch2.3", sub_p["b2_pw2"], sub_s["b2_pw2"])
+
+
+def shuffle_unet_state_from_jax(params: Dict[str, Any],
+                                batch_stats: Dict[str, Any]) -> State:
+    """The JAX ShuffleUNet's params and batch statistics -> the port
+    ShuffleUNet's ``state_dict``. Depthwise kernels [3, 3, 1, C] become
+    [C, 1, 3, 3] by the same HWIO -> OIHW transpose."""
+    out: State = {}
+    _conv_bn_silu(out, "init_conv", params["init_conv"], batch_stats["init_conv"])
+    out["time_embedding.weight"] = _t(params["time_embedding"]["embedding"])
+
+    def block(kind: str, blocks: str, last: str) -> None:
+        i = 0
+        while f"{kind}{i}" in params:
+            p, sub_p, sub_s = f"{blocks}.{i}", params[f"{kind}{i}"], batch_stats[f"{kind}{i}"]
+            for k in range(4):
+                _shuffle_unit(out, f"{p}.conv0.{k}", sub_p[f"bn{k}"], sub_s[f"bn{k}"])
+            _dense(out, f"{p}.time_mlp.mlp.0", sub_p["time_mlp"]["fc1"])
+            _dense(out, f"{p}.time_mlp.mlp.2", sub_p["time_mlp"]["fc2"])
+            _shuffle_unit(out, f"{p}.conv1", sub_p[last], sub_s[last])
+            i += 1
+
+    block("enc", "encoder_blocks", "down")
+    i = 0
+    while f"mid{i}" in params:
+        _shuffle_unit(out, f"mid_block.{i}", params[f"mid{i}"], batch_stats[f"mid{i}"])
+        i += 1
+    block("dec", "decoder_blocks", "bn4")
+    _conv(out, "final_conv", params["final_conv"])
     return out
 
 
