@@ -23,8 +23,9 @@ Phases, each printed as it runs; any failure exits non-zero:
       (state [16, 256, 96, 1], base 64, mults (1, 2, 4, 8)), in f32 and
       bf16, the downsample's silu(x + t_vec) prologue included; each shape's
       kernel time, plain time and bound; then, in f32, at shapes off that
-      path (the U-Net on the mnist config's odd grids, short last row tiles,
-      widths that fill no whole tile of the pointwise products);
+      path (every unit of the U-Net on the mnist config's odd grids, the
+      downsample's prologue on an odd grid, short last row tiles, widths
+      that fill no whole tile of the pointwise products);
   (g) the second path: ``vq_vae_gan_diffusion_torch.generate`` on
       configs/inference_config_vqdiffusion.yml at full width (16 samples,
       1000 clipped DDPM steps of the U-Net, cosine argmax to [16, 256]
@@ -411,14 +412,18 @@ def phase_other_shapes() -> None:
     """Both kernels against their plain versions in f32, tolerance 1e-4 as
     above, at shapes off the main path: every unit of the U-Net on the
     mnist config's state [16, 49, 96, 1] (odd grids, whose last row tile is
-    short; a downsample on an odd grid stays plain ops, as in apply_folded),
-    a downsample with a short last row tile, and widths that fill no whole
-    k-chunk or n-tile of the pointwise products."""
+    short; a downsample there halves 49x96 to 25x48, reading the zero pad
+    row past the image), the downsample's silu(x + t_vec) prologue on an
+    odd grid, a downsample with a short last row tile, and widths that fill
+    no whole k-chunk or n-tile of the pointwise products."""
     from vq_vae_gan_diffusion_torch.ops.shuffle import (fused_bottleneck, fused_downsample,
                                                         reference_bottleneck,
                                                         reference_downsample)
-    cases = {u for u in unet_unit_shapes(h=49) if u[0] == "K1" or u[1] % 2 == u[2] % 2 == 0}
-    cases |= {("K2", 98, 96, 32, 64), ("K1", 13, 7, 24, 12), ("K2", 14, 10, 20, 12)}
+    cases = set(unet_unit_shapes(h=49))
+    if not any(kind == "K2" and h % 2 for kind, h, *_ in cases):
+        raise AssertionError("the mnist geometry has no odd-grid downsample")
+    cases |= {("K2", 98, 96, 32, 64), ("K1", 13, 7, 24, 12), ("K2", 14, 10, 20, 12),
+              ("K2", 13, 7, 20, 12)}
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     for kind, h, w, c_in, c_out in sorted(cases):
@@ -426,9 +431,15 @@ def phase_other_shapes() -> None:
         x = torch.randn(B, h, w, c_in, generator=gen, device="cuda")
         kernel, plain = ((fused_bottleneck, reference_bottleneck) if kind == "K1"
                          else (fused_downsample, reference_downsample))
+        what = f"f32 {kind} {h}x{w} {c_in}->{c_out}"
         got, want = kernel(x, p), plain(x, p)
         torch.cuda.synchronize()
-        worst = max(worst, check_close(f"f32 {kind} {h}x{w} {c_in}->{c_out}", got, want, 1e-4))
+        worst = max(worst, check_close(what, got, want, 1e-4))
+        if kind == "K2" and (h % 2 or w % 2):
+            t_vec = torch.randn(B, c_in, generator=gen, device="cuda")
+            got, want = kernel(x, p, t_vec), plain(x, p, t_vec)
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(what + " t_vec", got, want, 1e-4))
     print(f"(f) f32, {len(cases)} shapes off the main path (mnist geometry 49x96 .. 4x6, "
           f"short row tiles, narrow widths): max abs err {worst:.3e}")
 

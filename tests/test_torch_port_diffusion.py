@@ -91,10 +91,10 @@ def test_ddpm_step_matches_jax(t, clipped):
 
 
 def test_ddpm_chain_matches_jax_with_injected_noise():
-    jax_d, port = _pair(6, 6, "ddpm")
+    jax_d, port = _pair(3, 3, "ddpm")
     rng = jax.random.PRNGKey(4)
     want = jax_d.ddpm_sample(rng, 2)
-    x_t, noise = _jax_noise(rng, (2, 16, 8, 1), 6)
+    x_t, noise = _jax_noise(rng, (2, 16, 8, 1), 3)
     got = port.ddpm_sample(2, x_T=x_t, step_noise=noise)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 

@@ -8,6 +8,10 @@ bound of tests/test_shuffle_packed.py: f32 sums of the same products in
 another order). bf16 is held to the flax f32 unit within that file's bf16
 bound (atol 0.06, rtol 0.05). The CUDA kernels themselves are checked
 against these plain versions on the card by chip_smoke.py.
+
+Every JAX computation runs under one ``jax.jit``: a single compile costs
+less than dispatching each operation of the flax unit or of the interpreted
+kernel on its own.
 """
 
 import jax
@@ -61,9 +65,22 @@ def _x(shape, seed):
     return np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
 
 
+def _jit(fn, *args):
+    """``fn(*args)`` compiled once, as numpy."""
+    return np.asarray(jax.jit(fn)(*args))
+
+
 def _flax_unit(mod, x, seed):
     variables = numpy_variables(mod, seed, jnp.asarray(x))
-    return variables, np.asarray(mod.apply(variables, jnp.asarray(x), train=False))
+    return variables, _jit(lambda v, x: mod.apply(v, x, train=False), variables, x)
+
+
+def _packed(kernel, xs, folded, g, **kw):
+    """The JAX packed kernel in interpret mode on unpacked NHWC inputs
+    ``xs``, its output unpacked and concatenated as the shuffled halves."""
+    pp = jsp.fold_bottleneck_params_packed(folded, g, dtype=jnp.float32)
+    y1, y2 = kernel(*[jsp.pack_images(x, g) for x in xs], pp, interpret=True, **kw)
+    return jnp.concatenate([jsp.unpack_images(y1, g), jsp.unpack_images(y2, g)], -1)
 
 
 @pytest.mark.parametrize("shape,cout", [
@@ -78,12 +95,8 @@ def test_reference_bottleneck_matches_jax(shape, cout):
     folded = jsp.fold_bottleneck_params(variables["params"], variables["batch_stats"])
     ch = shape[-1] // 2
     g = jsp.pick_group(shape[0], ch, cout // 2)
-    pp = jsp.fold_bottleneck_params_packed(folded, g, dtype=jnp.float32)
-    y1, y2 = jsp.fused_bottleneck_packed(jsp.pack_images(jnp.asarray(x[..., :ch]), g),
-                                         jsp.pack_images(jnp.asarray(x[..., ch:]), g),
-                                         pp, interpret=True)
-    kernel_out = np.asarray(jnp.concatenate([jsp.unpack_images(y1, g),
-                                             jsp.unpack_images(y2, g)], -1))
+    kernel_out = _jit(lambda x, f: _packed(jsp.fused_bottleneck_packed,
+                                           (x[..., :ch], x[..., ch:]), f, g), x, folded)
     got = reference_bottleneck(torch.from_numpy(x), _to_torch(folded)).numpy()
     np.testing.assert_allclose(got, kernel_out, atol=3e-5)
     np.testing.assert_allclose(got, flax_out, atol=3e-5)
@@ -98,10 +111,7 @@ def test_reference_downsample_matches_jax(shape, cout):
     variables, flax_out = _flax_unit(ResidualDownsample(cout), x, 3)
     folded = jsp.fold_downsample_params(variables["params"], variables["batch_stats"])
     g = jsp.pick_group(shape[0], shape[-1], cout // 2)
-    pp = jsp.fold_bottleneck_params_packed(folded, g, dtype=jnp.float32)
-    y1, y2 = jsp.fused_downsample_packed(jsp.pack_images(jnp.asarray(x), g), pp, interpret=True)
-    kernel_out = np.asarray(jnp.concatenate([jsp.unpack_images(y1, g),
-                                             jsp.unpack_images(y2, g)], -1))
+    kernel_out = _jit(lambda x, f: _packed(jsp.fused_downsample_packed, (x,), f, g), x, folded)
     got = reference_downsample(torch.from_numpy(x), _to_torch(folded)).numpy()
     assert got.shape == flax_out.shape
     np.testing.assert_allclose(got, kernel_out, atol=3e-5)
@@ -112,11 +122,10 @@ def test_reference_downsample_time_prologue_matches_jax():
     """t_vec: the unit reads silu(x + t_vec) with its zero padding kept."""
     x = _x((4, 16, 12, 16), 4)
     h = 0.3 * _x((4, 16), 5)
-    xt = np.asarray(jax.nn.silu(jnp.asarray(x) + jnp.asarray(h)[:, None, None, :]))
+    xt = _jit(lambda x, h: jax.nn.silu(x + h[:, None, None, :]), x, h)
     variables, flax_out = _flax_unit(ResidualDownsample(32), xt, 6)
-    kernel_out = np.asarray(jsp.packed_downsample(
-        jnp.asarray(x), variables["params"], variables["batch_stats"],
-        t_vec=jnp.asarray(h), interpret=True))
+    kernel_out = _jit(lambda x, v, h: jsp.packed_downsample(
+        x, v["params"], v["batch_stats"], t_vec=h, interpret=True), x, variables, h)
     folded = jsp.fold_downsample_params(variables["params"], variables["batch_stats"])
     got = reference_downsample(torch.from_numpy(x), _to_torch(folded),
                                torch.from_numpy(h)).numpy()
@@ -145,10 +154,10 @@ def test_reference_bottleneck_bf16():
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     np.testing.assert_allclose(got, flax_out, atol=0.06, rtol=0.05)
-    spec = jsp.reference_bottleneck(
-        jnp.asarray(x, jnp.bfloat16),
-        {k: v.astype(jnp.bfloat16) for k, v in folded.items()})
-    np.testing.assert_allclose(got, np.asarray(spec.astype(jnp.float32)), atol=0.06, rtol=0.05)
+    spec = _jit(lambda x, f: jsp.reference_bottleneck(
+        x.astype(jnp.bfloat16), {k: v.astype(jnp.bfloat16) for k, v in f.items()}
+    ).astype(jnp.float32), x, folded)
+    np.testing.assert_allclose(got, spec, atol=0.06, rtol=0.05)
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,10 @@
 the U-Net's weight map, the BN-folded forward, the decoder's bilinear
 upsample, ``VQDiffusionComposite.sample`` with the JAX package's noise
 injected, and the entry point on the CPU. Geometry: tests/conftest.py's
-tiny_config (latent 8 -> 64 tokens, vocab 64, gaussian_dim 16, 8 DDPM
-steps) with the U-Net cut to base 16, mults (1, 2).
+tiny_config (latent 8 -> 64 tokens, vocab 64, gaussian_dim 16) with 3 DDPM
+steps and the U-Net cut to base 16, mults (1, 2); the chain against JAX's
+cuts it to mults (1,), which halves the JAX compile. The JAX chain and the
+flax forward each run under one ``jax.jit``.
 
 Tolerances: the folded U-Net within 2e-4 of the flax module, as the JAX
 package's own tests/test_shuffle_packed.py holds its folded forward; the
@@ -23,12 +25,14 @@ from test_torch_port_diffusion import _jax_noise
 from test_torch_port_shuffle import numpy_variables
 from vq_vae_gan_diffusion_torch import generate
 from vq_vae_gan_diffusion_torch.config import config_from_dict as t_config_from_dict
+from vq_vae_gan_diffusion_torch.models import shuffle_infer
 from vq_vae_gan_diffusion_torch.models.shuffle_infer import (apply_folded, fold_unet,
                                                              resolve_sampler_mode)
 from vq_vae_gan_diffusion_torch.models.unet_shuffle import ShuffleUNet as TorchUNet
 from vq_vae_gan_diffusion_torch.models.unet_shuffle import upsample_to
 from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import (
     VQDiffusionComposite as TorchComposite)
+from vq_vae_gan_diffusion_torch.ops.shuffle import fused_downsample
 from vq_vae_gan_diffusion_torch.train import VQDiffusionWorker
 from vq_vae_gan_diffusion_torch.weights import shuffle_unet_state_from_jax
 from vq_vae_gan_diffusion_tpu.models.unet_shuffle import ShuffleUNet
@@ -51,8 +55,8 @@ def few_torch_threads():
 def _vqdiffusion(tiny_config, log_dir=None, **overrides) -> dict:
     data = tiny_config.to_dict()
     data["architecture"]["model_name"] = "vqdiffusion"
-    data["architecture"]["vqdiffusion"].update(unet_base_dim=16, unet_dim_mults=[1, 2],
-                                               **overrides)
+    data["architecture"]["vqdiffusion"].update({"unet_base_dim": 16, "unet_dim_mults": [1, 2],
+                                                "diffusion_steps": 3, **overrides})
     if log_dir is not None:
         data["trainer"]["log_dir"] = str(log_dir)
     return data
@@ -65,7 +69,8 @@ def unets():
     x = np.random.RandomState(0).standard_normal((2, 32, 16, 1)).astype(np.float32)
     t = np.array([3, 7], np.int32)
     variables = numpy_variables(unet, 1, jnp.asarray(x), None, jnp.asarray(t))
-    want = np.asarray(unet.apply(variables, jnp.asarray(x), None, jnp.asarray(t), train=False))
+    want = np.asarray(jax.jit(lambda v, x, t: unet.apply(v, x, None, t, train=False))(
+        variables, jnp.asarray(x), jnp.asarray(t)))
     port = TorchUNet(10, 32, 1, 1, 16, (1, 2))
     port.load_state_dict(shuffle_unet_state_from_jax(variables["params"],
                                                      variables["batch_stats"]), strict=True)
@@ -93,6 +98,26 @@ def test_folded_unet_matches_flax(unets):
     np.testing.assert_allclose(module_out.numpy(), want, atol=2e-4)
 
 
+def test_folded_unet_on_odd_grid_matches_module(unets, monkeypatch):
+    """Odd grids (the mnist config's 49-token side) go through the
+    downsample wrapper like even ones, each halving to ceil(H/2)."""
+    _, port, *_ = unets
+    grids = []
+
+    def counted(x, folded):
+        grids.append(tuple(x.shape[1:3]))
+        return fused_downsample(x, folded)
+    monkeypatch.setattr(shuffle_infer, "fused_downsample", counted)
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal((2, 13, 7, 1)).astype(np.float32))
+    t = torch.tensor([1, 8])
+    with torch.no_grad():
+        want = port(x, None, t)
+    got = apply_folded(fold_unet(port), x, t)
+    assert grids == [(13, 7), (7, 4)]
+    assert tuple(got.shape) == (2, 13, 7, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4)
+
+
 @pytest.mark.parametrize("size,out", [((4, 3), (8, 6)), ((16, 6), (32, 12)), ((4, 2), (7, 3))])
 def test_bilinear_upsample_matches_jax(size, out):
     """The decoder's resize to its skip's size: 2x on the even grids of the
@@ -104,18 +129,18 @@ def test_bilinear_upsample_matches_jax(size, out):
 
 
 def test_composite_sample_matches_jax(tiny_config):
-    """The gaussian3d chain (8 clipped DDPM steps) and cosine argmax give the
+    """The gaussian3d chain (3 clipped DDPM steps) and cosine argmax give the
     JAX package's indices, on its weights and noise, by both port routes."""
-    data = _vqdiffusion(tiny_config)
+    data = _vqdiffusion(tiny_config, unet_dim_mults=[1])
     jcomp = JaxComposite(tiny_config.__class__(data))
     n, d = jcomp.seq_len, jcomp.gaussian_dim
     variables = jax.tree_util.tree_map(jnp.asarray, numpy_variables(
         jcomp.unet, 3, jnp.zeros((1, n, d, 1)), None, jnp.zeros((1,), jnp.int32)))
-    want = np.asarray(jcomp.sample(variables["params"], variables["batch_stats"],
-                                   jax.random.PRNGKey(4), 2))
+    want = np.asarray(jax.jit(jcomp.sample, static_argnums=3)(
+        variables["params"], variables["batch_stats"], jax.random.PRNGKey(4), 2))
     x_t, noise = _jax_noise(jax.random.PRNGKey(4), (2, n, d, 1), jcomp.timesteps)
     for fused in (True, False):
-        port = TorchComposite(t_config_from_dict(_vqdiffusion(tiny_config,
+        port = TorchComposite(t_config_from_dict(_vqdiffusion(tiny_config, unet_dim_mults=[1],
                                                               fused_sampler=fused)))
         port.unet.load_state_dict(shuffle_unet_state_from_jax(variables["params"],
                                                               variables["batch_stats"]))
@@ -135,7 +160,7 @@ def test_generate_cli_on_cpu_writes_grid(tmp_path, tiny_config):
     vocabulary, finite images, and (same seed) the same indices."""
     cfg_path = _write_config(tmp_path, tiny_config)
     outs = {}
-    for mode in ("packed", "off"):
+    for mode in ("on", "off"):
         outs[mode] = generate.run(["--config", cfg_path, "--n-samples", "2", "--device", "cpu",
                                    "--fused-sampler", mode])
         idx, images = outs[mode]["indices"], outs[mode]["images"]
@@ -144,7 +169,7 @@ def test_generate_cli_on_cpu_writes_grid(tmp_path, tiny_config):
         grids = glob.glob(str(tmp_path / "logs" / "*" / "vqdiffusion_generate" / "run_*" /
                               "samples_epoch0.jpg"))
         assert outs[mode]["path"] in grids
-    assert torch.equal(outs["packed"]["indices"], outs["off"]["indices"])
+    assert torch.equal(outs["on"]["indices"], outs["off"]["indices"])
 
 
 def test_generate_loads_port_checkpoint(tmp_path, tiny_config):

@@ -16,9 +16,11 @@
 //   branch 1: u1 = dw3x3(x[..., :ch]) + b1;  y1 = silu(u1 @ w1 + c1)
 //   branch 2: t2 = silu(x[..., ch:] @ w2 + c2), zero-padded AFTER the SiLU;
 //             u2 = dw3x3(t2) + b2;  y2 = silu(u2 @ w3 + c3)
-// Downsample unit, x [B,H,W,C] (H, W even) -> out [B,H/2,W/2,2co2]: the same
-// with stride-2 depthwise convolutions and no split: branch 1's dw runs over
-// all C channels, branch 2's first pointwise maps C -> co2 at full resolution.
+// Downsample unit, x [B,H,W,C] -> out [B,ceil(H/2),ceil(W/2),2co2]: the
+// same with stride-2 depthwise convolutions and no split: branch 1's dw runs
+// over all C channels, branch 2's first pointwise maps C -> co2 at full
+// resolution. On an odd grid the last output row (column) reads the zero pad
+// row (column) past the image, as a stride-2 convolution with padding 1 does.
 // Optional prologue x = silu(x + t[b, :]) with the zero padding kept.
 //
 // Numbers: activations and weights in T (float or bf16), sums in f32. u1,
@@ -216,8 +218,8 @@ downsample_kernel(const T* __restrict__ x, const T* __restrict__ tvec, T* __rest
   float* As = reinterpret_cast<float*>(smem4);
   float* Bs = As + kAStage;
   float* bufT = Bs + kBStage;                          // (2 * tho + 1) * W * co2
-  float* bufU = bufT + (size_t)(2 * tho + 1) * W * co2;  // tho * (W/2) * max(C, co2)
-  const int Ho = H / 2, Wo = W / 2;
+  float* bufU = bufT + (size_t)(2 * tho + 1) * W * co2;  // tho * Wo * max(C, co2)
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
   const int i0 = blockIdx.x * tho;
   const int rows = min(tho, Ho - i0);
   const int cout = 2 * co2;
@@ -254,7 +256,7 @@ downsample_kernel(const T* __restrict__ x, const T* __restrict__ tvec, T* __rest
       [&](int p, int n, float v) { ob[(size_t)p * cout + 2 * n] = from_f<T>(silu(v)); }, As, Bs);
 
   // branch 2: t2 = silu(x @ w2 + c2) at full resolution on input rows
-  // 2*i0-1 .. 2*(i0+rows-1)+1, 0 outside the image
+  // 2*i0-1 .. 2*(i0+rows-1)+1, 0 outside the image (row H of an odd grid too)
   const int q0 = (2 * i0 - 1) * W;
   pointwise<T>(
       (2 * rows + 1) * W, C, co2,
@@ -298,7 +300,7 @@ size_t bottleneck_smem(int W, int ch, int th) {
 size_t downsample_smem(int W, int C, int co2, int tho) {
   const int wide = C > co2 ? C : co2;
   return stage_bytes() +
-         ((size_t)(2 * tho + 1) * W * co2 + (size_t)tho * (W / 2) * wide) * sizeof(float);
+         ((size_t)(2 * tho + 1) * W * co2 + (size_t)tho * ((W + 1) / 2) * wide) * sizeof(float);
 }
 
 // Rows per block: at most 4; fewer while a block would need more than half
@@ -332,7 +334,7 @@ int launch_bottleneck(const void* x, void* out, const void* const* p, int B, int
 template <class T>
 int launch_downsample(const void* x, const void* tvec, void* out, const void* const* p, int B,
                       int H, int W, int C, int co2, void* stream) {
-  const int Ho = H / 2;
+  const int Ho = (H + 1) / 2;
   const int tho = pick_rows(B, Ho, [&](int t) { return downsample_smem(W, C, co2, t); });
   const size_t smem = downsample_smem(W, C, co2, tho);
   if (smem > (size_t)kSmemLimit) return -1;

@@ -5,7 +5,7 @@ Usage::
 
     python -m vq_vae_gan_diffusion_torch.generate \\
         --config configs/inference_config_small.yml [--n-samples 16] [--seed 42] \\
-        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off|pallas|packed]
+        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off]
 
 Samples ``--n-samples`` index grids with the config's prior (the GPT prior
 for ``vqvae_transformer`` / ``vqgan_transformer``, the gaussian3d diffusion
@@ -15,8 +15,9 @@ decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``);
 without one it tries ``architecture.<model>.resume_path`` and, when that is
 missing, warns and keeps the seeded fresh init. ``--fused-sampler``
-overrides ``architecture.vqdiffusion.fused_sampler``: ``off`` runs the
-unfused U-Net module, any other value the CUDA kernels. It runs on CUDA
+overrides ``architecture.vqdiffusion.fused_sampler``: ``on`` runs the CUDA
+kernels, ``off`` the unfused U-Net module (the config itself may also say
+``pallas`` or ``packed``, which select the kernels too). It runs on CUDA
 unless ``--device cpu``.
 """
 
@@ -52,7 +53,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
     parser.add_argument("--fused-sampler", type=str, default=None,
-                        choices=["on", "off", "pallas", "packed"],
+                        choices=["on", "off"],
                         help="override architecture.vqdiffusion.fused_sampler")
     args = parser.parse_args(argv)
 
@@ -64,8 +65,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         raise NotImplementedError(
             f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
     if args.fused_sampler is not None and "vqdiffusion" in config.architecture:
-        val = {"on": True, "off": False}.get(args.fused_sampler, args.fused_sampler)
-        config = config.replace_path("architecture.vqdiffusion.fused_sampler", val)
+        config = config.replace_path("architecture.vqdiffusion.fused_sampler",
+                                     args.fused_sampler == "on")
 
     from .train import VQDiffusionWorker, VQTransformerWorker
     from .utils import create_run_dir, resolve_device, setup_logging

@@ -9,7 +9,8 @@ contiguous):
 
 - every ResidualBottleneck -> ``ops.shuffle.fused_bottleneck`` (one launch);
 - every ResidualDownsample -> ``ops.shuffle.fused_downsample`` (one launch),
-  except on odd grids, which keep plain ops as the JAX package does;
+  odd grids included (the JAX package keeps plain ops there; the kernel
+  computes the same ceil(H/2) x ceil(W/2) output);
 - the init conv, time embedding and TimeMLP, bilinear resize, concat and
   final 1x1 conv are plain torch ops.
 
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.shuffle import (bn_affine, fold_bottleneck_params, fold_downsample_params,
-                           fused_bottleneck, fused_downsample, reference_downsample)
+                           fused_bottleneck, fused_downsample)
 from .unet_shuffle import ShuffleUNet, upsample_to
 
 _OFF = ("off", "false", "none", "0", "")
@@ -94,12 +95,6 @@ def _chain(x: torch.Tensor, units) -> torch.Tensor:
     return x
 
 
-def _downsample(x: torch.Tensor, folded) -> torch.Tensor:
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        return reference_downsample(x, folded)
-    return fused_downsample(x, folded)
-
-
 @torch.no_grad()
 def apply_folded(folded: Dict[str, Any], x: torch.Tensor,
                  t: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -117,7 +112,7 @@ def apply_folded(folded: Dict[str, Any], x: torch.Tensor,
         shortcuts.append(x)
         if t_emb is not None:
             x = _time_mlp(x, t_emb, blk["time"])
-        x = _downsample(x, blk["down"])
+        x = fused_downsample(x, blk["down"])
     x = _chain(x, folded["mid"])
     for blk in folded["dec"]:
         sc = shortcuts.pop()

@@ -203,13 +203,14 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
     """One stride-2 ResidualDownsample at inference.
 
     Args:
-      x: [B, H, W, C] NHWC, f32 or bf16, H and W even.
+      x: [B, H, W, C] NHWC, f32 or bf16.
       folded: from :func:`fold_downsample_params`, in x's dtype.
       t_vec: optional [B, C] in x's dtype: the unit then reads
         silu(x + t_vec[:, None, None, :]), with its zero padding kept (the
         JAX packed kernel's TimeMLP prologue).
 
-    Returns [B, H/2, W/2, 2co2] in x's dtype, channel-shuffled.
+    Returns [B, ceil(H/2), ceil(W/2), 2co2] in x's dtype, channel-shuffled
+    (a stride-2 3x3 convolution with padding 1, odd grids included).
 
     CUDA tensors go through the CUDA kernel, which adds one to
     ``fused_downsample.launches`` per call; CPU tensors go through
@@ -219,8 +220,8 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
         return reference_downsample(x, folded, t_vec)
     if x.device.type != "cuda":
         raise ValueError(f"fused_downsample runs on cuda or cpu, not {x.device}")
-    if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"x must be [B, H, W, C] with H and W even, got {tuple(x.shape)}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
     co2 = folded["w1"].shape[-1]
     extra = {}
@@ -232,7 +233,7 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
     _check_cuda_args(x, folded, {
         "k1": (3, 3, c), "b1": (c,), "w1": (c, co2), "c1": (co2,), "w2": (c, co2),
         "c2": (co2,), "k2": (3, 3, co2), "b2": (co2,), "w3": (co2, co2), "c3": (co2,)}, extra)
-    out = torch.empty((b, h // 2, w // 2, 2 * co2), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, 2 * co2), dtype=x.dtype, device=x.device)
     lib = _bind()
     fn = lib.shuffle_downsample_f32 if x.dtype == torch.float32 else lib.shuffle_downsample_bf16
     _launch(fn, "shuffle_downsample", x.data_ptr(),

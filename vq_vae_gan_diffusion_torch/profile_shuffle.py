@@ -6,29 +6,26 @@ Builds the prior's U-Net of configs/inference_config_vqdiffusion.yml at
 full width (base 64, mults (1, 2, 4, 8), 1000 timesteps, flax-style weights
 from seed 0), folds it, and on a state of [16, 256, 96, 1] prints:
 
-- the host-clock time of one U-Net forward through the kernels, with the
-  device synchronised at the end;
-- the host's own time to issue one forward (no synchronise);
-- from ``torch.profiler`` over a few clipped DDPM reverse steps: the device
-  time a step summed over all CUDA kernels, the device's busy share of the
-  host-clock window, and the device time of each kernel by name a step,
-  so the shuffle units can be set against the plain torch ops between
-  them (init conv, TimeMLP, resize, concat, final conv, the update);
+- per clipped DDPM reverse step (one U-Net forward through the kernels and
+  the update), the report of ``utils.profiling.report``: host-clock time,
+  the host's own time to issue one step, the device time summed over all
+  CUDA kernels, the device's busy share, and the device time of each kernel
+  by name, so the shuffle units can be set against the plain torch ops
+  between them (init conv, TimeMLP, resize, concat, final conv, the update);
 - the device time of the final cosine argmax, which runs once a chain.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from .diffusion.gaussian3d import GaussianDiffusion3D, VQGaussianDiffusion3D
 from .models.shuffle_infer import apply_folded, fold_unet
 from .models.unet_shuffle import ShuffleUNet
 from .utils import resolve_device
+from .utils.profiling import report
 
 B, N, D, T = 16, 256, 96, 1000
 STEPS = 10
@@ -47,50 +44,18 @@ def main(argv=None) -> int:
     folded = fold_unet(unet.cuda().eval(), dtype)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(B, N, D, 1, generator=gen, device="cuda")
-    t = torch.full((B,), T - 1, dtype=torch.long, device="cuda")
-
-    def forward():
-        return apply_folded(folded, x, t)
-
-    for _ in range(2):
-        forward()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        forward()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / STEPS
-    t0 = time.perf_counter()
-    forward()
-    enqueue_ms = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
-
+    noise = torch.randn(B, N, D, 1, generator=gen, device="cuda")
     diffusion = GaussianDiffusion3D((N, D), 1, T, T, sample_method="ddpm",
                                     model_fn=lambda x_, sc, tb: apply_folded(folded, x_, tb).float())
-    noise = torch.randn(B, N, D, 1, generator=gen, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = x
-        for step in range(STEPS):
-            state = diffusion._reverse_step(state, T - 1 - step, noise, clipped=True)
-        torch.cuda.synchronize()
-        window_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    print(f"{args.dtype}: one U-Net forward {wall_ms:.3f} ms on the host clock; host issues "
-          f"one in {enqueue_ms:.3f} ms; a reverse step {dev_us / 1e3 / STEPS:.3f} ms of device "
-          f"time, device busy {100 * dev_us / 1e3 / window_ms:.1f}% of the profiled window "
-          f"({window_ms / STEPS:.3f} ms a step); {torch.cuda.get_device_name(0)}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        print(f"  {e.self_device_time_total / STEPS:10.1f} us/step  {e.count / STEPS:5.1f} "
-              f"launches/step  {e.key[:90]}")
+    report(args.dtype, lambda i: diffusion._reverse_step(x, T - 1 - i, noise, clipped=True),
+           STEPS, 1, "step")
 
     prior = VQGaussianDiffusion3D(seq_length=N, timesteps=T, sampling_timesteps=T,
                                   vocab_size=1024, gaussian_dim=D).cuda()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    prior.gaussian_to_indices(state)
+    prior.gaussian_to_indices(x)
     start.record()
-    prior.gaussian_to_indices(state)
+    prior.gaussian_to_indices(x)
     end.record()
     torch.cuda.synchronize()
     print(f"cosine argmax to [{B}, {N}] indices over 1024 codes: {start.elapsed_time(end):.3f} ms "
