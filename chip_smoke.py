@@ -33,10 +33,33 @@ Phases, each printed as it runs; any failure exits non-zero:
       weights), with both kernels' launch counts checked; cold, then warm;
   (h) the kernel route against the ``fused_sampler: False`` module route:
       one full-width U-Net forward, and a 20-step chain at full width with
-      the same noise (at least 99% of indices equal).
+      the same noise (at least 99% of indices equal);
+  (i) the fused posterior-and-sample kernels, with Gumbel noise read (B6)
+      and drawn by Philox in the kernel (B7), against their plain versions
+      at the two discrete priors' shapes (logits [16, 256, 1023] and
+      [16, 256, 1024]), f32 and bf16 logits, trunc_k 0 and 881, carries with
+      masked positions, t in {0, 1, T/2, T-1}: at least 99.9% of indices
+      equal, and at every other row the plain version's two best scores
+      within 1e-4; each shape's kernel time, plain time and bound; then
+      B7's samples at fixed logits over 4096 seeds (1,048,576 draws)
+      against softmax(ev), total variation below 0.02;
+  (j) the third path: ``vq_vae_gan_diffusion_torch.generate`` on
+      configs/inference_config_vqofficial.yml at full width (16 samples,
+      the ShuffleNet U-Net on the [16, 1024, 256, 1] log-onehot image, K =
+      1024 classes over 256 tokens, VQVAE decode to [16, 256, 256, 3]) with
+      the chain cut to 20 steps (t = 19..0 of the 1000-step schedule): 19
+      B6, 780 K1 and 80 K2 launches; cold, then warm; K1 and K2 against
+      their plain versions at every unit shape of this U-Net (1024x256 down
+      to 64x16); ``fused_posterior`` on against off with the same noise
+      over the 20 steps (at least 99% of indices equal);
+  (k) the transformer prior (codebook 1024, 256 tokens, 100 steps, width
+      512, 4 blocks of 8 heads, 16 samples, seeded weights): ``sample``
+      with plain ops, with B6 (99 launches) and under ``prng`` with B7 (99
+      launches), and ``fast_sample`` (skip 4, top-r 0.86: 24 B6 launches at
+      trunc_k 881); indices in [0, 1023].
 
-Each path, (d) and (g), runs with every kernel's launch count set to 0 just
-before it and read just after. Before the last line it prints one JSON line
+Each path, (d), (g), (j) and each run of (k), runs with every kernel's
+launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -53,10 +76,15 @@ import torch
 
 CONFIG = "configs/inference_config_small.yml"
 VQD_CONFIG = "configs/inference_config_vqdiffusion.yml"
+VQO_CONFIG = "configs/inference_config_vqofficial.yml"
 # full width of the GPT prior in CONFIG, at --n-samples 16
 L, C, H, B, N = 12, 1024, 16, 16, 256
 # full width of the gaussian3d prior in VQD_CONFIG: state [B, N, 96, 1]
 GAUSSIAN_DIM, UNET_BASE, UNET_MULTS, STEPS = 96, 64, (1, 2, 4, 8), 1000
+# the discrete priors: VQ_Official's K = 1024 classes over 1000 steps
+# (chain cut to 20), the transformer's K = 1025 over 100 steps
+VQO_K, VQO_T, VQO_STEPS = 1024, 1000, 20
+TVQ_K, TVQ_T, TRUNC_K = 1025, 100, int(1025 * 0.86)
 F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
 
@@ -192,10 +220,17 @@ def phase_kernel(card: str) -> dict:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by its kernel's name in the JSON line."""
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, fused_posterior_sample_prng)
     from vq_vae_gan_diffusion_torch.ops.gpt_decode import fused_decode_stack
     from vq_vae_gan_diffusion_torch.ops.shuffle import fused_bottleneck, fused_downsample
     return {"gpt_decode_stack": fused_decode_stack, "shuffle_bottleneck": fused_bottleneck,
-            "shuffle_downsample": fused_downsample}
+            "shuffle_downsample": fused_downsample, "discrete_posterior": fused_posterior_sample,
+            "discrete_posterior_prng": fused_posterior_sample_prng}
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def reset_counts() -> None:
@@ -334,9 +369,11 @@ def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
     return err
 
 
-def phase_units(card: str) -> dict:
+def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
+                kernel_reps: int = 20, plain_reps: int = 3) -> dict:
     """The bottleneck and downsample kernels against reference_bottleneck /
-    reference_downsample at every distinct unit shape of the U-Net forward.
+    reference_downsample at every distinct unit shape of the U-Net forward
+    on a [B, h, w, 1] input (the gaussian3d state by default).
 
     Tolerance: max |kernel - plain| <= tol * max(1, max |plain|). f32, tol
     1e-4: both sum the same f32 products in other orders, over at most 9
@@ -354,7 +391,7 @@ def phase_units(card: str) -> dict:
     from vq_vae_gan_diffusion_torch.ops.shuffle import (fused_bottleneck, fused_downsample,
                                                         reference_bottleneck,
                                                         reference_downsample)
-    units = unet_unit_shapes()
+    units = unet_unit_shapes(h, w)
     counts: dict = {}
     for u in units:
         counts[u] = counts.get(u, 0) + 1
@@ -366,12 +403,12 @@ def phase_units(card: str) -> dict:
         tag = "f32" if dtype == torch.float32 else "bf16"
         acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
                    "ops_ms": 0.0, "bound_ms": 0.0, "calls": 0} for k in ("K1", "K2")}
-        for (kind, h, w, c_in, c_out), count in counts.items():
+        for (kind, uh, uw, c_in, c_out), count in counts.items():
             p = random_unit(kind, c_in, c_out, dtype, gen)
-            x = torch.randn(B, h, w, c_in, generator=gen, device="cuda").to(dtype)
+            x = torch.randn(B, uh, uw, c_in, generator=gen, device="cuda").to(dtype)
             kernel, plain = ((fused_bottleneck, reference_bottleneck) if kind == "K1"
                              else (fused_downsample, reference_downsample))
-            what = f"{tag} {kind} {h}x{w} {c_in}->{c_out}"
+            what = f"{tag} {kind} {uh}x{uw} {c_in}->{c_out}"
             got, want = kernel(x, p), plain(x, p)
             torch.cuda.synchronize()
             err = check_close(what, got, want, tol)
@@ -380,13 +417,15 @@ def phase_units(card: str) -> dict:
                 got_t, want_t = kernel(x, p, t_vec), plain(x, p, t_vec)
                 torch.cuda.synchronize()
                 err_t = check_close(what + " t_vec", got_t, want_t, tol)
-                print(f"(f) {what} with the silu(x + t_vec) prologue: max abs err {err_t:.3e}")
+                print(f"({label}) {what} with the silu(x + t_vec) prologue: "
+                      f"max abs err {err_t:.3e}")
                 err = max(err, err_t)
-            ms = cuda_ms(lambda: kernel(x, p), reps=20)
-            plain_ms = cuda_ms(lambda: plain(x, p), reps=3)
-            by_bytes, by_ops = unit_bound(kind, h, w, c_in, c_out, dtype, card)
+            ms = cuda_ms(lambda: kernel(x, p), reps=kernel_reps)
+            plain_ms = cuda_ms(lambda: plain(x, p), reps=plain_reps)
+            by_bytes, by_ops = unit_bound(kind, uh, uw, c_in, c_out, dtype, card)
             bound = max(by_bytes, by_ops)
-            print(f"(f) {what} (x{count} a forward): max abs err {err:.3e}; kernel {ms:.4f} ms, "
+            print(f"({label}) {what} (x{count} a forward): max abs err {err:.3e}; "
+                  f"kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
                   f"{'bytes' if by_bytes >= by_ops else 'operations'}")
             a = acc[kind]
@@ -401,7 +440,8 @@ def phase_units(card: str) -> dict:
             for key in ("ms", "plain_ms", "bound_ms"):
                 a[key] /= n
             a["bound_by"] = "bytes" if a.pop("bytes_ms") >= a.pop("ops_ms") else "operations"
-            print(f"(f) {tag} {kind}: mean over one forward's {n} calls: kernel {a['ms']:.4f} ms, "
+            print(f"({label}) {tag} {kind}: mean over one forward's {n} calls: "
+                  f"kernel {a['ms']:.4f} ms, "
                   f"plain {a['plain_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms by "
                   f"{a['bound_by']}; {n * a['ms']:.3f} ms a forward; {card}")
         result[dtype] = acc
@@ -449,7 +489,6 @@ def phase_vqdiffusion() -> dict:
     Returns the launches of each kernel counted in the cold run."""
     from vq_vae_gan_diffusion_torch import generate
 
-    wrappers = kernel_wrappers()
     argv = ["--config", VQD_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
     counted = None
     for run in ("cold", "warm"):
@@ -458,7 +497,7 @@ def phase_vqdiffusion() -> dict:
         t0 = time.perf_counter()
         out = generate.run(argv)
         total = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = read_counts()
         counted = launches if counted is None else counted
         idx, images = out["indices"], out["images"]
         if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= 1024:
@@ -466,7 +505,8 @@ def phase_vqdiffusion() -> dict:
         if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
             raise AssertionError(f"images {tuple(images.shape)} not finite of [16,256,256,3]")
         want = {"gpt_decode_stack": 0, "shuffle_bottleneck": 39 * STEPS,
-                "shuffle_downsample": 4 * STEPS}
+                "shuffle_downsample": 4 * STEPS, "discrete_posterior": 0,
+                "discrete_posterior_prng": 0}
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         sec = out["seconds"]
@@ -525,6 +565,232 @@ def phase_vqd_routes() -> None:
         raise AssertionError(f"kernel and module routes agree on only {100 * agree:.2f}%")
 
 
+# per class of one row: the body's f32 operations (two max and two sum-exp
+# passes, the clamps, two log-add-exps and the selects, the score and the
+# argmax), Philox4x32-10's share (40 integer operations a block of four
+# classes) with the Gumbel transform, and the 32 counting passes of the
+# top-r radix select
+POSTERIOR_OPS, PHILOX_OPS, RADIX_OPS = 30, 15, 4 * 32
+
+
+def posterior_bound(km1: int, dtype: torch.dtype, prng: bool, trunc_k: int,
+                    name: str) -> tuple[float, str]:
+    """Least time of one call on [B, N] rows of K = km1 + 1 classes: the
+    logits (and, for B6, the f32 Gumbel noise) read once, the carry read and
+    the int64 indices written once, over the memory rate; or the operations
+    above over the f32 peak, whichever is larger."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    k, rows = km1 + 1, B * N
+    bytes_ = rows * (km1 * es + 16) + B * 40 + (B * 8 if prng else rows * k * 4)
+    ops = rows * k * (POSTERIOR_OPS + (PHILOX_OPS if prng else 0) + (RADIX_OPS if trunc_k else 0))
+    by_bytes, by_ops = bytes_ / hbm_bytes_per_s(name), ops / F32_PEAK_FLOPS
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def check_indices(what: str, got: torch.Tensor, scores: torch.Tensor) -> float:
+    """The kernel's indices against the plain version's scores [B, N, K]:
+    at least 99.9% of rows pick the plain argmax, and at every other row
+    the plain version's two best scores lie within 1e-4 of each other and
+    the kernel's pick scores within 1e-4 of the best. Returns the largest
+    gap between the plain best score and the plain score of the kernel's
+    pick (0 where they agree)."""
+    if got.min().item() < 0 or got.max().item() >= scores.shape[-1]:
+        raise AssertionError(f"{what}: indices outside [0, {scores.shape[-1]})")
+    top2 = scores.topk(2, dim=-1).values
+    differ = got != scores.argmax(-1)
+    gap = (top2[..., 0] - scores.gather(-1, got[..., None])[..., 0]).max().item()
+    agree = 1.0 - differ.float().mean().item()
+    near = (top2[..., 0] - top2[..., 1])[differ]
+    tie = near.max().item() if near.numel() else 0.0
+    if agree < 0.999 or tie > 1e-4 or gap > 1e-4:
+        raise AssertionError(f"{what}: {100 * agree:.3f}% of indices equal, top-2 gap at "
+                             f"differing rows {tie:.3e}, score gap of the kernel's pick {gap:.3e}")
+    return gap
+
+
+def phase_posterior(card: str) -> dict:
+    """(i): B6 and B7 against their plain versions, timing, and B7's
+    distribution. Returns, per kernel, the JSON numbers at its path's shape
+    (B6: VQ_Official's [16, 256, 1023] f32 logits; B7: the transformer's
+    [16, 256, 1024]), trunc_k 0."""
+    from vq_vae_gan_diffusion_torch.diffusion.discrete import make_discrete_schedule
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
+        gumbel_from_bits, gumbel_from_uniform, philox_bits, posterior_log_probs,
+        posterior_scores, reference_posterior_sample, reference_posterior_sample_prng)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    result = {}
+    for k, steps, ctt_T in ((VQO_K, VQO_T, 0.99999), (TVQ_K, TVQ_T, 0.9)):
+        km1 = k - 1
+        sched = make_discrete_schedule(steps, k, ctt_T).to("cuda")
+        gumbel = gumbel_from_uniform(torch.rand(B, N, k, generator=gen, device="cuda"))
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), dtype=torch.int32, generator=gen,
+                              device="cuda")
+        prng_gumbel = gumbel_from_bits(philox_bits(seeds, N, k))
+        x_t = torch.randint(0, k, (B, N), generator=gen, device="cuda")
+        x_t[:, ::5] = km1                                          # masked positions
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = (3 * torch.randn(B, N, km1, generator=gen, device="cuda")).to(dtype)
+            gaps = {"discrete_posterior": 0.0, "discrete_posterior_prng": 0.0}
+            for t in (0, 1, steps // 2, steps - 1):
+                coefs = gather_posterior_coefs(sched, torch.full((B,), t, device="cuda"), steps)
+                for trunc_k in (0, TRUNC_K):
+                    for name, fn, noise, g in (
+                            ("discrete_posterior", fused_posterior_sample, gumbel, gumbel),
+                            ("discrete_posterior_prng", fused_posterior_sample_prng, seeds,
+                             prng_gumbel)):
+                        got = fn(logits, x_t, coefs, noise, trunc_k=trunc_k)
+                        torch.cuda.synchronize()
+                        what = f"{name} K={k} {dtype} t={t} trunc_k={trunc_k}"
+                        gaps[name] = max(gaps[name], check_indices(
+                            what, got, posterior_scores(logits, x_t, coefs, g, trunc_k)))
+            coefs = gather_posterior_coefs(sched, torch.full((B,), steps // 2, device="cuda"),
+                                           steps)
+            for name, fn, plain, noise in (
+                    ("discrete_posterior", fused_posterior_sample, reference_posterior_sample,
+                     gumbel),
+                    ("discrete_posterior_prng", fused_posterior_sample_prng,
+                     reference_posterior_sample_prng, seeds)):
+                for trunc_k in (0, TRUNC_K):
+                    ms = cuda_ms(lambda: fn(logits, x_t, coefs, noise, trunc_k=trunc_k), reps=50)
+                    plain_ms = cuda_ms(lambda: plain(logits, x_t, coefs, noise, trunc_k=trunc_k),
+                                       reps=5)
+                    bound, bound_by = posterior_bound(km1, dtype, name.endswith("prng"),
+                                                      trunc_k, card)
+                    print(f"(i) {name} logits [{B}, {N}, {km1}] {dtype} trunc_k {trunc_k}: "
+                          f"checks at 4 t x 2 trunc_k pass, max score gap {gaps[name]:.3e}; kernel "
+                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
+                          f"{bound_by}; {card}")
+                    main_k = VQO_K if name == "discrete_posterior" else TVQ_K
+                    if k == main_k and dtype == torch.float32 and trunc_k == 0:
+                        result[name] = {"max_abs_err": gaps[name], "ms": ms, "plain_ms": plain_ms,
+                                        "bound_ms": bound, "bound_by": bound_by}
+            del logits
+
+    # B7's distribution: one row's logits everywhere, 256 calls of 16 seed pairs
+    k, km1 = TVQ_K, TVQ_K - 1
+    sched = make_discrete_schedule(TVQ_T, k, 0.9).to("cuda")
+    logits = torch.randn(1, 1, km1, generator=gen, device="cuda").expand(B, N, km1).contiguous()
+    x_t = torch.full((B, N), 7, device="cuda")
+    coefs = gather_posterior_coefs(sched, torch.full((B,), TVQ_T // 2, device="cuda"), TVQ_T)
+    counts = torch.zeros(k, dtype=torch.float64, device="cuda")
+    calls = 256
+    for _ in range(calls):
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), dtype=torch.int32, generator=gen,
+                              device="cuda")
+        got = fused_posterior_sample_prng(logits, x_t, coefs, seeds)
+        counts += torch.bincount(got.flatten(), minlength=k).double()
+    p = torch.softmax(posterior_log_probs(logits[:1, :1], x_t[:1, :1], coefs[:1])[0, 0].double(),
+                      dim=-1)
+    tv = 0.5 * (counts / counts.sum() - p).abs().sum().item()
+    print(f"(i) discrete_posterior_prng: {calls * B} seeds, {int(counts.sum().item())} draws of "
+          f"one row's posterior over {k} classes: total variation {tv:.4f} against softmax(ev)")
+    if tv >= 0.02:
+        raise AssertionError(f"prng samples stray from the posterior: total variation {tv:.4f}")
+    return result
+
+
+def phase_vqofficial(card: str) -> dict:
+    """(j): the VQ_Official path through the user's entry point, cold then
+    warm, the unit shapes of its U-Net, and the posterior kernel against
+    plain ops over a 20-step chain. Returns the launches of the cold run."""
+    from vq_vae_gan_diffusion_torch import generate
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import VQDiffusionComposite
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import gumbel_from_uniform
+
+    steps_path = "architecture.vqdiffusion.sampling_steps"
+    argv = ["--config", VQO_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    counted = None
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate.run(argv, overrides={steps_path: VQO_STEPS})
+        total = time.perf_counter() - t0
+        launches = read_counts()
+        counted = launches if counted is None else counted
+        idx, images = out["indices"], out["images"]
+        if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= VQO_K:
+            raise AssertionError(f"indices {tuple(idx.shape)} not [16, 256] in [0, 1024)")
+        if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
+            raise AssertionError(f"images {tuple(images.shape)} not finite of [16,256,256,3]")
+        want = {"gpt_decode_stack": 0, "shuffle_bottleneck": 39 * VQO_STEPS,
+                "shuffle_downsample": 4 * VQO_STEPS, "discrete_posterior": VQO_STEPS - 1,
+                "discrete_posterior_prng": 0}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        sec = out["seconds"]
+        print(f"(j) {run}: {launches['discrete_posterior']} posterior, "
+              f"{launches['shuffle_bottleneck']} bottleneck and "
+              f"{launches['shuffle_downsample']} downsample launches; {VQO_STEPS}-step chain "
+              f"{sec['sample']:.3f} s ({1e3 * sec['sample'] / VQO_STEPS:.3f} ms a reverse step); "
+              f"VQVAE decode {sec['decode']:.3f} s; total {total:.2f} s; max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{len(set(idx.flatten().tolist()))} distinct indices; grid {out['path']}; {card}")
+
+    phase_units(card, h=VQO_K, w=N, label="j", kernel_reps=5, plain_reps=1)
+
+    cfg = load_config(VQO_CONFIG).replace_path(steps_path, VQO_STEPS)
+    comp = VQDiffusionComposite(cfg)
+    comp.unet.init_weights(torch.Generator().manual_seed(9))
+    comp = comp.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    shape = (B, N, VQO_K)
+    u = torch.rand(shape, generator=gen, device="cuda")
+    gumbel = [gumbel_from_uniform(torch.rand(shape, generator=gen, device="cuda"))
+              for _ in range(VQO_STEPS)]
+    idx = {}
+    for mode in (True, False):
+        comp.fused_posterior = mode
+        idx[mode] = comp.sample(B, init_uniform=u, step_gumbel=gumbel)
+    agree = (idx[True] == idx[False]).float().mean().item()
+    print(f"(j) {VQO_STEPS}-step chain, same noise, fused_posterior on against off: "
+          f"{100 * agree:.2f}% of {B} x {N} indices equal")
+    if agree < 0.99:
+        raise AssertionError(f"posterior kernel and plain ops agree on only {100 * agree:.2f}%")
+    return counted
+
+
+def phase_transformer(card: str) -> dict:
+    """(k): the transformer prior's samplers at full width; returns the
+    launches of each run by its label."""
+    from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
+        TransformerVQDiffusion)
+
+    tvq = TransformerVQDiffusion(codebook_size=1024, seq_len=N, diffusion_steps=TVQ_T,
+                                 embedding_dim=512, num_layers=4, num_heads=8)
+    tvq.predictor.init_weights(torch.Generator().manual_seed(11))
+    tvq = tvq.cuda().eval()
+    none = {name: 0 for name in kernel_wrappers()}
+    runs = (("sample, plain ops", "sample", False, {}),
+            ("sample, B6", "sample", True, {"discrete_posterior": TVQ_T - 1}),
+            ("fast_sample, B6 at trunc_k 881", "fast_sample", True,
+             {"discrete_posterior": (TVQ_T - 1) // 4}),
+            ("sample, prng (B7)", "sample", "prng", {"discrete_posterior_prng": TVQ_T - 1}))
+    counted = {}
+    for label, method, mode, expect in runs:
+        tvq.diffusion.fused_posterior = mode
+        getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(12))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(12))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != dict(none, **expect):
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+        if tuple(idx.shape) != (B, 16, 16) or int(idx.min()) < 0 or int(idx.max()) > 1023:
+            raise AssertionError(f"{label}: indices {tuple(idx.shape)} not [16, 16, 16] "
+                                 "in [0, 1023]")
+        counted[label] = launches
+        n_steps = TVQ_T if method == "sample" else (TVQ_T - 1) // 4 + 1
+        print(f"(k) {label}: {sum(launches.values())} kernel launches; {n_steps}-step chain "
+              f"{sec:.4f} s warm ({1e3 * sec / n_steps:.3f} ms a reverse step); {card}")
+    return counted
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -537,6 +803,9 @@ def main() -> int:
     phase_other_shapes()
     vqd_launches = phase_vqdiffusion()
     phase_vqd_routes()
+    posterior = phase_posterior(card)
+    vqo_launches = phase_vqofficial(card)
+    tvq_launches = phase_transformer(card)
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",
@@ -559,7 +828,21 @@ def main() -> int:
             "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
             "library_ms": None,
         })
+    # max_abs_err of an index kernel: the largest gap between the plain
+    # version's best score and its score at the kernel's pick
+    for name, replaces, launches in (
+            ("discrete_posterior", "vq_vae_gan_diffusion_tpu/ops/discrete_posterior_pallas.py:220",
+             vqo_launches["discrete_posterior"]),
+            ("discrete_posterior_prng",
+             "vq_vae_gan_diffusion_tpu/ops/discrete_posterior_pallas.py:255",
+             tvq_launches["sample, prng (B7)"]["discrete_posterior_prng"])):
+        kernels.append(dict({"name": name, "route": "cuda",
+                             "source": "vq_vae_gan_diffusion_torch/csrc/discrete_posterior.cu",
+                             "replaces": replaces, "launches": launches, "library_ms": None},
+                            **posterior[name]))
     for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was not launched on its path")
         if not all(math.isfinite(k[key]) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite numbers for {k['name']}")
     print(json.dumps({"kernels": kernels}))

@@ -128,7 +128,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library.__wrapped__("gpt_decode")
-    assert _build.sources() == ["gpt_decode", "shuffle_units"]
+    assert _build.sources() == ["discrete_posterior", "gpt_decode", "shuffle_units"]
 
 
 def test_wrapper_rejects_bad_cuda_arguments(setup):

@@ -3,15 +3,15 @@
 Plain numpy in float64:
 
 - ``linear_betas``: linspace(1e-4, 0.02, T);
-- ``cosine_betas``: the cosine schedule, clipped to 0.999.
-
-``discrete_alpha_schedule`` (the discrete VQ-diffusion priors) comes with
-their slice.
+- ``cosine_betas``: the cosine schedule, clipped to 0.999;
+- ``discrete_alpha_schedule``: the mask-and-replace (at, bt, ct) keep /
+  uniform-replace / mask schedule of the discrete VQ-diffusion priors.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 
@@ -36,3 +36,26 @@ def get_betas(name: str, timesteps: int) -> np.ndarray:
     if name == "cosine":
         return cosine_betas(timesteps)
     raise ValueError(f"unknown schedule {name!r}")
+
+
+def discrete_alpha_schedule(time_step: int, N: int = 100, att_1: float = 0.99999,
+                            att_T: float = 0.000009, ctt_1: float = 0.000009,
+                            ctt_T: float = 0.99999) -> Tuple[np.ndarray, ...]:
+    """Per-step and cumulative keep / uniform-replace / mask probabilities
+    (at, bt, ct, att, btt, ctt) of the mask-and-replace process. N is the
+    number of non-mask classes. The per-step arrays have ``time_step``
+    entries; the cumulative ones ``time_step + 1``, the last being the
+    padding entry (att 1, ctt 0) that index T (and t - 1 = -1 wrapped) reads."""
+    att = np.arange(0, time_step) / (time_step - 1) * (att_T - att_1) + att_1
+    att = np.concatenate(([1.0], att))
+    at = att[1:] / att[:-1]
+    ctt = np.arange(0, time_step) / (time_step - 1) * (ctt_T - ctt_1) + ctt_1
+    ctt = np.concatenate(([0.0], ctt))
+    one_minus_ctt = 1 - ctt
+    one_minus_ct = one_minus_ctt[1:] / one_minus_ctt[:-1]
+    ct = 1 - one_minus_ct
+    bt = (1 - at - ct) / N
+    att = np.concatenate((att[1:], [1.0]))
+    ctt = np.concatenate((ctt[1:], [0.0]))
+    btt = (1 - att - ctt) / N
+    return at, bt, ct, att, btt, ctt

@@ -5,11 +5,14 @@ Usage::
 
     python -m vq_vae_gan_diffusion_torch.generate \\
         --config configs/inference_config_small.yml [--n-samples 16] [--seed 42] \\
-        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off]
+        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off] \\
+        [--fused-posterior on|off|prng]
 
 Samples ``--n-samples`` index grids with the config's prior (the GPT prior
-for ``vqvae_transformer`` / ``vqgan_transformer``, the gaussian3d diffusion
-prior for ``vqdiffusion``, as in ``configs/inference_config_vqdiffusion.yml``),
+for ``vqvae_transformer`` / ``vqgan_transformer``; for ``vqdiffusion`` the
+gaussian3d diffusion prior, as in ``configs/inference_config_vqdiffusion.yml``,
+or the discrete ``VQ_Official`` prior, as in
+``configs/inference_config_vqofficial.yml``),
 decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 ``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. ``--ckpt`` loads
 a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``);
@@ -17,8 +20,13 @@ without one it tries ``architecture.<model>.resume_path`` and, when that is
 missing, warns and keeps the seeded fresh init. ``--fused-sampler``
 overrides ``architecture.vqdiffusion.fused_sampler``: ``on`` runs the CUDA
 kernels, ``off`` the unfused U-Net module (the config itself may also say
-``pallas`` or ``packed``, which select the kernels too). It runs on CUDA
-unless ``--device cpu``.
+``pallas`` or ``packed``, which select the kernels too).
+``--fused-posterior`` overrides ``architecture.vqdiffusion.fused_posterior``
+for the discrete prior: ``on`` runs each structured reverse step's posterior
+and sample as one fused kernel reading Gumbel noise, ``prng`` as the fused
+kernel that draws its own, ``off`` as plain ops (the config may also say
+``interpret``, which counts as on; unset, it is on for CUDA). It runs on
+CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -41,9 +49,12 @@ _LATER_SLICES = {
 }
 
 
-def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+def run(argv: Optional[Sequence[str]] = None,
+        overrides: Optional[Dict[str, object]] = None) -> Dict[str, object]:
     """Parse ``argv``, generate, and return the worker's result (codes,
-    images, the grid's path, phase seconds) with the run dir."""
+    images, the grid's path, phase seconds) with the run dir.
+    ``overrides`` maps dotted config paths to values set after the command
+    line's (e.g. ``{"architecture.vqdiffusion.sampling_steps": 20}``)."""
     parser = argparse.ArgumentParser(description="PyTorch/CUDA generation")
     parser.add_argument("--config", type=str, default="configs/inference_config_small.yml")
     parser.add_argument("--seed", type=int, default=42)
@@ -55,6 +66,9 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     parser.add_argument("--fused-sampler", type=str, default=None,
                         choices=["on", "off"],
                         help="override architecture.vqdiffusion.fused_sampler")
+    parser.add_argument("--fused-posterior", type=str, default=None,
+                        choices=["on", "off", "prng"],
+                        help="override architecture.vqdiffusion.fused_posterior")
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
@@ -67,6 +81,13 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     if args.fused_sampler is not None and "vqdiffusion" in config.architecture:
         config = config.replace_path("architecture.vqdiffusion.fused_sampler",
                                      args.fused_sampler == "on")
+    if args.fused_posterior is not None and "vqdiffusion" in config.architecture:
+        config = config.replace_path("architecture.vqdiffusion.fused_posterior",
+                                     {"on": True, "off": False}.get(args.fused_posterior,
+                                                                    args.fused_posterior))
+
+    for path, value in (overrides or {}).items():
+        config = config.replace_path(path, value)
 
     from .train import VQDiffusionWorker, VQTransformerWorker
     from .utils import create_run_dir, resolve_device, setup_logging

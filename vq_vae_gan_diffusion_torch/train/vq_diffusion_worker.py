@@ -3,8 +3,11 @@
 
 :meth:`init_state` draws the VQVAE and the U-Net from a generator seeded by
 ``seed`` (flax-style, as the JAX worker's init, which does not redraw
-torch-style); :meth:`load` reads a port checkpoint; :meth:`generate_images`
-samples indices through the gaussian3d prior and decodes them. AdamW,
+torch-style; the U-Net is the gaussian3d prior's, or the VQ_Official
+prior's for the [1, K, N, 1] log-onehot input); :meth:`load` reads a port
+checkpoint; :meth:`generate_images` samples indices through the config's
+prior and decodes them (VQ_Official indices are not clamped, as in the JAX
+worker: the mask class K-1 is also a codebook index). AdamW,
 OneCycle, EMA and the training step come with the training half of the
 slice, so the weights sampled with are the U-Net's own (the JAX worker
 samples with its EMA copy, which equals them at init).

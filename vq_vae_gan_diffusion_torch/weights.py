@@ -12,7 +12,9 @@ is this package's own copy:
 - the port's GroupNorm keeps its affine under ``.group_norm``, the JAX
   package's under a nested ``GroupNorm_0``;
 - minGPT's causal-mask buffer is regenerated from the positional-embedding
-  length.
+  length;
+- flax attention kernels [C, H, Dh] (query, key, value) and [H, Dh, C]
+  (out) become Linear weights [C, C], their biases [H, Dh] vectors [C].
 """
 
 from __future__ import annotations
@@ -199,4 +201,33 @@ def gpt_state_from_jax(params: Dict[str, Any]) -> State:
         _dense(out, f"{p}.mlp.0", sub["fc1"])
         _dense(out, f"{p}.mlp.2", sub["fc2"])
         i += 1
+    return out
+
+
+def _mha(out: State, p: str, sub) -> None:
+    for name in ("query", "key", "value", "out"):
+        kernel = np.asarray(sub[name]["kernel"])
+        c_out = kernel.shape[-1] if name == "out" else kernel.shape[1] * kernel.shape[2]
+        out[f"{p}.{name}.weight"] = _t(kernel.reshape(-1, c_out).T)
+        out[f"{p}.{name}.bias"] = _t(np.asarray(sub[name]["bias"]).reshape(-1))
+
+
+def transformer_predictor_state_from_jax(params: Dict[str, Any]) -> State:
+    """The JAX TransformerPredictor's params -> the port's ``state_dict``
+    (its module names are the flax names)."""
+    out: State = {"embedding.weight": _t(params["embedding"]["embedding"]),
+                  "positional_encoding": _t(params["positional_encoding"]),
+                  "time_embedding.weight": _t(params["time_embedding"]["embedding"])}
+    i = 0
+    while f"block{i}" in params:
+        sub, p = params[f"block{i}"], f"block{i}"
+        _ln(out, f"{p}.norm1", sub["norm1"])
+        _dense(out, f"{p}.ada_ln_scale", sub["ada_ln_scale"])
+        _dense(out, f"{p}.ada_ln_bias", sub["ada_ln_bias"])
+        _mha(out, f"{p}.self_attention", sub["self_attention"])
+        _ln(out, f"{p}.norm2", sub["norm2"])
+        _dense(out, f"{p}.ffn1", sub["ffn1"])
+        _dense(out, f"{p}.ffn2", sub["ffn2"])
+        i += 1
+    _dense(out, "fc", params["fc"])
     return out
