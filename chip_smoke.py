@@ -56,9 +56,26 @@ Phases, each printed as it runs; any failure exits non-zero:
       512, 4 blocks of 8 heads, 16 samples, seeded weights): ``sample``
       with plain ops, with B6 (99 launches) and under ``prng`` with B7 (99
       launches), and ``fast_sample`` (skip 4, top-r 0.86: 24 B6 launches at
-      trunc_k 881); indices in [0, 1023].
+      trunc_k 881); indices in [0, 1023];
+  (l) the quantized decode-stack kernels, B2b (int8 or int4 weights, float
+      cache) and B2c (the same with an int8 KV cache), against their plain
+      versions at full width in all four modes (int8, int8kv, int4,
+      int4kv), f32 and bf16 compute, t in {0, 1, 63, 64, 255}, on a
+      pre-filled cache: x_out within tol x max(1, max |plain|) (1e-4 f32,
+      2e-2 bf16), the new int8 rows at most one level apart and at least
+      99.9% equal, their scales within 1e-5 relative; each mode's kernel time
+      (mean over t = 0..255), plain time and bound;
+  (m) the fourth path: ``vq_vae_gan_diffusion_torch.generate`` on
+      configs/inference_config_int8kv.yml (the GPT path of (d) with
+      ``decode_quant: int8kv``), cold then warm: 256 B2c launches and no B1;
+      then ``sample_tokens`` at full width under int8, int4 and int4kv (256
+      launches each of B2b, B2b and B2c);
+  (n) the int8kv kernel route against the plain route (the model on the
+      CPU), 32 tokens at temperature 1e-4 after the same prefix with the
+      same noise, both routes stepping through the plain route's sequence:
+      at least 99% of tokens equal.
 
-Each path, (d), (g), (j) and each run of (k), runs with every kernel's
+Each path, (d), (g), (j), (m) and each run of (k), runs with every kernel's
 launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -77,6 +94,8 @@ import torch
 CONFIG = "configs/inference_config_small.yml"
 VQD_CONFIG = "configs/inference_config_vqdiffusion.yml"
 VQO_CONFIG = "configs/inference_config_vqofficial.yml"
+INT8KV_CONFIG = "configs/inference_config_int8kv.yml"
+QUANT_MODES = ("int8", "int8kv", "int4", "int4kv")
 # full width of the GPT prior in CONFIG, at --n-samples 16
 L, C, H, B, N = 12, 1024, 16, 16, 256
 # full width of the gaussian3d prior in VQD_CONFIG: state [B, N, 96, 1]
@@ -153,15 +172,22 @@ def random_packed(dtype: torch.dtype, gen: torch.Generator) -> dict:
     }
 
 
-def decode_stack_bound_ms(dtype: torch.dtype, name: str) -> tuple[float, str]:
+def decode_stack_bound_ms(dtype: torch.dtype, name: str, quant: str | None = None
+                          ) -> tuple[float, str]:
     """Least time of one call, averaged over the positions t = 0..N-1 of the
-    main path: bytes (weights, f32 params, x in and out, cache rows < t read,
-    new rows written) over the memory rate, or operations over the peak rate
-    for the weights' type, whichever is larger."""
+    main path: bytes (weights, with their scales when quantized, f32 params,
+    x in and out, cache rows < t read, new rows written, each int8 cache row
+    with its f32 scale) over the memory rate, or operations over the peak
+    rate for the compute type ``dtype``, whichever is larger."""
     es = torch.tensor([], dtype=dtype).element_size()
-    weights = L * 12 * C * C * es + L * 13 * C * 4
+    groups = {None: (0, 0), "int8": (1, 2), "int4": (8, 16)}[quant and quant[:4]]
+    w_bytes = {None: es, "int8": 1, "int4": 0.5}[quant and quant[:4]]
+    scales = L * 4 * (8 * C * groups[0] + C * groups[1])
+    weights = L * 12 * C * C * w_bytes + scales + L * 13 * C * 4
+    kv_es, row_extra = (1, 4) if quant in ("int8kv", "int4kv") else (es, 0)
     mean_t = (N - 1) / 2
-    bytes_ = weights + 2 * B * C * 4 + L * B * mean_t * 2 * C * es + L * B * 2 * C * es
+    rows = L * B * (mean_t + 1)
+    bytes_ = weights + 2 * B * C * 4 + rows * (2 * C * kv_es + 2 * row_extra)
     ops = 2 * B * L * 12 * C * C + 4 * B * L * mean_t * C
     peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
     by_bytes, by_ops = bytes_ / hbm_bytes_per_s(name), ops / peak
@@ -222,9 +248,12 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by its kernel's name in the JSON line."""
     from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
         fused_posterior_sample, fused_posterior_sample_prng)
-    from vq_vae_gan_diffusion_torch.ops.gpt_decode import fused_decode_stack
+    from vq_vae_gan_diffusion_torch.ops.gpt_decode import (fused_decode_stack,
+                                                           fused_decode_stack_q,
+                                                           fused_decode_stack_qkv)
     from vq_vae_gan_diffusion_torch.ops.shuffle import fused_bottleneck, fused_downsample
-    return {"gpt_decode_stack": fused_decode_stack, "shuffle_bottleneck": fused_bottleneck,
+    return {"gpt_decode_stack": fused_decode_stack, "gpt_decode_stack_q": fused_decode_stack_q,
+            "gpt_decode_stack_qkv": fused_decode_stack_qkv, "shuffle_bottleneck": fused_bottleneck,
             "shuffle_downsample": fused_downsample, "discrete_posterior": fused_posterior_sample,
             "discrete_posterior_prng": fused_posterior_sample_prng}
 
@@ -504,7 +533,8 @@ def phase_vqdiffusion() -> dict:
             raise AssertionError(f"indices {tuple(idx.shape)} not [16, 256] in [0, 1024)")
         if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
             raise AssertionError(f"images {tuple(images.shape)} not finite of [16,256,256,3]")
-        want = {"gpt_decode_stack": 0, "shuffle_bottleneck": 39 * STEPS,
+        want = {"gpt_decode_stack": 0, "gpt_decode_stack_q": 0, "gpt_decode_stack_qkv": 0,
+                "shuffle_bottleneck": 39 * STEPS,
                 "shuffle_downsample": 4 * STEPS, "discrete_posterior": 0,
                 "discrete_posterior_prng": 0}
         if launches != want:
@@ -715,7 +745,8 @@ def phase_vqofficial(card: str) -> dict:
             raise AssertionError(f"indices {tuple(idx.shape)} not [16, 256] in [0, 1024)")
         if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
             raise AssertionError(f"images {tuple(images.shape)} not finite of [16,256,256,3]")
-        want = {"gpt_decode_stack": 0, "shuffle_bottleneck": 39 * VQO_STEPS,
+        want = {"gpt_decode_stack": 0, "gpt_decode_stack_q": 0, "gpt_decode_stack_qkv": 0,
+                "shuffle_bottleneck": 39 * VQO_STEPS,
                 "shuffle_downsample": 4 * VQO_STEPS, "discrete_posterior": VQO_STEPS - 1,
                 "discrete_posterior_prng": 0}
         if launches != want:
@@ -791,6 +822,239 @@ def phase_transformer(card: str) -> dict:
     return counted
 
 
+def quant_gpt(gen_seed: int, device: str = "cuda"):
+    """The full-width GPT prior with N(0, 0.02) weights and LayerNorm affines
+    and biases perturbed by N(0, 0.1^2), so that every term of the stack
+    matters."""
+    from vq_vae_gan_diffusion_torch.models.mingpt import GPT
+
+    gpt = GPT(vocab_size=1024, block_size=512, n_layer=L, n_head=H, n_embd=C)
+    gen = torch.Generator().manual_seed(gen_seed)
+    gpt.init_weights(gen)
+    with torch.no_grad():
+        for name, prm in gpt.named_parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    return gpt.to(device).eval()
+
+
+def quant_cache(quant: str, dtype: torch.dtype, gen: torch.Generator):
+    """A pre-filled cache: normal values in ``dtype``, or for the *kv modes
+    int8 levels in [-127, 127] with per-row scales in [0.005, 0.02]."""
+    if not quant.endswith("kv"):
+        return torch.randn(L, B, N, 2 * C, generator=gen, device="cuda").to(dtype), None
+    kv = torch.randint(-127, 128, (L, B, N, 2 * C), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = 0.005 + 0.015 * torch.rand(L, B, N, 2, generator=gen, device="cuda")
+    return kv, sc
+
+
+def check_int8_rows(what: str, got: tuple, want: tuple, dtype: torch.dtype) -> float:
+    """The new int8 cache rows and their scales, (x_out, kv_new, sc_new) of
+    the kernel against the plain version. f32: levels at most one apart and
+    at least 99.9% equal, scales within 1e-5 relative. bf16: the rows
+    dequantized within 2e-2 of max(1, max |plain|) and the scales within
+    2e-2 relative, as (c) holds a bf16 cache. Returns the share of equal
+    levels."""
+    diff = (got[1].int() - want[1].int()).abs()
+    same = (diff == 0).float().mean().item()
+    if dtype == torch.float32:
+        if diff.max().item() > 1 or same < 0.999:
+            raise AssertionError(f"{what}: levels up to {diff.max().item()} apart, "
+                                 f"{100 * same:.3f}% equal")
+        check_close(what + " scales", got[2], want[2], 1e-5, scale=want[2].abs().min().item())
+        return same
+    c = got[1].shape[-1] // 2
+
+    def dequant(out):
+        return torch.cat([out[1][..., :c] * out[2][..., :1], out[1][..., c:] * out[2][..., 1:]], -1)
+    check_close(what + " dequantized", dequant(got), dequant(want), 2e-2)
+    check_close(what + " scales", got[2], want[2], 2e-2, scale=want[2].abs().min().item())
+    return same
+
+
+def phase_quant_kernels(card: str) -> dict:
+    """(l): B2b and B2c against reference_decode_stack at full width.
+
+    Tolerances as in (c): x_out within 1e-4 (f32) or 2e-2 (bf16) of max(1,
+    max |plain|); a float cache's new rows likewise. The new int8 rows in
+    f32: a k or v on a rounding boundary of its level may round either way
+    after another f32 sum order, so at most one level apart and at least
+    99.9% equal; their scales (max |.| / 127) within 1e-5 relative. In bf16
+    the LayerNorm outputs are rounded to bf16 after sums taken in other
+    orders, and a value on a bf16 boundary rounds either way (2^-8 of it):
+    k and v move by about a tenth of an int8 step, and a first run found
+    only 93.96% of levels equal (all within one). So the bf16 rows are held
+    as (c) holds a bf16 cache (check_int8_rows). Returns, per mode and
+    compute type, the JSON numbers."""
+    from vq_vae_gan_diffusion_torch.ops.gpt_decode import (fused_decode_stack_q,
+                                                           fused_decode_stack_qkv,
+                                                           pack_decode_params,
+                                                           reference_decode_stack)
+    gpt = quant_gpt(13)
+    for fmt in ("int8", "int4"):   # the card packs what the CPU (and JAX) packs
+        on_card = pack_decode_params(gpt, quant=fmt)
+        on_cpu = pack_decode_params(quant_gpt(13, "cpu"), quant=fmt)
+        differ = {k: int((on_card[k].cpu() != v).sum()) for k, v in on_cpu.items()}
+        print(f"(l) {fmt} levels and scales packed on the card against the CPU: "
+              f"{sum(differ.values())} of {sum(v.numel() for v in on_cpu.values())} differ")
+        if any(differ.values()):
+            raise AssertionError(f"{fmt} packing differs between devices: {differ}")
+        del on_card, on_cpu
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    result = {}
+    for quant in QUANT_MODES:
+        quant_kv = quant.endswith("kv")
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            packed = pack_decode_params(gpt, dtype, quant)
+            x = torch.randn(B, C, generator=gen, device="cuda")
+            kv, sc = quant_cache(quant, dtype, gen)
+            if quant_kv:
+                def kernel(t):
+                    return fused_decode_stack_qkv(x, packed, kv, sc, t, n_head=H,
+                                                  compute_dtype=dtype)
+
+                def plain(t):
+                    return reference_decode_stack(x, packed, kv, t, n_head=H, kv_scales=sc,
+                                                  compute_dtype=dtype)
+            else:
+                def kernel(t):
+                    return fused_decode_stack_q(x, packed, kv, t, n_head=H)
+
+                def plain(t):
+                    return reference_decode_stack(x, packed, kv, t, n_head=H)
+            tag = f"{quant} {str(dtype)[6:]}"
+            worst, same = 0.0, 1.0
+            for t in (0, 1, 63, 64, 255):
+                got, want = kernel(t), plain(t)
+                torch.cuda.synchronize()
+                worst = max(worst, check_close(f"{tag} t={t} x_out", got[0], want[0], tol))
+                if quant_kv:
+                    same = min(same, check_int8_rows(f"{tag} t={t} kv_new", got, want, dtype))
+                else:
+                    check_close(f"{tag} t={t} kv_new", got[1], want[1], tol)
+            ms = cuda_ms(lambda: [kernel(t) for t in range(N)]) / N
+            plain_ts = range(4, N, 8)   # 32 positions evenly spread, mean t 128
+            plain_ms = cuda_ms(lambda: [plain(t) for t in plain_ts]) / len(plain_ts)
+            bound, bound_by = decode_stack_bound_ms(dtype, card, quant)
+            print(f"(l) {tag}: t in (0, 1, 63, 64, 255) max abs err {worst:.3e}"
+                  + (f", new int8 rows {100 * same:.3f}% equal" if quant_kv else "")
+                  + f"; kernel {ms:.4f} ms/call (mean over t = 0..{N - 1}), plain "
+                  f"{plain_ms:.4f} ms/call (32 t), bound {bound:.4f} ms/call by {bound_by}; {card}")
+            result[(quant, dtype)] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": bound, "bound_by": bound_by}
+            del packed, kv, sc
+    return result
+
+
+def phase_int8kv_path() -> dict:
+    """(m): the int8kv GPT path through the user's entry point, cold then
+    warm, then sample_tokens under int8, int4 and int4kv. Returns the
+    launches of the cold CLI run and of each sample_tokens run."""
+    from vq_vae_gan_diffusion_torch import generate
+    from vq_vae_gan_diffusion_torch.models.mingpt import sample_tokens
+
+    none = {name: 0 for name in kernel_wrappers()}
+    argv = ["--config", INT8KV_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    counted = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate.run(argv)
+        total = time.perf_counter() - t0
+        launches = read_counts()
+        counted.setdefault("int8kv", launches)
+        tokens, images = out["tokens"], out["images"]
+        if tuple(tokens.shape) != (B, 256) or int(tokens.min()) < 0 or int(tokens.max()) >= 1024:
+            raise AssertionError(f"tokens {tuple(tokens.shape)} not [16, 256] in [0, 1024)")
+        if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
+            raise AssertionError(f"images {tuple(images.shape)} not finite of [16,256,256,3]")
+        if launches != dict(none, gpt_decode_stack_qkv=256):
+            raise AssertionError(f"launches {launches}, expected 256 of gpt_decode_stack_qkv")
+        sec = out["seconds"]
+        print(f"(m) int8kv {run}: {launches['gpt_decode_stack_qkv']} B2c launches, 0 B1; "
+              f"decode loop {1e3 * sec['sample'] / 256:.3f} ms/token, "
+              f"{B * 256 / sec['sample']:.1f} tokens/s; VQVAE decode {sec['decode']:.3f} s; "
+              f"total {total:.2f} s; max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; grid {out['path']}")
+
+    gpt = quant_gpt(15)
+    prefix = torch.zeros(B, 1, dtype=torch.long, device="cuda")
+    for quant, name in (("int8", "gpt_decode_stack_q"), ("int4", "gpt_decode_stack_q"),
+                        ("int4kv", "gpt_decode_stack_qkv")):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens = sample_tokens(gpt, prefix, 1, 256, quant=quant,
+                               generator=torch.Generator(device="cuda").manual_seed(16))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_counts()
+        counted[quant] = launches
+        if launches != dict(none, **{name: 256}):
+            raise AssertionError(f"{quant}: launches {launches}, expected 256 of {name}")
+        if tuple(tokens.shape) != (B, 256) or int(tokens.min()) < 0 or int(tokens.max()) >= 1024:
+            raise AssertionError(f"{quant}: tokens {tuple(tokens.shape)} not [16, 256] "
+                                 "in [0, 1024)")
+        print(f"(m) sample_tokens quant={quant}: 256 launches of {name}; "
+              f"{1e3 * sec / 256:.3f} ms/token (packing included), {B * 256 / sec:.1f} tokens/s")
+    return counted
+
+
+def phase_int8kv_routes() -> None:
+    """(n): int8kv through the kernels against the plain route, the model on
+    the CPU, where the wrapper takes the plain version: 32 tokens at
+    temperature 1e-4, top-k 100, after the same 9-token prefix and with the
+    same noise (uniforms drawn once on the CPU and handed to both). Both
+    routes step through one sequence, the plain route's own draws
+    (``fused_step``), and at least 99% of their draws must be equal.
+
+    Free-running, each route would follow its own draws, and one differing
+    draw sends its row down another sequence: each call agrees to about
+    1e-5 ((l)), but the two sum k and v in other orders, so a few levels of
+    each new int8 cache row round the other way, every later position reads
+    them, and the logits drift apart by a few 1e-3 (printed), which decides
+    a near tie."""
+    from vq_vae_gan_diffusion_torch.models.mingpt import categorical, fused_step, top_k_filter
+
+    prefix = torch.cat([torch.zeros(B, 1, dtype=torch.long),
+                        torch.randint(0, 1024, (B, 8), generator=torch.Generator().manual_seed(18))],
+                       1)
+    steps, temperature = 32, 1e-4
+    total = prefix.shape[1] + steps - 1
+    uniform = torch.rand(total, B, 1024, generator=torch.Generator().manual_seed(19))
+    routes = {dev: fused_step(quant_gpt(17, dev), B, total, temperature, quant="int8kv")
+              for dev in ("cpu", "cuda")}
+    got, gaps, drift = {"cpu": [], "cuda": []}, [], 0.0
+    token = prefix[:, 0]
+    t0 = time.perf_counter()
+    for t in range(total):
+        token_in = prefix[:, t] if t < prefix.shape[1] else token
+        raw = {dev: step(token_in.to(dev), t).cpu() for dev, step in routes.items()}
+        drift = max(drift, temperature * (raw["cpu"] - raw["cuda"]).abs().max().item())
+        draw = {dev: categorical(top_k_filter(lg, 100), None, uniform[t])
+                for dev, lg in raw.items()}
+        token = draw["cpu"]
+        if t >= prefix.shape[1] - 1:
+            for dev in got:
+                got[dev].append(draw[dev])
+            top2 = raw["cpu"].topk(2, -1).values * temperature
+            gaps.append(top2[:, 0] - top2[:, 1])
+    sec = time.perf_counter() - t0
+    plain, kernel = torch.stack(got["cpu"], 1), torch.stack(got["cuda"], 1)
+    differ = (kernel != plain).nonzero().tolist()
+    agree = 1.0 - len(differ) / plain.numel()
+    gap = torch.stack(gaps, 1)
+    print(f"(n) int8kv kernel route vs plain route (CPU; {sec:.1f} s for both), {B} x {steps} "
+          f"tokens at temperature {temperature}, same prefix, sequence and noise: "
+          f"{100 * agree:.2f}% equal; mismatches (row, position, plain top-2 logit gap) "
+          f"{[(r, p, round(gap[r, p].item(), 6)) for r, p in differ]}; largest logit "
+          f"difference {drift:.3e}")
+    if agree < 0.99:
+        raise AssertionError(f"int8kv kernel and plain routes agree on only {100 * agree:.2f}%")
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -806,6 +1070,9 @@ def main() -> int:
     posterior = phase_posterior(card)
     vqo_launches = phase_vqofficial(card)
     tvq_launches = phase_transformer(card)
+    quant = phase_quant_kernels(card)
+    quant_launches = phase_int8kv_path()
+    phase_int8kv_routes()
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",
@@ -815,6 +1082,18 @@ def main() -> int:
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": None,
     }]
+    # B2b's numbers at int8 and B2c's at int8kv, f32 compute; B2b's launches
+    # from the int8 sample_tokens run, B2c's from the int8kv CLI run
+    for name, mode, replaces, launches in (
+            ("gpt_decode_stack_q", "int8", "vq_vae_gan_diffusion_tpu/ops/gpt_decode_pallas.py:449",
+             quant_launches["int8"]["gpt_decode_stack_q"]),
+            ("gpt_decode_stack_qkv", "int8kv",
+             "vq_vae_gan_diffusion_tpu/ops/gpt_decode_pallas.py:460",
+             quant_launches["int8kv"]["gpt_decode_stack_qkv"])):
+        kernels.append(dict({"name": name, "route": "cuda",
+                             "source": "vq_vae_gan_diffusion_torch/csrc/gpt_decode.cu",
+                             "replaces": replaces, "launches": launches, "library_ms": None},
+                            **quant[(mode, torch.float32)]))
     # the bottleneck kernel also stands for fused_bottleneck (:142), the same
     # function on unpacked NHWC
     for name, kind, replaces in (

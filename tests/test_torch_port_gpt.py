@@ -97,10 +97,12 @@ def test_sampler_matches_jax_sampler(gpts, fused):
 
 
 def test_sampler_rejects_quant_and_bf16_module_route(gpts):
+    """An unknown quant mode raises, as in the JAX package; so does bf16 on
+    the module route."""
     _, _, tgpt = gpts
     prefix = torch.zeros(B, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_sample_tokens(tgpt, prefix, 1, 4, quant="int8")
+    with pytest.raises(ValueError, match="unsupported quant mode 'int3'"):
+        t_sample_tokens(tgpt, prefix, 1, 4, quant="int3")
     with pytest.raises(ValueError, match="float32"):
         t_sample_tokens(tgpt, prefix, 1, 4, fused=False, dtype=torch.bfloat16)
 

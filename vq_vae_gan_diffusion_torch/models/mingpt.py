@@ -9,8 +9,10 @@ vocab head, N(0, 0.02) init. Module names reproduce the reference
 Sampling (:func:`sample_tokens`) is a host loop over positions with a Python
 int ``t``; it reads nothing back from the device per token. Its default route
 runs each position through :func:`..ops.gpt_decode.fused_decode_stack` -- the
-CUDA kernel for CUDA tensors. ``fused=False`` runs the module's own
-:meth:`GPT.decode_step` instead.
+CUDA kernel for CUDA tensors -- or, under ``quant``, its int8/int4-weight
+counterparts :func:`..ops.gpt_decode.fused_decode_stack_q` and, with an int8
+KV cache, :func:`..ops.gpt_decode.fused_decode_stack_qkv`. ``fused=False``
+runs the module's own :meth:`GPT.decode_step` instead.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gpt_decode import fused_decode_stack, pack_decode_params
+from ..ops.gpt_decode import (QUANT_MODES, fused_decode_stack, fused_decode_stack_q,
+                              fused_decode_stack_qkv, pack_decode_params)
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -146,10 +149,13 @@ def top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
     return logits.masked_fill(logits < kth, float("-inf"))
 
 
-def categorical(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+def categorical(logits: torch.Tensor, generator: Optional[torch.Generator],
+                uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One draw per row from softmax(logits) by the Gumbel-max trick (as
-    ``jax.random.categorical``); no host synchronisation."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    ``jax.random.categorical``) on ``uniform`` (default: drawn from
+    ``generator``); no host synchronisation."""
+    u = uniform if uniform is not None else torch.rand(logits.shape, generator=generator,
+                                                       device=logits.device)
     u = u.clamp_min(torch.finfo(u.dtype).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
@@ -169,21 +175,28 @@ def sample_tokens(gpt: GPT, prefix: torch.Tensor, prefix_len: int, steps: int,
       steps: number of tokens to generate.
       fused: True runs each position through :func:`fused_decode_stack` (the
         CUDA kernel on the card); False runs :meth:`GPT.decode_step`.
-      quant: quantized weight streaming is not ported yet; only None.
-      dtype: weight and KV-cache type of the fused route (float32 or
-        bfloat16); the ``fused=False`` route runs in float32.
+      quant: the fused route's weight streaming, as the JAX package's
+        ``decode_quant``: None (weights in ``dtype``), ``int8`` (per-output-
+        channel int8), ``int4`` (group-wise nibble-packed int4), or
+        ``int8kv``/``int4kv``, which add an int8 KV cache with per-row
+        scales. Embeddings, LN affines, biases and the head stay full
+        precision. As in the JAX package, quant only takes effect on the
+        fused route: ``fused=False`` runs the float module whatever it says.
+      dtype: the fused route's compute type (float32 or bfloat16), which is
+        also the weight and cache type where they are not quantized; the
+        ``fused=False`` route runs in float32.
       generator: the torch.Generator of the sampling noise, on the device.
 
     Returns [B, steps] int64 tokens.
     """
-    if quant is not None:
-        raise NotImplementedError(f"decode quant {quant!r} is not ported yet")
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unsupported quant mode {quant!r}")
     if not fused and dtype != torch.float32:
         raise ValueError("the fused=False route runs in float32 only")
     b = prefix.shape[0]
     total = min(prefix_len + steps - 1, gpt.block_size)
     if fused:
-        step = _fused_step(gpt, b, total, temperature, dtype)
+        step = fused_step(gpt, b, total, temperature, dtype, quant)
     else:
         cache = gpt.init_cache(b, total)
         step = lambda token, t: gpt.decode_step(token, t, cache).float() / temperature
@@ -200,19 +213,34 @@ def sample_tokens(gpt: GPT, prefix: torch.Tensor, prefix_len: int, steps: int,
     return torch.stack(out, dim=1)
 
 
-def _fused_step(gpt: GPT, b: int, total: int, temperature: float, dtype: torch.dtype):
-    """The per-position function of the fused route: embed, the decode stack,
-    commit the new cache rows, ln_f and the head. Returns scaled logits."""
-    packed = pack_decode_params(gpt, dtype)
+def fused_step(gpt: GPT, b: int, total: int, temperature: float = 1.0,
+               dtype: torch.dtype = torch.float32, quant: Optional[str] = None):
+    """The per-position function of :func:`sample_tokens`'s fused route, for
+    ``b`` rows and ``total`` positions: ``step(token [B], t)`` embeds, runs
+    the decode stack, commits the new cache rows (and, for an int8 cache,
+    their scales) at row t, and returns the logits / temperature [B, vocab].
+    Call it for t = 0, 1, ... in order; feeding it a given sequence
+    teacher-forces it."""
+    packed = pack_decode_params(gpt, dtype, quant)
     tok_emb = gpt.tok_emb.weight.float()
     pos_emb = gpt.pos_emb[0].float()
     w_head = gpt.head.weight.to(dtype).float()
     c = gpt.n_embd
-    kv = torch.zeros((gpt.n_layer, b, total, 2 * c), dtype=dtype, device=tok_emb.device)
+    quant_kv = quant in ("int8kv", "int4kv")
+    kv = torch.zeros((gpt.n_layer, b, total, 2 * c), dtype=torch.int8 if quant_kv else dtype,
+                     device=tok_emb.device)
+    kv_sc = torch.ones((gpt.n_layer, b, total, 2), device=tok_emb.device) if quant_kv else None
 
     def step(token: torch.Tensor, t: int) -> torch.Tensor:
         x = tok_emb[token] + pos_emb[t]
-        h, kv_new = fused_decode_stack(x, packed, kv, t, n_head=gpt.n_head)
+        if quant_kv:
+            h, kv_new, sc_new = fused_decode_stack_qkv(x, packed, kv, kv_sc, t, n_head=gpt.n_head,
+                                                       compute_dtype=dtype)
+            kv_sc[:, :, t] = sc_new
+        elif quant:
+            h, kv_new = fused_decode_stack_q(x, packed, kv, t, n_head=gpt.n_head)
+        else:
+            h, kv_new = fused_decode_stack(x, packed, kv, t, n_head=gpt.n_head)
         kv[:, :, t] = kv_new      # the caller commits the new rows, in place
         hn = F.layer_norm(h, (c,), gpt.ln_f.weight, gpt.ln_f.bias, eps=1e-5)
         return (hn.to(dtype).float() @ w_head.T) / temperature
