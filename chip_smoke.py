@@ -12,6 +12,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   (c) each kernel against its plain PyTorch version at the main path's
       shapes, in f32 and bf16, with the tolerance stated; times of the
       kernel and the plain version over the main path's 256 positions;
+      through torch.profiler, exactly one CUDA kernel a decode-stack call
+      in each instantiation, with its device time and the host's issue
+      time beside the bound;
   (d) the main path: ``vq_vae_gan_diffusion_torch.generate`` on
       configs/inference_config_small.yml at full width (16 samples x 256
       tokens -> [16, 256, 256, 3] images, f32, seeded random weights), with
@@ -64,7 +67,8 @@ Phases, each printed as it runs; any failure exits non-zero:
       pre-filled cache: x_out within tol x max(1, max |plain|) (1e-4 f32,
       2e-2 bf16), the new int8 rows at most one level apart and at least
       99.9% equal, their scales within 1e-5 relative; each mode's kernel time
-      (mean over t = 0..255), plain time and bound;
+      (mean over t = 0..255), plain time and bound; one CUDA kernel a call
+      in each of the eight instantiations, as in (c);
   (m) the fourth path: ``vq_vae_gan_diffusion_torch.generate`` on
       configs/inference_config_int8kv.yml (the GPT path of (d) with
       ``decode_quant: int8kv``), cold then warm: 256 B2c launches and no B1;
@@ -155,7 +159,7 @@ def phase_build() -> None:
     print(f"(b) built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Function properties" in line or "Used" in line or "spill" in line:
                 print(f"(b) {name}: {line.strip()}")
 
 
@@ -192,6 +196,48 @@ def decode_stack_bound_ms(dtype: torch.dtype, name: str, quant: str | None = Non
     peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
     by_bytes, by_ops = bytes_ / hbm_bytes_per_s(name), ops / peak
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def one_kernel_a_call(label: str, tag: str, call, bound: float, card: str) -> None:
+    """Fail unless each of 16 calls ``call(t)`` (t = 0, 16, .., 240) issues
+    exactly one CUDA kernel, the decode stack's, as torch.profiler sees it:
+    16 runtime launch calls in all (``cudaLaunch*``, ``cuLaunch*``, and no
+    ``cudaMemcpy*``/``cudaMemset*``), each a ``cudaLaunchCooperativeKernel``,
+    and every kernel record the decode stack's (the profiler can miss kernel
+    records of a process's later sessions, so those are counted, not
+    required). Prints the device time of a call (profiler) and the host's
+    time to issue one (8 calls enqueued with no synchronise) beside the
+    bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ts = range(0, N, N // 16)
+    for t in ts:
+        call(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in ts[:8]:
+        call(t)
+    issue_ms = 1e3 * (time.perf_counter() - t0) / 8
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in ts:
+            call(t)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = {e.key: e.count for e in events if e.device_type.name == "CPU"
+                and any(k in e.key for k in ("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                                             "cudaMemset", "cuMemcpy", "cuMemset"))}
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    if (launches != {"cudaLaunchCooperativeKernel": len(ts)} or not kernels
+            or any("decode_stack_kernel" not in e.key for e in kernels)):
+        raise AssertionError(f"{tag}: {len(ts)} calls issued {launches}, kernel records "
+                             f"{[(e.key, e.count) for e in kernels]}: expected one "
+                             "cudaLaunchCooperativeKernel of decode_stack_kernel a call")
+    recorded = sum(e.count for e in kernels)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / recorded
+    print(f"({label}) {tag}: 1 CUDA kernel a call ({len(ts)} cooperative launches for {len(ts)} "
+          f"calls, {recorded} kernel records); device {device_ms:.4f} ms/call, host issue "
+          f"{issue_ms:.4f} ms/call (t = 0, 16, .., 240), bound {bound:.4f} ms/call; {card}")
 
 
 def phase_kernel(card: str) -> dict:
@@ -235,6 +281,8 @@ def phase_kernel(card: str) -> dict:
         ms = cuda_ms(sweep(fused_decode_stack)) / N
         plain_ms = cuda_ms(sweep(reference_decode_stack)) / N
         bound, bound_by = decode_stack_bound_ms(dtype, card)
+        one_kernel_a_call("c", str(dtype), lambda t: fused_decode_stack(x, packed, kv, t, n_head=H),
+                          bound, card)
         print(f"(c) {dtype}: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, "
               f"bound {bound:.4f} ms/call by {bound_by} (mean over t = 0..{N - 1}); "
               f"kernel {ms * N:.2f} ms per {N}-token run; {card}")
@@ -937,6 +985,7 @@ def phase_quant_kernels(card: str) -> dict:
             plain_ts = range(4, N, 8)   # 32 positions evenly spread, mean t 128
             plain_ms = cuda_ms(lambda: [plain(t) for t in plain_ts]) / len(plain_ts)
             bound, bound_by = decode_stack_bound_ms(dtype, card, quant)
+            one_kernel_a_call("l", tag, kernel, bound, card)
             print(f"(l) {tag}: t in (0, 1, 63, 64, 255) max abs err {worst:.3e}"
                   + (f", new int8 rows {100 * same:.3f}% equal" if quant_kv else "")
                   + f"; kernel {ms:.4f} ms/call (mean over t = 0..{N - 1}), plain "

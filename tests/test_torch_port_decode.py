@@ -150,3 +150,13 @@ def test_wrapper_rejects_bad_cuda_arguments(setup):
         tgd._check_cuda_args(torch.empty(1, wide, device="meta"), packed,
                              torch.empty(1, 1, 2, 2 * wide, device="meta"), 0, 64)
     tgd._check_cuda_args(x_t, packed, kv_t, 3, H)
+
+
+def test_phase_stamps_take_a_cuda_int64_buffer():
+    """The profiling stamps of the persistent launch: start, the 8 barriers
+    of each layer, end; any buffer but a contiguous int64 CUDA one is
+    refused before the library is touched."""
+    assert tgd.stamp_rows(12) == 98
+    for bad in (torch.zeros(8, dtype=torch.int64), torch.zeros(8, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="int64 CUDA"):
+            tgd.record_phase_stamps(bad)

@@ -1,0 +1,86 @@
+"""The checkpoints the port's serving workers read.
+
+Two forms, both files written by ``torch.save``:
+
+- the port's own bundle, ``{"vqvae": state_dict, "gpt" | "unet": state_dict}``
+  (either part may be left out);
+- a bare ``state_dict`` of one module, as ``tools/export_torch_checkpoint.py``
+  writes it from an Orbax checkpoint of the JAX package: the VQVAE
+  (``vqvae``/``vqgan``), the minGPT prior (``*_transformer``) or the
+  ShuffleNet U-Net denoiser (``vqdiffusion``; with ``--ema``, the EMA
+  weights the JAX worker samples with). Their key names are the ones the
+  port's modules use; each module is told by a key only it has.
+
+A path where nothing exists is no checkpoint: the caller warns and keeps
+its seeded weights. A path that exists but is a directory (an Orbax
+checkpoint) or a file of no known form raises, naming the export tool.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+EXPORT_TOOL = "tools/export_torch_checkpoint.py"
+# the key that tells each module's bare state_dict from the others
+_MARKERS = {"vqvae": "codebook.codebook.weight", "gpt": "tok_emb.weight",
+            "unet": "init_conv.module.0.weight"}
+
+State = Dict[str, torch.Tensor]
+
+
+def _refuse(path: str, why: str) -> ValueError:
+    return ValueError(
+        f"checkpoint {path} {why}. The port reads a torch.save file: its own bundle "
+        "{'vqvae': ..., 'gpt' | 'unet': ...}, or a bare VQVAE, minGPT or ShuffleNet "
+        f"denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
+        "--config <yml> --ckpt <dir> --out <file>.pth (add --ema for a diffusion prior)")
+
+
+def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
+    """The module ``state_dict``s of the checkpoint at ``path`` by kind
+    (``vqvae``, ``gpt``, ``unet``), or None when nothing exists at ``path``.
+    Raises ValueError for a directory or a file of no known form."""
+    if not os.path.exists(path):
+        return None
+    if os.path.isdir(path):
+        raise _refuse(path, "is a directory (an Orbax checkpoint?), not a file")
+    try:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, EOFError, RuntimeError) as e:
+        raise _refuse(path, f"is not a torch.save file of tensors ({type(e).__name__}: {e})") from e
+    if not isinstance(state, dict) or not state:
+        raise _refuse(path, "holds no dict")
+    if all(isinstance(v, torch.Tensor) for v in state.values()):
+        kinds = [kind for kind, key in _MARKERS.items() if key in state]
+        if len(kinds) != 1:
+            raise _refuse(path, "is a state_dict of no module the port serves")
+        return {kinds[0]: state}
+    if set(state) <= set(_MARKERS) and all(isinstance(v, dict) for v in state.values()):
+        return dict(state)
+    raise _refuse(path, f"has keys {sorted(map(str, state))[:6]} of no known form")
+
+
+def restore(path: str, modules: Dict[str, nn.Module], logger: logging.Logger,
+            what: str) -> bool:
+    """Load into ``modules`` (by kind) the parts of the checkpoint at
+    ``path`` that name them, each with ``load_state_dict(strict=True)``.
+    Returns False after a warning when nothing exists at ``path``; raises as
+    :func:`read_checkpoint` does, and when the checkpoint holds none of
+    ``modules``. ``what`` names the checkpoint in the log."""
+    found = read_checkpoint(path)
+    if found is None:
+        logger.warning("%s checkpoint %s not found; using fresh init", what, path)
+        return False
+    parts = [kind for kind in modules if kind in found]
+    if not parts:
+        raise _refuse(path, f"holds {sorted(found)}, none of {sorted(modules)}")
+    for kind in parts:
+        modules[kind].load_state_dict(found[kind], strict=True)
+    logger.info("%s: restored %s from %s", what, " and ".join(parts), path)
+    return True

@@ -15,12 +15,18 @@ or the discrete ``VQ_Official`` prior, as in
 ``configs/inference_config_vqofficial.yml``),
 decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 ``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. ``--ckpt`` loads
-a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``);
-without one it tries ``architecture.<model>.resume_path`` and, when that is
-missing, warns and keeps the seeded fresh init. ``--fused-sampler``
-overrides ``architecture.vqdiffusion.fused_sampler``: ``on`` runs the CUDA
-kernels, ``off`` the unfused U-Net module (the config itself may also say
-``pallas`` or ``packed``, which select the kernels too).
+a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``) or
+a bare prior ``state_dict`` as ``tools/export_torch_checkpoint.py`` writes
+it from an Orbax checkpoint; without one it tries
+``architecture.<model>.resume_path``. The VQVAE comes from
+``architecture.vqvae.resume_path`` (a bare VQVAE ``state_dict`` or a
+bundle). A path where nothing exists warns and keeps the seeded fresh init;
+a directory or a file of no known form raises (``checkpoint.py``).
+``--fused-sampler`` overrides ``architecture.vqdiffusion.fused_sampler``
+and, as the root ``generate.py`` does, ``trainer.{gaussiandiffusion3d,
+vqdiffusion}.fused_sampler`` where the config has them: ``on`` runs the
+CUDA kernels, ``off`` the unfused U-Net module (the config itself may also
+say ``pallas`` or ``packed``, which select the kernels too).
 ``--fused-posterior`` overrides ``architecture.vqdiffusion.fused_posterior``
 for the discrete prior: ``on`` runs each structured reverse step's posterior
 and sample as one fused kernel reading Gumbel noise, ``prng`` as the fused
@@ -32,7 +38,6 @@ CUDA unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 from typing import Dict, Optional, Sequence
 
@@ -60,12 +65,13 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--n-samples", type=int, default=16)
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="port checkpoint (else architecture.<model>.resume_path)")
+                        help="port bundle or exported prior state_dict "
+                             "(else architecture.<model>.resume_path)")
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
     parser.add_argument("--fused-sampler", type=str, default=None,
                         choices=["on", "off"],
-                        help="override architecture.vqdiffusion.fused_sampler")
+                        help="override the config's fused_sampler keys")
     parser.add_argument("--fused-posterior", type=str, default=None,
                         choices=["on", "off", "prng"],
                         help="override architecture.vqdiffusion.fused_posterior")
@@ -78,9 +84,13 @@ def run(argv: Optional[Sequence[str]] = None,
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
-    if args.fused_sampler is not None and "vqdiffusion" in config.architecture:
-        config = config.replace_path("architecture.vqdiffusion.fused_sampler",
-                                     args.fused_sampler == "on")
+    if args.fused_sampler is not None:
+        on = args.fused_sampler == "on"
+        for family in ("gaussiandiffusion3d", "vqdiffusion"):
+            if family in config.trainer:
+                config = config.replace_path(f"trainer.{family}.fused_sampler", on)
+        if "vqdiffusion" in config.architecture:
+            config = config.replace_path("architecture.vqdiffusion.fused_sampler", on)
     if args.fused_posterior is not None and "vqdiffusion" in config.architecture:
         config = config.replace_path("architecture.vqdiffusion.fused_posterior",
                                      {"on": True, "off": False}.get(args.fused_posterior,
@@ -105,10 +115,7 @@ def run(argv: Optional[Sequence[str]] = None,
         mkey = model_name if model_name in config.architecture else "vqvae"
         ckpt = config.architecture[mkey].get("resume_path")
     if ckpt:
-        if os.path.isfile(str(ckpt)):
-            worker.load(str(ckpt))
-        else:
-            logger.warning("checkpoint %s not found; using fresh init", ckpt)
+        worker.load(str(ckpt))
     result = worker.generate_images(None, n_samples=args.n_samples, epoch=0)
     logger.info("artifacts written to %s", run_dir)
     return dict(result, run_dir=run_dir)

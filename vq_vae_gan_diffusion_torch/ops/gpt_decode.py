@@ -7,9 +7,11 @@ The PyTorch counterpart of the JAX ``ops/gpt_decode_pallas.py``:
 - :func:`reference_decode_stack` is the plain PyTorch version of the function;
 - :func:`fused_decode_stack` (float weights), :func:`fused_decode_stack_q`
   (int8 or int4 weights, float cache) and :func:`fused_decode_stack_qkv`
-  (int8 or int4 weights, int8 cache) launch the hand-written CUDA kernels
-  (``csrc/gpt_decode.cu``) for CUDA tensors and run the plain version for
-  CPU tensors.
+  (int8 or int4 weights, int8 cache) launch the hand-written CUDA kernel
+  (``csrc/gpt_decode.cu``: one persistent cooperative launch a call) for
+  CUDA tensors and run the plain version for CPU tensors;
+- :func:`record_phase_stamps` is the kernel's profiling switch
+  (``profile_decode.py``).
 
 Per layer: LN1 -> joint QKV -> attention over the cache rows < t, with the
 current token's k/v folded into the softmax analytically -> proj + residual
@@ -38,7 +40,7 @@ import torch
 from ._build import library
 
 _MAX_CACHE_ROWS = 8192   # the kernel keeps t scores in shared memory
-_MAX_WIDTH = 4096        # a LayerNorm thread holds at most 4 of a row's C values
+_MAX_WIDTH = 4096        # a LayerNorm thread holds at most 16 of a row's C values
 
 
 QUANT_MODES = (None, "int8", "int8kv", "int4", "int4kv")   # decode_quant
@@ -341,8 +343,9 @@ def fused_decode_stack(x: torch.Tensor, packed: Dict[str, torch.Tensor],
 
     Returns (x_out [B, C] f32 before ``ln_f``, kv_new [L, B, 2C] in kv's dtype).
 
-    CUDA tensors go through the CUDA kernel, which adds one to
-    ``fused_decode_stack.launches`` per call; CPU tensors go through
+    CUDA tensors go through the CUDA kernel, one cooperative launch that
+    adds one to ``fused_decode_stack.launches``; a failed launch (a grid
+    that cannot be co-resident among them) raises. CPU tensors go through
     :func:`reference_decode_stack`. Any other device raises.
     """
     if _weight_bits(packed):
@@ -458,6 +461,31 @@ def fused_decode_stack_qkv(x: torch.Tensor, packed: Dict[str, torch.Tensor],
 fused_decode_stack_qkv.launches = 0
 
 
+def stamp_rows(n_layer: int) -> int:
+    """Rows of phase stamps a launch writes: its start, the 8 barriers of
+    each layer, its end."""
+    return 8 * n_layer + 2
+
+
+def record_phase_stamps(stamps: Optional[torch.Tensor]) -> None:
+    """Profiling: every later decode-stack launch writes %globaltimer stamps
+    (nanoseconds) to ``stamps``, a contiguous int64 CUDA tensor, or refuses
+    to launch when they do not fit; None turns them off (the default, which
+    costs the serving path nothing). Layout: ``stamps[0]`` the grid size G,
+    ``stamps[1]`` the rows R (:func:`stamp_rows`), then [R, G + 1]: row 0
+    each block's start; row i = 1 .. 8L barrier i of the phases (LN1, QKV,
+    attention, proj, LN2, fc1, GELU, fc2 a layer), column b the arrival of
+    block b, column G the moment block 0 leaves it; row R - 1 each block's
+    end. The library holds a reference to the tensor while it is set."""
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device.type != "cuda"
+                               or not stamps.is_contiguous()):
+        raise ValueError("stamps must be a contiguous int64 CUDA tensor")
+    lib = _bind()
+    lib.gpt_decode_set_stamps(None if stamps is None else stamps.data_ptr(),
+                              0 if stamps is None else stamps.numel())
+    lib.stamps = stamps   # the kernel writes there until the next call
+
+
 def _bind() -> ctypes.CDLL:
     """The kernel library with its C signatures declared."""
     lib = library("gpt_decode")
@@ -465,6 +493,8 @@ def _bind() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.gpt_decode_workspace_floats.argtypes = [i32, i32, i32]
         lib.gpt_decode_workspace_floats.restype = ctypes.c_longlong
+        lib.gpt_decode_set_stamps.argtypes = [ptr, ctypes.c_longlong]
+        lib.gpt_decode_set_stamps.restype = None
         for fn in (lib.gpt_decode_stack_f32, lib.gpt_decode_stack_bf16):
             fn.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
             fn.restype = i32

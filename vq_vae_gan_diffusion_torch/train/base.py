@@ -11,6 +11,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..checkpoint import restore
 from ..config import Config
 from ..utils import make_grid, resolve_device, save_image, to_uint8
 
@@ -32,15 +33,17 @@ class ServingWorker:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _restore_vqvae(self, vqvae: nn.Module) -> None:
-        """A stage-1 port checkpoint at ``architecture.vqvae.resume_path``
-        replaces the seeded VQVAE; a path that does not exist only warns."""
+        """The checkpoint at ``architecture.vqvae.resume_path`` (a bare VQVAE
+        ``state_dict`` or a port bundle, :mod:`..checkpoint`) replaces the
+        seeded VQVAE; a path where nothing exists only warns."""
         resume = self.config.architecture.vqvae.get("resume_path")
-        if resume and os.path.isfile(str(resume)):
-            state = torch.load(str(resume), map_location="cpu", weights_only=True)
-            vqvae.load_state_dict(state["vqvae"], strict=True)
-            self.logger.info("frozen VQVAE restored from %s", resume)
-        elif resume:
-            self.logger.warning("stage-1 checkpoint %s not found; using fresh init", resume)
+        if resume:
+            restore(str(resume), {"vqvae": vqvae}, self.logger, "stage-1")
+
+    def _restore(self, path: str, prior: str, module: nn.Module) -> None:
+        """Load the checkpoint at ``path``: a port bundle (VQVAE and prior) or
+        a bare ``state_dict`` of either, the prior stored under ``prior``."""
+        restore(path, {"vqvae": self.composite.vqvae, prior: module}, self.logger, "prior")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -42,11 +42,12 @@ class VQDiffusionWorker(ServingWorker):
         return self.composite
 
     def load(self, path: str) -> None:
-        """Load a port checkpoint: ``torch.save({"vqvae": ..., "unet": ...})``."""
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        self.composite.vqvae.load_state_dict(state["vqvae"], strict=True)
-        self.composite.unet.load_state_dict(state["unet"], strict=True)
-        self.logger.info("restored %s", path)
+        """Load a port checkpoint (``torch.save({"vqvae": ..., "unet": ...})``)
+        or a bare ShuffleNet-denoiser or VQVAE ``state_dict`` as
+        ``tools/export_torch_checkpoint.py`` writes it (``--ema`` gives the
+        weights the JAX worker samples with); a path where nothing exists
+        only warns, any other unreadable path raises."""
+        self._restore(path, "unet", self.composite.unet)
 
     @torch.no_grad()
     def generate_images(self, val_loader=None, n_samples: int = 16, epoch: int = 0

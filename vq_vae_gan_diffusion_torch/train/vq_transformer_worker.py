@@ -34,11 +34,11 @@ class VQTransformerWorker(ServingWorker):
         return self.composite
 
     def load(self, path: str) -> None:
-        """Load a port checkpoint: ``torch.save({"vqvae": ..., "gpt": ...})``."""
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        self.composite.vqvae.load_state_dict(state["vqvae"], strict=True)
-        self.composite.gpt.load_state_dict(state["gpt"], strict=True)
-        self.logger.info("restored %s", path)
+        """Load a port checkpoint (``torch.save({"vqvae": ..., "gpt": ...})``)
+        or a bare minGPT or VQVAE ``state_dict`` as
+        ``tools/export_torch_checkpoint.py`` writes it; a path where nothing
+        exists only warns, any other unreadable path raises."""
+        self._restore(path, "gpt", self.composite.gpt)
 
     @torch.no_grad()
     def generate_images(self, val_loader=None, n_samples: int = 16, epoch: int = 0,
