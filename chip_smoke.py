@@ -25,10 +25,11 @@ Phases, each printed as it runs; any failure exits non-zero:
       versions at every distinct unit shape of the gaussian3d U-Net forward
       (state [16, 256, 96, 1], base 64, mults (1, 2, 4, 8)), in f32 and
       bf16, the downsample's silu(x + t_vec) prologue included; each shape's
-      kernel time, plain time and bound; then, in f32, at shapes off that
+      kernel time, plain time and bound, and the bottleneck's tile plan
+      (``ops.shuffle.bottleneck_plan``); then, in f32, at shapes off that
       path (every unit of the U-Net on the mnist config's odd grids, the
-      downsample's prologue on an odd grid, short last row tiles, widths
-      that fill no whole tile of the pointwise products);
+      downsample's prologue on an odd grid, short last tiles in rows and
+      columns, widths that fill no whole tile of the pointwise products);
   (g) the second path: ``vq_vae_gan_diffusion_torch.generate`` on
       configs/inference_config_vqdiffusion.yml at full width (16 samples,
       1000 clipped DDPM steps of the U-Net, cosine argmax to [16, 256]
@@ -53,8 +54,9 @@ Phases, each printed as it runs; any failure exits non-zero:
       the chain cut to 20 steps (t = 19..0 of the 1000-step schedule): 19
       B6, 780 K1 and 80 K2 launches; cold, then warm; K1 and K2 against
       their plain versions at every unit shape of this U-Net (1024x256 down
-      to 64x16); ``fused_posterior`` on against off with the same noise
-      over the 20 steps (at least 99% of indices equal);
+      to 64x16), with the bottleneck's tile plan; ``fused_posterior`` on
+      against off with the same noise over the 20 steps (at least 99% of
+      indices equal);
   (k) the transformer prior (codebook 1024, 256 tokens, 100 steps, width
       512, 4 blocks of 8 heads, 16 samples, seeded weights): ``sample``
       with plain ops, with B6 (99 launches) and under ``prng`` with B7 (99
@@ -95,6 +97,11 @@ import time
 
 import torch
 
+from vq_vae_gan_diffusion_torch.models.shuffle_infer import unet_unit_shapes
+from vq_vae_gan_diffusion_torch.utils.profiling import (BF16_PEAK_FLOPS, F32_PEAK_FLOPS,
+                                                        hbm_bytes_per_s, random_unit,
+                                                        shuffle_unit_bound)
+
 CONFIG = "configs/inference_config_small.yml"
 VQD_CONFIG = "configs/inference_config_vqdiffusion.yml"
 VQO_CONFIG = "configs/inference_config_vqofficial.yml"
@@ -103,13 +110,11 @@ QUANT_MODES = ("int8", "int8kv", "int4", "int4kv")
 # full width of the GPT prior in CONFIG, at --n-samples 16
 L, C, H, B, N = 12, 1024, 16, 16, 256
 # full width of the gaussian3d prior in VQD_CONFIG: state [B, N, 96, 1]
-GAUSSIAN_DIM, UNET_BASE, UNET_MULTS, STEPS = 96, 64, (1, 2, 4, 8), 1000
+GAUSSIAN_DIM, STEPS = 96, 1000
 # the discrete priors: VQ_Official's K = 1024 classes over 1000 steps
 # (chain cut to 20), the transformer's K = 1025 over 100 steps
 VQO_K, VQO_T, VQO_STEPS = 1024, 1000, 20
 TVQ_K, TVQ_T, TRUNC_K = 1025, 100, int(1025 * 0.86)
-F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
-BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
 
 
 def smi_line() -> str:
@@ -117,15 +122,6 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def hbm_bytes_per_s(name: str) -> float:
-    """Published device-memory rate of the H100 variant ``name`` names."""
-    if "PCIe" in name:
-        return 2.0e12
-    if "NVL" in name:
-        return 3.9e12
-    return 3.35e12
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -372,66 +368,6 @@ def phase_routes() -> None:
         raise AssertionError("kernel route and module route sampled different tokens")
 
 
-def unet_unit_shapes(h: int = N, w: int = GAUSSIAN_DIM, base: int = UNET_BASE,
-                     mults=UNET_MULTS) -> list:
-    """(kernel, H, W, C_in, C_out) of every ShuffleNet unit of one U-Net
-    forward, in order (models/unet_shuffle.py): each encoder block 4
-    bottlenecks ("K1") and a downsample ("K2", which halves H and W,
-    rounding up), 3 mid bottlenecks, each decoder block 5 bottlenecks on the
-    upsampled input concatenated with its skip."""
-    dims = [base] + [base * m for m in mults]
-    pairs = list(zip(dims[:-1], dims[1:]))
-    units, skips, c = [], [], base
-    for _, c_out in pairs:
-        units += [("K1", h, w, c, c)] * 3 + [("K1", h, w, c, c_out // 2),
-                                             ("K2", h, w, c_out // 2, c_out)]
-        skips.append((h, w, c_out // 2))
-        h, w, c = (h + 1) // 2, (w + 1) // 2, c_out
-    units += [("K1", h, w, c, c)] * 2 + [("K1", h, w, c, c // 2)]
-    c //= 2
-    for c_in, _ in reversed(pairs):
-        h, w, skip = skips.pop()
-        c += skip
-        units += [("K1", h, w, c, c)] * 3 + [("K1", h, w, c, c // 2),
-                                             ("K1", h, w, c // 2, c_in // 2)]
-        c = c_in // 2
-    return units
-
-
-def random_unit(kind: str, c_in: int, c_out: int, dtype: torch.dtype,
-                gen: torch.Generator) -> dict:
-    """A folded unit with N(0, 1/fan_in) weights and N(0, 1) biases."""
-    co2 = c_out // 2
-    c1, mid = (c_in // 2, c_in // 2) if kind == "K1" else (c_in, co2)
-
-    def rnd(*shape, fan=1):
-        return (torch.randn(*shape, generator=gen, device="cuda") / math.sqrt(fan)).to(dtype)
-    return dict(k1=rnd(3, 3, c1, fan=9), b1=rnd(c1), w1=rnd(c1, co2, fan=c1), c1=rnd(co2),
-                w2=rnd(c1, mid, fan=c1), c2=rnd(mid), k2=rnd(3, 3, mid, fan=9), b2=rnd(mid),
-                w3=rnd(mid, co2, fan=mid), c3=rnd(co2))
-
-
-def unit_bound(kind: str, h: int, w: int, c_in: int, c_out: int, dtype: torch.dtype,
-               name: str) -> tuple[float, float]:
-    """(ms by bytes, ms by operations) of one unit at batch B: its input read
-    once, its parameters read once and its output written once, over the
-    memory rate; both depthwise convolutions and the three pointwise
-    products (2 operations a multiply-add) over the peak rate of the type."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    co2, p_in = c_out // 2, B * h * w
-    if kind == "K1":
-        ch, p_out = c_in // 2, p_in
-        ops = 2 * p_in * (18 * ch + 2 * ch * co2 + ch * ch)
-        params = 20 * ch + ch * ch + 2 * ch * co2 + 2 * co2
-    else:
-        p_out = p_in // 4
-        ops = 2 * (p_out * (9 * c_in + 9 * co2 + co2 * co2) + (p_in + p_out) * c_in * co2)
-        params = 10 * c_in + 10 * co2 + 2 * c_in * co2 + co2 * co2 + 3 * co2
-    bytes_ = (p_in * c_in + p_out * c_out + params) * es
-    peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
-    return 1e3 * bytes_ / hbm_bytes_per_s(name), 1e3 * ops / peak
-
-
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
                 scale: float | None = None) -> float:
     """max |got - want|, after failing unless finite and <= tol * scale;
@@ -462,11 +398,11 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
     widen to one step of the output's binade (2^-8 = 3.9e-3 of scale).
 
     Times are per call, at each shape, by CUDA events over back-to-back
-    calls; the returned means are per call over one forward's 39 bottleneck
-    and 4 downsample calls.
+    calls, printed with the bottleneck's tile plan; the returned means are
+    per call over one forward's 39 bottleneck and 4 downsample calls.
     """
-    from vq_vae_gan_diffusion_torch.ops.shuffle import (fused_bottleneck, fused_downsample,
-                                                        reference_bottleneck,
+    from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, fused_bottleneck,
+                                                        fused_downsample, reference_bottleneck,
                                                         reference_downsample)
     units = unet_unit_shapes(h, w)
     counts: dict = {}
@@ -499,12 +435,14 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
                 err = max(err, err_t)
             ms = cuda_ms(lambda: kernel(x, p), reps=kernel_reps)
             plain_ms = cuda_ms(lambda: plain(x, p), reps=plain_reps)
-            by_bytes, by_ops = unit_bound(kind, uh, uw, c_in, c_out, dtype, card)
+            by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
             bound = max(by_bytes, by_ops)
+            plan = (f"; {bottleneck_plan(B, uh, uw, c_in // 2, c_out // 2, dtype)}"
+                    if kind == "K1" else "")
             print(f"({label}) {what} (x{count} a forward): max abs err {err:.3e}; "
                   f"kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
-                  f"{'bytes' if by_bytes >= by_ops else 'operations'}")
+                  f"{'bytes' if by_bytes >= by_ops else 'operations'}{plan}")
             a = acc[kind]
             a["max_abs_err"] = max(a["max_abs_err"], err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", by_bytes),
@@ -531,16 +469,22 @@ def phase_other_shapes() -> None:
     mnist config's state [16, 49, 96, 1] (odd grids, whose last row tile is
     short; a downsample there halves 49x96 to 25x48, reading the zero pad
     row past the image), the downsample's silu(x + t_vec) prologue on an
-    odd grid, a downsample with a short last row tile, and widths that fill
-    no whole k-chunk or n-tile of the pointwise products."""
-    from vq_vae_gan_diffusion_torch.ops.shuffle import (fused_bottleneck, fused_downsample,
-                                                        reference_bottleneck,
+    odd grid, a downsample with a short last row tile, bottlenecks whose
+    last tile is short in rows and in columns, and widths that fill no
+    whole k-chunk or n-tile of the pointwise products."""
+    from vq_vae_gan_diffusion_torch.ops import shuffle
+    from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, fused_bottleneck,
+                                                        fused_downsample, reference_bottleneck,
                                                         reference_downsample)
-    cases = set(unet_unit_shapes(h=49))
+    cases = set(unet_unit_shapes(49, GAUSSIAN_DIM))
     if not any(kind == "K2" and h % 2 for kind, h, *_ in cases):
         raise AssertionError("the mnist geometry has no odd-grid downsample")
     cases |= {("K2", 98, 96, 32, 64), ("K1", 13, 7, 24, 12), ("K2", 14, 10, 20, 12),
-              ("K2", 13, 7, 20, 12)}
+              ("K2", 13, 7, 20, 12), ("K1", 37, 53, 64, 64), ("K1", 19, 29, 48, 40)}
+    plans = [(h, w, bottleneck_plan(B, h, w, c_in // 2, c_out // 2))
+             for kind, h, w, c_in, c_out in cases if kind == "K1"]
+    if not (any(h % p.th for h, _, p in plans) and any(w % p.tw for _, w, p in plans)):
+        raise AssertionError("no bottleneck case has a short last tile in rows and one in columns")
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     for kind, h, w, c_in, c_out in sorted(cases):
@@ -558,7 +502,21 @@ def phase_other_shapes() -> None:
             torch.cuda.synchronize()
             worst = max(worst, check_close(what + " t_vec", got, want, 1e-4))
     print(f"(f) f32, {len(cases)} shapes off the main path (mnist geometry 49x96 .. 4x6, "
-          f"short row tiles, narrow widths): max abs err {worst:.3e}")
+          f"short last tiles, narrow widths): max abs err {worst:.3e}")
+    # the C side refuses shared memory short of the tile's or above a
+    # block's, before it launches anything
+    lib, plan = shuffle._bind(), bottleneck_plan(B, 13, 7, 12, 6)
+    x = torch.zeros(B, 13, 7, 24, device="cuda")
+    out, params = torch.empty(B, 13, 7, 12, device="cuda"), random_unit("K1", 24, 12, x.dtype, gen)
+    codes = [lib.shuffle_bottleneck_f32(x.data_ptr(), out.data_ptr(), shuffle._params(params), B,
+                                        13, 7, 12, 6, plan.th, plan.tw, smem,
+                                        torch.cuda.current_stream().cuda_stream)
+             for smem in (plan.smem - 1, shuffle.SMEM_LIMIT + 1)]
+    if codes != [-1, -1]:
+        raise AssertionError(f"shuffle_bottleneck_f32 returned {codes} for short and excess "
+                             "shared memory, not -1")
+    print(f"(f) shuffle_bottleneck_f32 refuses {plan.smem - 1} and {shuffle.SMEM_LIMIT + 1} B "
+          f"for a tile that needs {plan.smem} B")
 
 
 def phase_vqdiffusion() -> dict:

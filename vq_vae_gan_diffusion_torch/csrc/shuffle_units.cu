@@ -27,20 +27,26 @@
 // t2, u2 and the outputs are rounded to T where the plain version
 // (reference_bottleneck / reference_downsample) rounds them.
 //
-// Design (a first, simple kernel): one block per (image, tile of `th` rows
-// of full width). Branch 2's first pointwise product runs on the tile plus
-// one halo row above and below (its dw needs them) into shared memory; each
-// dw writes its tile to shared memory; every pointwise product is a tiled
-// f32 GEMM in the block with A and B staged through shared memory in
-// k-chunks of 16, so no weight matrix has to fit (w2 at 256x256 f32 is
-// 256 KB). What bounds it: at the path's shapes the three pointwise
-// products are 80-90% of the operations at about 40 f32 operations per byte
-// of activation, so the f32 CUDA-core rate bounds it (see chip_smoke.py's
-// bound). Tensor cores, TMA and fusing units are later work.
+// Bottleneck design: one block per (image, th x tw tile of output pixels),
+// the tile chosen in Python (ops/shuffle.py::bottleneck_plan) so that a
+// block's shared memory follows the tile, not the image width. x2 over the
+// halo tile (th + 2) x (tw + 2) is staged in shared memory with 16-byte
+// loads; branch 2's first pointwise product runs on it (t2 set to 0 at halo
+// pixels outside the image, rows and columns); each dw writes its tile to
+// shared memory; branch 1's dw reads x1 from global memory (L1/L2 hits).
+// The pointwise products are tiled f32 GEMMs in the block with A and B
+// staged through shared memory in k-chunks of 16, so no weight matrix has
+// to fit. What bounds it: at the path's shapes the three pointwise
+// products are 80-90% of the operations at about 40 f32 operations per
+// byte of activation, so the f32 CUDA-core rate bounds it, and the bytes
+// at the 1024x256 grid's 32-channel units (see chip_smoke.py's bound).
+// Downsample design: one block per (image, rows of full width), as before.
+// Tensor cores, TMA and fusing units are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -127,32 +133,115 @@ __device__ void pointwise(int P, int K, int N, const LoadA& loadA,
   __syncthreads();
 }
 
+// rows x cols pixels of one image, from (y0, x0), channels [0, ch) of each
+// pixel (row stride cin), into dst[p * ld + k] as f32, p = row * cols + col;
+// 0 at pixels outside the image. 16-byte loads when vec.
 template <class T>
-__global__ void __launch_bounds__(kThreads)
+__device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int y0, int x0,
+                           int rows, int cols, int ch, bool vec, float* dst, int ld) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    const int per = ch / V;
+    for (int e = threadIdx.x; e < rows * cols * per; e += kThreads) {
+      const int j = e % per, p = e / per;
+      const int y = y0 + p / cols, xx = x0 + p % cols;
+      float f[V];
+      if (y >= 0 && y < H && xx >= 0 && xx < W) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + ((size_t)y * W + xx) * cin) + j);
+        if constexpr (sizeof(T) == 4) {
+          f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+          f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+        } else {
+          const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            f[2 * i] = __uint_as_float(u[i] << 16);
+            f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[i] = 0.f;
+      }
+      float4* d = reinterpret_cast<float4*>(dst + p * ld + j * V);
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i) d[i] = make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols * ch; e += kThreads) {
+      const int k = e % ch, p = e / ch;
+      const int y = y0 + p / cols, xx = x0 + p % cols;
+      dst[p * ld + k] =
+          (y >= 0 && y < H && xx >= 0 && xx < W) ? to_f(src[((size_t)y * W + xx) * cin + k]) : 0.f;
+    }
+  }
+}
+
+// One block: image blockIdx.y, output pixels [r0, r0 + th) x [c0, c0 + tw)
+// clipped to the image, tile p = (row - r0) * tw + (col - c0); the halo tile
+// is (th + 2) x (tw + 2) from (r0 - 1, c0 - 1).
+template <class T>
+__global__ void __launch_bounds__(kThreads, 2)
 bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
                   const T* __restrict__ k1, const T* __restrict__ b1,
                   const T* __restrict__ w1, const T* __restrict__ c1,
                   const T* __restrict__ w2, const T* __restrict__ c2,
                   const T* __restrict__ k2, const T* __restrict__ b2,
                   const T* __restrict__ w3, const T* __restrict__ c3,
-                  int H, int W, int ch, int co2, int th) {
+                  int H, int W, int ch, int co2, int th, int tw, bool vec) {
   extern __shared__ float4 smem4[];
+  const int hw = tw + 2, Ph = (th + 2) * hw, P = th * tw;
   float* As = reinterpret_cast<float*>(smem4);
   float* Bs = As + kAStage;
-  float* bufT = Bs + kBStage;                         // (th + 2) * W * ch
-  float* bufU = bufT + (size_t)(th + 2) * W * ch;     // th * W * ch
-  const int r0 = blockIdx.x * th;
-  const int rows = min(th, H - r0);
+  float* bufX = Bs + kBStage;              // x2 over the halo tile, then u1
+  float* bufT = bufX + (size_t)Ph * ch;    // t2 over the halo tile
+  float* bufU = bufT + (size_t)Ph * ch;    // u2
+  const int tiles_w = (W + tw - 1) / tw;
+  const int r0 = blockIdx.x / tiles_w * th, c0 = blockIdx.x % tiles_w * tw;
   const int cin = 2 * ch, cout = 2 * co2;
-  const int HW = H * W;
-  const T* xb = x + (size_t)blockIdx.y * HW * cin;
-  T* ob = out + ((size_t)blockIdx.y * HW + (size_t)r0 * W) * cout;
-  const int P = rows * W;
+  const T* xb = x + (size_t)blockIdx.y * H * W * cin;
+  T* ob = out + (size_t)blockIdx.y * H * W * cout;
+  // output pixel of tile pixel p, or -1 outside the image (a ragged tile)
+  auto opix = [&](int p) {
+    const int r = r0 + p / tw, c = c0 + p % tw;
+    return (r < H && c < W) ? r * W + c : -1;
+  };
 
-  // branch 1: u1 = dw3x3(x1) + b1, zero padding
+  // branch 2: t2 = silu(x2 @ w2 + c2) over the halo tile, 0 outside the image
+  stage_tile<T>(xb + ch, cin, H, W, r0 - 1, c0 - 1, th + 2, hw, ch, vec, bufX, ch);
+  __syncthreads();
+  pointwise<T>(
+      Ph, ch, ch, [&](int p, int k) { return bufX[p * ch + k]; }, w2, c2,
+      [&](int p, int n, float v) {
+        const int r = r0 - 1 + p / hw, c = c0 - 1 + p % hw;
+        bufT[p * ch + n] = (r >= 0 && r < H && c >= 0 && c < W) ? rnd<T>(silu(v)) : 0.f;
+      },
+      As, Bs);
+  // u2 = dw3x3(t2) + b2
   for (int e = threadIdx.x; e < P * ch; e += kThreads) {
     const int k = e % ch, p = e / ch;
-    const int r = r0 + p / W, c = p % W;
+    const float* t = bufT + ((p / tw) * hw + p % tw) * ch + k;
+    float s = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        s = fmaf(t[(dy * hw + dx) * ch], to_f(k2[(dy * 3 + dx) * ch + k]), s);
+    bufU[e] = rnd<T>(s + to_f(b2[k]));
+  }
+  __syncthreads();
+  pointwise<T>(
+      P, ch, co2, [&](int p, int k) { return bufU[p * ch + k]; }, w3, c3,
+      [&](int p, int n, float v) {
+        const int q = opix(p);
+        if (q >= 0) ob[(size_t)q * cout + 2 * n + 1] = from_f<T>(silu(v));
+      },
+      As, Bs);
+
+  // branch 1: u1 = dw3x3(x1) + b1 from global memory, zero padding
+  for (int e = threadIdx.x; e < P * ch; e += kThreads) {
+    const int k = e % ch, p = e / ch;
+    const int r = r0 + p / tw, c = c0 + p % tw;
     float s = 0.f;
     for (int dy = 0; dy < 3; ++dy) {
       const int yy = r + dy - 1;
@@ -163,45 +252,15 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
         s = fmaf(to_f(xb[((size_t)yy * W + xx) * cin + k]), to_f(k1[(dy * 3 + dx) * ch + k]), s);
       }
     }
-    bufU[e] = rnd<T>(s + to_f(b1[k]));
+    bufX[e] = rnd<T>(s + to_f(b1[k]));
   }
   __syncthreads();
   pointwise<T>(
-      P, ch, co2, [&](int p, int k) { return bufU[p * ch + k]; }, w1, c1,
-      [&](int p, int n, float v) { ob[(size_t)p * cout + 2 * n] = from_f<T>(silu(v)); }, As, Bs);
-
-  // branch 2: t2 = silu(x2 @ w2 + c2) on rows r0-1 .. r0+rows, 0 outside the image
-  const int q0 = (r0 - 1) * W;
-  pointwise<T>(
-      (rows + 2) * W, ch, ch,
-      [&](int p, int k) {
-        const int q = q0 + p;
-        return (q >= 0 && q < HW) ? to_f(xb[(size_t)q * cin + ch + k]) : 0.f;
-      },
-      w2, c2,
+      P, ch, co2, [&](int p, int k) { return bufX[p * ch + k]; }, w1, c1,
       [&](int p, int n, float v) {
-        const int q = q0 + p;
-        bufT[p * ch + n] = (q >= 0 && q < HW) ? rnd<T>(silu(v)) : 0.f;
+        const int q = opix(p);
+        if (q >= 0) ob[(size_t)q * cout + 2 * n] = from_f<T>(silu(v));
       },
-      As, Bs);
-  // u2 = dw3x3(t2) + b2
-  for (int e = threadIdx.x; e < P * ch; e += kThreads) {
-    const int k = e % ch, p = e / ch;
-    const int r = p / W, c = p % W;
-    float s = 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const int xx = c + dx - 1;
-        if (xx < 0 || xx >= W) continue;
-        s = fmaf(bufT[((r + dy) * W + xx) * ch + k], to_f(k2[(dy * 3 + dx) * ch + k]), s);
-      }
-    }
-    bufU[e] = rnd<T>(s + to_f(b2[k]));
-  }
-  __syncthreads();
-  pointwise<T>(
-      P, ch, co2, [&](int p, int k) { return bufU[p * ch + k]; }, w3, c3,
-      [&](int p, int n, float v) { ob[(size_t)p * cout + 2 * n + 1] = from_f<T>(silu(v)); },
       As, Bs);
 }
 
@@ -293,8 +352,10 @@ downsample_kernel(const T* __restrict__ x, const T* __restrict__ tvec, T* __rest
 
 size_t stage_bytes() { return (size_t)(kAStage + kBStage) * sizeof(float); }
 
-size_t bottleneck_smem(int W, int ch, int th) {
-  return stage_bytes() + (size_t)(2 * th + 2) * W * ch * sizeof(float);
+// ops/shuffle.py::bottleneck_smem computes the same
+size_t bottleneck_smem(int th, int tw, int ch) {
+  const size_t halo = (size_t)(th + 2) * (tw + 2), tile = (size_t)th * tw;
+  return stage_bytes() + (2 * halo + tile) * ch * sizeof(float);
 }
 
 size_t downsample_smem(int W, int C, int co2, int tho) {
@@ -303,8 +364,9 @@ size_t downsample_smem(int W, int C, int co2, int tho) {
          ((size_t)(2 * tho + 1) * W * co2 + (size_t)tho * ((W + 1) / 2) * wide) * sizeof(float);
 }
 
-// Rows per block: at most 4; fewer while a block would need more than half
-// an SM's shared memory or the grid would have fewer than kTargetBlocks.
+// Downsample rows per block: at most 4; fewer while a block would need more
+// than half an SM's shared memory or the grid would have fewer than
+// kTargetBlocks.
 template <class Smem>
 int pick_rows(int batch, int rows_out, Smem smem) {
   int th = 4;
@@ -316,18 +378,19 @@ int pick_rows(int batch, int rows_out, Smem smem) {
 
 template <class T>
 int launch_bottleneck(const void* x, void* out, const void* const* p, int B, int H, int W,
-                      int ch, int co2, void* stream) {
-  const int th = pick_rows(B, H, [&](int t) { return bottleneck_smem(W, ch, t); });
-  const size_t smem = bottleneck_smem(W, ch, th);
-  if (smem > (size_t)kSmemLimit) return -1;
+                      int ch, int co2, int th, int tw, int smem, void* stream) {
+  if (th < 1 || tw < 1 || smem < 0 || (size_t)smem < bottleneck_smem(th, tw, ch) ||
+      smem > kSmemLimit)
+    return -1;
   cudaError_t err = cudaFuncSetAttribute(bottleneck_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + th - 1) / th, B);
+  const dim3 grid(((H + th - 1) / th) * ((W + tw - 1) / tw), B);
+  const bool vec = ch % (16 / (int)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
   const T* const* q = reinterpret_cast<const T* const*>(p);
   bottleneck_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (T*)out, q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], H, W,
-      ch, co2, th);
+      ch, co2, th, tw, vec);
   return (int)cudaGetLastError();
 }
 
@@ -352,16 +415,21 @@ int launch_downsample(const void* x, const void* tvec, void* out, const void* co
 }  // namespace
 
 // params: ten device pointers in the order k1, b1, w1, c1, w2, c2, k2, b2, w3, c3.
-// Return 0, a cudaError_t, or -1 when a block would need more shared memory
-// than the card has.
+// The bottleneck takes its th x tw tile and the bytes of shared memory a
+// block gets from ops/shuffle.py::bottleneck_plan. Return 0, a cudaError_t,
+// or -1 when the bytes given fall short of what the tile needs or exceed
+// what a block may have (the downsample: when its rows need more than that).
 extern "C" int shuffle_bottleneck_f32(const void* x, void* out, const void* const* params, int B,
-                                      int H, int W, int ch, int co2, void* stream) {
-  return launch_bottleneck<float>(x, out, params, B, H, W, ch, co2, stream);
+                                      int H, int W, int ch, int co2, int th, int tw, int smem,
+                                      void* stream) {
+  return launch_bottleneck<float>(x, out, params, B, H, W, ch, co2, th, tw, smem, stream);
 }
 
 extern "C" int shuffle_bottleneck_bf16(const void* x, void* out, const void* const* params, int B,
-                                       int H, int W, int ch, int co2, void* stream) {
-  return launch_bottleneck<__nv_bfloat16>(x, out, params, B, H, W, ch, co2, stream);
+                                       int H, int W, int ch, int co2, int th, int tw, int smem,
+                                       void* stream) {
+  return launch_bottleneck<__nv_bfloat16>(x, out, params, B, H, W, ch, co2, th, tw, smem,
+                                          stream);
 }
 
 extern "C" int shuffle_downsample_f32(const void* x, const void* tvec, void* out,

@@ -28,7 +28,7 @@ TPU unit) compute the same function, which is one CUDA kernel here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +81,32 @@ def fold_unet(unet: ShuffleUNet, dtype: torch.dtype = torch.float32) -> Dict[str
         "final": (unet.final_conv.weight[:, :, 0, 0].T.to(dtype).contiguous(),
                   unet.final_conv.bias.to(dtype)),
     }
+
+
+def unet_unit_shapes(h: int, w: int, base: int = 64,
+                     mults: Tuple[int, ...] = (1, 2, 4, 8)) -> List[Tuple[str, int, int, int, int]]:
+    """(kernel, H, W, C_in, C_out) of every ShuffleNet unit of one forward of a
+    ``ShuffleUNet`` on an [B, h, w, C] input, in order: each encoder block 4
+    bottlenecks ("K1") and a downsample ("K2", which halves H and W,
+    rounding up), 3 mid bottlenecks, each decoder block 5 bottlenecks on the
+    upsampled input concatenated with its skip."""
+    dims = [base] + [base * m for m in mults]
+    pairs = list(zip(dims[:-1], dims[1:]))
+    units, skips, c = [], [], base
+    for _, c_out in pairs:
+        units += [("K1", h, w, c, c)] * 3 + [("K1", h, w, c, c_out // 2),
+                                             ("K2", h, w, c_out // 2, c_out)]
+        skips.append((h, w, c_out // 2))
+        h, w, c = (h + 1) // 2, (w + 1) // 2, c_out
+    units += [("K1", h, w, c, c)] * 2 + [("K1", h, w, c, c // 2)]
+    c //= 2
+    for c_in, _ in reversed(pairs):
+        h, w, skip = skips.pop()
+        c += skip
+        units += [("K1", h, w, c, c)] * 3 + [("K1", h, w, c, c // 2),
+                                             ("K1", h, w, c // 2, c_in // 2)]
+        c = c_in // 2
+    return units
 
 
 def _time_mlp(x: torch.Tensor, t_emb: torch.Tensor, p: List[torch.Tensor]) -> torch.Tensor:

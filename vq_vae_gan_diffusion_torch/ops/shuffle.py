@@ -9,7 +9,9 @@ The PyTorch counterpart of the JAX ``ops/shuffle_pallas.py``:
   plain PyTorch versions of the two units;
 - :func:`fused_bottleneck` and :func:`fused_downsample` launch the
   hand-written CUDA kernels of ``csrc/shuffle_units.cu`` for CUDA tensors
-  and run the plain versions for CPU tensors.
+  and run the plain versions for CPU tensors;
+- :func:`bottleneck_plan` chooses the bottleneck kernel's pixel tile and
+  its shared memory, the only place a tile is chosen.
 
 Tensors are NHWC, channels contiguous, as in the JAX package. A folded unit
 is a dict of tensors in the activations' dtype::
@@ -36,7 +38,8 @@ x1 / x2 with no layout op between units.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,6 +136,103 @@ def reference_downsample(x: torch.Tensor, p: Folded,
     return _unit(xf, xf, p, 2, x.dtype)
 
 
+SMEM_LIMIT = 232_448        # bytes of shared memory a block may use on sm_90
+TWO_BLOCKS_SMEM = 115_712   # the most that leaves room for two blocks on an SM
+                            # (228 KB an SM, 1 KB of it reserved for each block)
+TARGET_BLOCKS = 264         # two blocks on each of the H100's 132 SMs
+HALO_AIMS = (1.5, 2.0)      # halo factors (th + 2)(tw + 2) / (th tw) aimed at
+MAX_HALO = HALO_AIMS[-1]
+MAX_TILE = (32, 64)         # the largest th and tw tried
+ROW_GRANULE = 32            # pixel rows of a warp's tile in the pointwise products
+STAGE_BYTES = 20_736        # the pointwise products' staging of A and w (f32)
+
+
+def bottleneck_smem(th: int, tw: int, ch: int, co2: int) -> int:
+    """Bytes of shared memory a bottleneck block of a th x tw tile needs
+    (``bottleneck_smem`` in csrc/shuffle_units.cu computes the same): the
+    staging of the pointwise products, x2 and t2 over the halo tile
+    (th + 2) x (tw + 2), and one depthwise output over the tile, all f32."""
+    halo, tile = (th + 2) * (tw + 2), th * tw
+    return STAGE_BYTES + 4 * ch * (2 * halo + tile)
+
+
+class BottleneckPlan(NamedTuple):
+    """A bottleneck launch: block (i, b) computes image b's output pixels
+    [r0, r0 + th) x [c0, c0 + tw), clipped to the image, with all their
+    channels, where (r0, c0) = ``tile(i)``."""
+    th: int
+    tw: int
+    tiles_h: int
+    tiles_w: int
+    smem: int
+    blocks: int
+
+    @property
+    def halo(self) -> float:
+        """Branch 2's first pointwise product runs on (th + 2)(tw + 2)
+        pixels to give th * tw outputs: this ratio."""
+        return (self.th + 2) * (self.tw + 2) / (self.th * self.tw)
+
+    def tile(self, i: int) -> Tuple[int, int]:
+        """(r0, c0) of tile i, as the kernel decodes blockIdx.x."""
+        return (i // self.tiles_w) * self.th, (i % self.tiles_w) * self.tw
+
+    def __str__(self) -> str:
+        return (f"tile {self.th}x{self.tw} (halo {self.halo:.3f}), {self.smem} B, "
+                f"{self.blocks} blocks")
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int,
+                    dtype: torch.dtype = torch.float32) -> BottleneckPlan:
+    """The bottleneck kernel's tile for x [b, h, w, 2ch] -> [b, h, w, 2co2].
+
+    A block covers one image's th x tw output pixels and all their
+    channels; its shared memory follows the tile (:func:`bottleneck_smem`),
+    not the image width. Of every tile up to ``MAX_TILE`` that fits a block:
+
+    1. rank them in tiers: those that leave room for two blocks on an SM
+       with a halo factor of at most 1.5, then with at most 2
+       (``HALO_AIMS``), then those of at most 2 that fit a block, then all;
+    2. keep the tiles of at least ``TARGET_BLOCKS`` blocks of the first
+       tier within the halo limit that has any; if none has, the first tier
+       that is not empty;
+    3. take the one whose pointwise products run the fewest pixel rows over
+       the grid, counted in warp tiles of ``ROW_GRANULE`` rows (the halo
+       tile once, the tile twice), ragged last tiles included; then the
+       larger tile, then the wider.
+
+    ``dtype`` is the activations' type; the kernel holds every
+    intermediate in f32, so the tile does not depend on it yet. Raises
+    ValueError when no tile fits.
+    """
+    del dtype
+    cands = []
+    for th in range(1, min(h, MAX_TILE[0]) + 1):
+        for tw in range(1, min(w, MAX_TILE[1]) + 1):
+            smem = bottleneck_smem(th, tw, ch, co2)
+            if smem <= SMEM_LIMIT:
+                tiles_h, tiles_w = _ceil(h, th), _ceil(w, tw)
+                cands.append(BottleneckPlan(th, tw, tiles_h, tiles_w, smem,
+                                            b * tiles_h * tiles_w))
+    if not cands:
+        raise ValueError(f"no bottleneck tile of {h}x{w} with ch {ch} fits {SMEM_LIMIT} B "
+                         "of shared memory")
+    tiers = [[c for c in cands if c.smem <= TWO_BLOCKS_SMEM and c.halo <= aim]
+             for aim in HALO_AIMS] + [[c for c in cands if c.halo <= MAX_HALO], cands]
+    many = [[c for c in t if c.blocks >= TARGET_BLOCKS] for t in tiers[:-1]]
+    pool = next((t for t in many if t), None) or next(t for t in tiers if t)
+
+    def rows(c: BottleneckPlan) -> int:
+        g = ROW_GRANULE
+        return c.blocks * (_ceil((c.th + 2) * (c.tw + 2), g) + 2 * _ceil(c.th * c.tw, g)) * g
+    return min(pool, key=lambda c: (rows(c), -c.th * c.tw, -c.tw))
+
+
 def _check_cuda_args(x: torch.Tensor, p: Folded, shapes: Dict[str, tuple],
                      extra: Dict[str, torch.Tensor]) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -152,7 +252,8 @@ def _check_cuda_args(x: torch.Tensor, p: Folded, shapes: Dict[str, tuple],
 def _launch(fn, name: str, *args) -> None:
     err = fn(*args)
     if err == -1:
-        raise ValueError(f"{name}: a row of this shape needs more shared memory than a block has")
+        raise ValueError(f"{name}: this shape's tile needs more shared memory than a block "
+                         "has, or than the bytes given")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -171,9 +272,10 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded) -> torch.Tensor:
 
     Returns [B, H, W, 2co2] in x's dtype, channel-shuffled.
 
-    CUDA tensors go through the CUDA kernel, which adds one to
-    ``fused_bottleneck.launches`` per call; CPU tensors go through
-    :func:`reference_bottleneck`. Any other device raises.
+    CUDA tensors go through the CUDA kernel, on the tile of
+    :func:`bottleneck_plan`, which adds one to ``fused_bottleneck.launches``
+    per call; CPU tensors go through :func:`reference_bottleneck`. Any other
+    device raises.
     """
     if x.device.type == "cpu":
         return reference_bottleneck(x, folded)
@@ -186,11 +288,12 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     _check_cuda_args(x, folded, {
         "k1": (3, 3, ch), "b1": (ch,), "w1": (ch, co2), "c1": (co2,), "w2": (ch, ch),
         "c2": (ch,), "k2": (3, 3, ch), "b2": (ch,), "w3": (ch, co2), "c3": (co2,)}, {})
+    plan = bottleneck_plan(b, h, w, ch, co2, x.dtype)
     out = torch.empty((b, h, w, 2 * co2), dtype=x.dtype, device=x.device)
     lib = _bind()
     fn = lib.shuffle_bottleneck_f32 if x.dtype == torch.float32 else lib.shuffle_bottleneck_bf16
     _launch(fn, "shuffle_bottleneck", x.data_ptr(), out.data_ptr(), _params(folded), b, h, w,
-            ch, co2, torch.cuda.current_stream(x.device).cuda_stream)
+            ch, co2, plan.th, plan.tw, plan.smem, torch.cuda.current_stream(x.device).cuda_stream)
     fused_bottleneck.launches += 1
     return out
 
@@ -252,7 +355,7 @@ def _bind() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.shuffle_bottleneck_f32, lib.shuffle_bottleneck_bf16):
-            fn.argtypes = [ptr, ptr, ptr] + [i32] * 5 + [ptr]
+            fn.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
         for fn in (lib.shuffle_downsample_f32, lib.shuffle_downsample_bf16):
             fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 5 + [ptr]

@@ -1,8 +1,21 @@
-"""Where a reverse step of the gaussian3d sampler spends its time on the card.
+"""Where a reverse step of the gaussian3d sampler spends its time on the card,
+or what each ShuffleNet unit shape of one U-Net forward costs.
 
     python -m vq_vae_gan_diffusion_torch.profile_shuffle [--dtype float32|bfloat16]
+    python -m vq_vae_gan_diffusion_torch.profile_shuffle --units gaussian3d|vqofficial [--dtype ...]
 
-Builds the prior's U-Net of configs/inference_config_vqdiffusion.yml at
+With ``--units`` it builds only csrc/shuffle_units.cu and, at every distinct
+unit shape of one forward of the U-Net (base 64, mults (1, 2, 4, 8)) on the
+path's state ([16, 256, 96, 1] for gaussian3d, [16, 1024, 256, 1] for
+VQ_Official), on a seeded random unit, prints the kernel's ms a call by CUDA
+events, its max abs error against the plain version, the bound and what
+sets it, the bottleneck's tile plan and the calls a forward; then each
+kernel's mean over the forward's calls. It calls only the public
+``fused_bottleneck`` / ``fused_downsample``, and prints the plan only where
+``ops.shuffle`` has ``bottleneck_plan``, so the same file copied into an
+older tree times that tree's kernels. The downsample is a control.
+
+Without it, it builds the prior's U-Net of configs/inference_config_vqdiffusion.yml at
 full width (base 64, mults (1, 2, 4, 8), 1000 timesteps, flax-style weights
 from seed 0), folds it, and on a state of [16, 256, 96, 1] prints:
 
@@ -18,27 +31,90 @@ from seed 0), folds it, and on a state of [16, 256, 96, 1] prints:
 from __future__ import annotations
 
 import argparse
+import subprocess
 
 import torch
 
 from .diffusion.gaussian3d import GaussianDiffusion3D, VQGaussianDiffusion3D
-from .models.shuffle_infer import apply_folded, fold_unet
+from .models.shuffle_infer import apply_folded, fold_unet, unet_unit_shapes
 from .models.unet_shuffle import ShuffleUNet
+from .ops import shuffle
+from .ops._build import library
 from .utils import resolve_device
-from .utils.profiling import report
+from .utils.profiling import random_unit, report, shuffle_unit_bound
 
 B, N, D, T = 16, 256, 96, 1000
 STEPS = 10
+UNIT_GRIDS = {"gaussian3d": (N, D), "vqofficial": (1024, 256)}
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` by CUDA events over ``reps`` calls,
+    after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def units(grid: str, dtype: torch.dtype, reps: int) -> None:
+    """The ``--units`` probe (module docstring)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    library("shuffle_units")
+    h, w = UNIT_GRIDS[grid]
+    shapes = unet_unit_shapes(h, w)
+    counts: dict = {}
+    for u in shapes:
+        counts[u] = counts.get(u, 0) + 1
+    plan_of = getattr(shuffle, "bottleneck_plan", None)
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    total = {"K1": [0.0, 0.0, 0], "K2": [0.0, 0.0, 0]}
+    for (kind, uh, uw, c_in, c_out), count in counts.items():
+        p = random_unit(kind, c_in, c_out, dtype, gen)
+        x = torch.randn(B, uh, uw, c_in, generator=gen, device="cuda").to(dtype)
+        kernel, plain = ((shuffle.fused_bottleneck, shuffle.reference_bottleneck) if kind == "K1"
+                         else (shuffle.fused_downsample, shuffle.reference_downsample))
+        got = kernel(x, p)
+        err = (got.float() - plain(x, p).float()).abs().max().item()
+        ms = cuda_ms(lambda: kernel(x, p), reps)
+        by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
+        plan = ("" if kind == "K2" or plan_of is None
+                else f"; {plan_of(B, uh, uw, c_in // 2, c_out // 2, dtype)}")
+        print(f"{grid} {tag} {kind} {uh}x{uw} {c_in}->{c_out} (x{count} a forward): "
+              f"kernel {ms:.4f} ms, max abs err {err:.3e}, bound {max(by_bytes, by_ops):.4f} ms "
+              f"by {'bytes' if by_bytes >= by_ops else 'operations'}{plan}")
+        t = total[kind]
+        t[0] += count * ms
+        t[1] += count * max(by_bytes, by_ops)
+        t[2] += count
+        del x, p, got
+    for kind, (ms, bound, n) in total.items():
+        print(f"{grid} {tag} {kind}: mean over one forward's {n} calls "
+              f"{ms / n:.4f} ms (bound {bound / n:.4f}); {ms:.3f} ms a forward; {card}")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--units", choices=sorted(UNIT_GRIDS),
+                        help="time each unit shape of one U-Net forward on this path's grid")
+    parser.add_argument("--reps", type=int, default=10, help="timed calls a unit shape")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_shuffle needs a CUDA device")
     resolve_device("cuda")
     dtype = getattr(torch, args.dtype)
+    if args.units:
+        units(args.units, dtype, args.reps)
+        return 0
     unet = ShuffleUNet(T, 256, 1, 1, 64, (1, 2, 4, 8))
     unet.init_weights(torch.Generator().manual_seed(0))
     folded = fold_unet(unet.cuda().eval(), dtype)

@@ -1,13 +1,65 @@
 """Where a repeated call spends its time on the card: the report shared by
-``profile_decode`` and ``profile_shuffle``."""
+``profile_decode`` and ``profile_shuffle``, and the card's published rates
+with the ShuffleNet units' bound and random units, shared by
+``profile_shuffle`` and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
+
+
+def hbm_bytes_per_s(name: str) -> float:
+    """Published device-memory rate of the H100 variant ``name`` names."""
+    if "PCIe" in name:
+        return 2.0e12
+    if "NVL" in name:
+        return 3.9e12
+    return 3.35e12
+
+
+def random_unit(kind: str, c_in: int, c_out: int, dtype: torch.dtype,
+                gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A folded ShuffleNet unit ("K1" or "K2", ``ops.shuffle``'s dict) on
+    ``gen``'s device, with N(0, 1/fan_in) weights and N(0, 1) biases."""
+    co2 = c_out // 2
+    c1, mid = (c_in // 2, c_in // 2) if kind == "K1" else (c_in, co2)
+
+    def rnd(*shape, fan=1):
+        return (torch.randn(*shape, generator=gen, device=gen.device) / math.sqrt(fan)).to(dtype)
+    return dict(k1=rnd(3, 3, c1, fan=9), b1=rnd(c1), w1=rnd(c1, co2, fan=c1), c1=rnd(co2),
+                w2=rnd(c1, mid, fan=c1), c2=rnd(mid), k2=rnd(3, 3, mid, fan=9), b2=rnd(mid),
+                w3=rnd(mid, co2, fan=mid), c3=rnd(co2))
+
+
+def shuffle_unit_bound(kind: str, h: int, w: int, c_in: int, c_out: int, batch: int,
+                       dtype: torch.dtype, name: str) -> Tuple[float, float]:
+    """(ms by bytes, ms by operations) of one ShuffleNet unit ("K1" a
+    bottleneck, "K2" a downsample) on [batch, h, w, c_in]: its input read
+    once, its parameters read once and its output written once, over the
+    memory rate of the card ``name``; both depthwise convolutions and the
+    three pointwise products (2 operations a multiply-add) over the peak
+    rate of the type."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    co2, p_in = c_out // 2, batch * h * w
+    if kind == "K1":
+        ch, p_out = c_in // 2, p_in
+        ops = 2 * p_in * (18 * ch + 2 * ch * co2 + ch * ch)
+        params = 20 * ch + ch * ch + 2 * ch * co2 + 2 * co2
+    else:
+        p_out = p_in // 4
+        ops = 2 * (p_out * (9 * c_in + 9 * co2 + co2 * co2) + (p_in + p_out) * c_in * co2)
+        params = 10 * c_in + 10 * co2 + 2 * c_in * co2 + co2 * co2 + 3 * co2
+    bytes_ = (p_in * c_in + p_out * c_out + params) * es
+    peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
+    return 1e3 * bytes_ / hbm_bytes_per_s(name), 1e3 * ops / peak
 
 
 def report(label: str, fn: Callable[[int], object], calls: int, enqueue_calls: int,
