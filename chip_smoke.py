@@ -91,7 +91,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -99,8 +98,8 @@ import torch
 
 from vq_vae_gan_diffusion_torch.models.shuffle_infer import unet_unit_shapes
 from vq_vae_gan_diffusion_torch.utils.profiling import (BF16_PEAK_FLOPS, F32_PEAK_FLOPS,
-                                                        hbm_bytes_per_s, random_unit,
-                                                        shuffle_unit_bound)
+                                                        cuda_ms, hbm_bytes_per_s, random_unit,
+                                                        shuffle_unit_bound, smi_line)
 
 CONFIG = "configs/inference_config_small.yml"
 VQD_CONFIG = "configs/inference_config_vqdiffusion.yml"
@@ -115,26 +114,6 @@ GAUSSIAN_DIM, STEPS = 96, 1000
 # (chain cut to 20), the transformer's K = 1025 over 100 steps
 VQO_K, VQO_T, VQO_STEPS = 1024, 1000, 20
 TVQ_K, TVQ_T, TRUNC_K = 1025, 100, int(1025 * 0.86)
-
-
-def smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 1) -> float:
-    """Milliseconds per call of ``fn`` by CUDA events, after one warm-up call."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def phase_device() -> str:

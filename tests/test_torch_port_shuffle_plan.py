@@ -14,9 +14,10 @@ import torch
 
 from vq_vae_gan_diffusion_torch.models.shuffle_infer import unet_unit_shapes
 from vq_vae_gan_diffusion_torch.ops.shuffle import (MAX_HALO, MAX_TILE, SMEM_LIMIT,
-                                                    TARGET_BLOCKS, TWO_BLOCKS_SMEM,
-                                                    bottleneck_plan, bottleneck_smem,
-                                                    fused_bottleneck, reference_bottleneck)
+                                                    STAGE_BYTES, TARGET_BLOCKS,
+                                                    TWO_BLOCKS_SMEM, bottleneck_plan,
+                                                    bottleneck_smem, fused_bottleneck, pad_ld,
+                                                    reference_bottleneck)
 
 B = 16
 GRIDS = {"gaussian3d": (256, 96), "vqofficial": (1024, 256), "mnist": (49, 96)}
@@ -93,6 +94,19 @@ def test_plan_halo_factor(grid, h, w, c_in, c_out):
     assert plan.halo <= limit, str(plan)
 
 
+def test_row_stride_and_shared_memory_arithmetic():
+    """Rows of pad_ld(c) floats: at least c, 16-byte aligned, 4 modulo 8
+    (the float4s of 8 consecutive rows on 8 distinct bank groups), the
+    least such; the block holds the weights' buffers, the halo tile at
+    pad_ld(ch) and the tile at pad_ld(max(ch, co2))."""
+    for c in range(1, 513):
+        ld = pad_ld(c)
+        assert ld >= c and ld % 8 == 4 and not any(v % 8 == 4 for v in range(c, ld))
+    assert [pad_ld(c) for c in (6, 12, 16, 32, 64, 128, 256)] == [12, 12, 20, 36, 68, 132, 260]
+    assert bottleneck_smem(14, 16, 32, 32) == STAGE_BYTES + 4 * (16 * 18 * 36 + 14 * 16 * 36)
+    assert bottleneck_smem(4, 8, 12, 20) == STAGE_BYTES + 4 * (6 * 10 * 12 + 4 * 8 * 20)
+
+
 def test_plan_is_the_same_for_both_types_and_cached():
     assert bottleneck_plan(B, 1024, 256, 32, 32, torch.float32) == \
         bottleneck_plan(B, 1024, 256, 32, 32, torch.bfloat16)
@@ -128,6 +142,8 @@ def test_wrapper_raises_when_the_kernel_refuses_the_shared_memory():
     _launch(lambda *args: 0, "shuffle_bottleneck", 0)
 
 
-def test_plan_refuses_what_no_tile_fits():
-    with pytest.raises(ValueError, match="no bottleneck tile"):
-        bottleneck_plan(B, 8, 8, 4096, 4096)
+def test_plan_refuses_branches_wider_than_the_kernel_takes():
+    bottleneck_plan(B, 8, 8, 256, 256)
+    for ch, co2 in ((512, 256), (256, 512)):
+        with pytest.raises(ValueError, match="at most 256 channels"):
+            bottleneck_plan(B, 8, 8, ch, co2)

@@ -27,21 +27,36 @@
 // t2, u2 and the outputs are rounded to T where the plain version
 // (reference_bottleneck / reference_downsample) rounds them.
 //
-// Bottleneck design: one block per (image, th x tw tile of output pixels),
-// the tile chosen in Python (ops/shuffle.py::bottleneck_plan) so that a
-// block's shared memory follows the tile, not the image width. x2 over the
-// halo tile (th + 2) x (tw + 2) is staged in shared memory with 16-byte
-// loads; branch 2's first pointwise product runs on it (t2 set to 0 at halo
-// pixels outside the image, rows and columns); each dw writes its tile to
-// shared memory; branch 1's dw reads x1 from global memory (L1/L2 hits).
-// The pointwise products are tiled f32 GEMMs in the block with A and B
-// staged through shared memory in k-chunks of 16, so no weight matrix has
-// to fit. What bounds it: at the path's shapes the three pointwise
-// products are 80-90% of the operations at about 40 f32 operations per
-// byte of activation, so the f32 CUDA-core rate bounds it, and the bytes
-// at the 1024x256 grid's 32-channel units (see chip_smoke.py's bound).
-// Downsample design: one block per (image, rows of full width), as before.
-// Tensor cores, TMA and fusing units are later work.
+// What bounds the bottleneck on an H100: its three pointwise products are
+// 80-90% of its operations, so at 128 input channels or more the f32
+// CUDA-core rate (67 TFLOP/s) bounds it, at 64 or fewer the bytes of its
+// input and output (3.35 TB/s; utils/profiling.py::shuffle_unit_bound). The first
+// version covered th rows of full image width a block, so its shared memory
+// grew with W: at W = 256 th fell to 1, one block of 8 warps sat on an SM,
+// branch 2's first product ran on 3 rows to give 1, and every product went
+// through a GEMM loop that staged A element by element with two barriers
+// every 16 deep.
+//
+// Bottleneck design:
+// - One block per (image, th x tw tile of output pixels), the tile chosen
+//   in Python (ops/shuffle.py::bottleneck_plan, which mirrors this file's
+//   bottleneck_smem) so that shared memory follows the tile, not the width:
+//   two blocks an SM, a halo factor (th+2)(tw+2)/(th tw) of 1.2-1.9.
+// - x2 over the halo tile is staged in shared memory with 16-byte loads;
+//   t2 = silu(x2 @ w2 + c2) overwrites it in place, 0 at halo pixels
+//   outside the image (rows and columns); u2 = dw(t2) goes to a second
+//   buffer and y2 overwrites u2 in place; branch 1's dw reads x1 from
+//   global memory (L1/L2 hits) into the first buffer, and the last product's
+//   epilogue writes y1 and y2 as shuffled pairs, 32 bytes a thread (f32).
+// - The products (gemm) read A from shared memory as float4 along k, rows
+//   padded to 4 mod 8 floats against bank conflicts; each thread holds an
+//   8-pixel x 4-column register tile, a warp 32 x 32 (narrower N: taller);
+//   weights come by cp.async, whole or in double-buffered k-chunks, each
+//   product's first chunk issued before the work that precedes it.
+// - SiLU uses the fast exp and divide; sums stay in f32 on CUDA cores.
+// Downsample design: one block per (image, rows of full width), the first
+// version's GEMM loop. Tensor cores, TMA, channel streaming and fusing
+// units are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +72,8 @@ constexpr int kAStage = kKC * (kMaxPT + 4);
 constexpr int kBStage = kKC * 64;
 constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
 constexpr int kTargetBlocks = 264;  // two blocks for each of 132 SMs
+constexpr int kStageBytes = 16384;  // the bottleneck's k-chunk buffers of weights
+constexpr int kMaxN = 256;          // widest product of the bottleneck (8 warps x 32)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -71,6 +88,46 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <class T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+// the bottleneck's: fast exp and divide, within about 2e-6 of silu's value
+// relative at the path's values (|v| < 10)
+__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
+
+// The smallest row stride >= c floats with stride % 8 == 4: rows stay
+// 16-byte aligned, and the float4s at one column of 8 consecutive rows fall
+// on 8 distinct groups of 4 banks. ops/shuffle.py::pad_ld computes the same.
+__host__ __device__ constexpr int pad_ld(int c) {
+  const int c4 = (c + 3) / 4 * 4;
+  return c4 % 8 == 4 ? c4 : c4 + 4;
+}
+
+// four consecutive f32 from shared memory, and four consecutive elements
+// as f32 from global memory through the read-only path (16-byte or 8-byte
+// aligned)
+__device__ __forceinline__ float4 bf16x4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest one has landed
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 // C[P, N] = A[P, K] @ w[K, N] + bias, handed to store(p, n, value).
 // 256 threads; each holds a 4x4 accumulator tile. The n-tile NT is 64, 32
@@ -135,10 +192,11 @@ __device__ void pointwise(int P, int K, int N, const LoadA& loadA,
 
 // rows x cols pixels of one image, from (y0, x0), channels [0, ch) of each
 // pixel (row stride cin), into dst[p * ld + k] as f32, p = row * cols + col;
-// 0 at pixels outside the image. 16-byte loads when vec.
+// 0 at pixels outside the image and at k in [ch, round4(ch)) (ld >= that).
+// 16-byte loads when vec (ch a multiple of 16 bytes, x 16-byte aligned).
 template <class T>
 __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int y0, int x0,
-                           int rows, int cols, int ch, bool vec, float* dst, int ld) {
+                           int rows, int cols, int ch, bool vec, float* __restrict__ dst, int ld) {
   constexpr int V = 16 / sizeof(T);
   if (vec) {
     const int per = ch / V;
@@ -152,12 +210,9 @@ __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int
           f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
           f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
         } else {
-          const unsigned u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            f[2 * i] = __uint_as_float(u[i] << 16);
-            f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-          }
+          const float4 lo = bf16x4(make_uint2(v.x, v.y)), hi = bf16x4(make_uint2(v.z, v.w));
+          f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+          f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
         }
       } else {
 #pragma unroll
@@ -165,103 +220,338 @@ __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int
       }
       float4* d = reinterpret_cast<float4*>(dst + p * ld + j * V);
 #pragma unroll
-      for (int i = 0; i < V / 4; ++i) d[i] = make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
+      for (int i = 0; i < V / 4; ++i)
+        d[i] = make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
     }
   } else {
-    for (int e = threadIdx.x; e < rows * cols * ch; e += kThreads) {
-      const int k = e % ch, p = e / ch;
+    const int c4 = (ch + 3) / 4 * 4;
+    for (int e = threadIdx.x; e < rows * cols * c4; e += kThreads) {
+      const int k = e % c4, p = e / c4;
       const int y = y0 + p / cols, xx = x0 + p % cols;
-      dst[p * ld + k] =
-          (y >= 0 && y < H && xx >= 0 && xx < W) ? to_f(src[((size_t)y * W + xx) * cin + k]) : 0.f;
+      dst[p * ld + k] = (k < ch && y >= 0 && y < H && xx >= 0 && xx < W)
+                            ? to_f(src[((size_t)y * W + xx) * cin + k])
+                            : 0.f;
     }
   }
 }
 
-// One block: image blockIdx.y, output pixels [r0, r0 + th) x [c0, c0 + tw)
-// clipped to the image, tile p = (row - r0) * tw + (col - c0); the halo tile
-// is (th + 2) x (tw + 2) from (r0 - 1, c0 - 1).
+// How the bottleneck's products cut w [K, N] into k-chunks of shared
+// memory, held in f32 in rows of Np = round4(N): all of w where it fits
+// kStageBytes, else two buffers of KC rows each.
+struct Chunks {
+  int Np, KC, chunks;
+  bool whole, vec;
+};
+
 template <class T>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ Chunks chunks_of(const T* w, int K, int N) {
+  Chunks q;
+  q.Np = (N + 3) / 4 * 4;
+  const int K4 = (K + 3) / 4 * 4;
+  q.whole = (size_t)K4 * q.Np * sizeof(float) <= kStageBytes;
+  q.KC = q.whole ? K4 : kStageBytes / 2 / (int)sizeof(float) / q.Np / 4 * 4;
+  q.chunks = (K + q.KC - 1) / q.KC;
+  q.vec = sizeof(T) == sizeof(float) && N % 4 == 0 &&
+          (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  return q;
+}
+
+// k-chunk c of w into dst [round4(kn), Np] as f32, 0 past K and N:
+// cp.async of whole 16-byte pieces for f32 rows of a multiple of 4, else
+// plain loads, converted, and stores
+template <class T>
+__device__ void stage_chunk(const Chunks& q, int c, const T* __restrict__ w, int K, int N,
+                            float* dst) {
+  const int k0 = c * q.KC, kn = min(q.KC, K - k0), kn4 = (kn + 3) / 4 * 4;
+  if (q.vec) {
+    const int per = N / 4;
+    for (int e = threadIdx.x; e < kn * per; e += kThreads) {
+      const int kk = e / per, j = e % per;
+      cp_async16(dst + kk * q.Np + 4 * j, w + (size_t)(k0 + kk) * N + 4 * j);
+    }
+    for (int e = kn * q.Np + threadIdx.x; e < kn4 * q.Np; e += kThreads) dst[e] = 0.f;
+  } else {
+    for (int e = threadIdx.x; e < kn4 * q.Np; e += kThreads) {
+      const int kk = e / q.Np, n = e % q.Np;
+      dst[e] = (kk < kn && n < N) ? to_f(w[(size_t)(k0 + kk) * N + n]) : 0.f;
+    }
+  }
+}
+
+// w's first k-chunk on its way to Bs, as one cp.async group: what gemm()
+// expects in flight when it is called. Issued as soon as Bs is free (every
+// thread past the previous product's last barrier), so that the copy runs
+// under the work before the product.
+template <class T>
+__device__ __forceinline__ void prefetch(const T* __restrict__ w, int K, int N, float* Bs) {
+  stage_chunk(chunks_of(w, K, N), 0, w, K, N, Bs);
+  cp_async_commit();
+}
+
+// The bottleneck's pointwise products: rows [0, rows) of A @ w + bias,
+// handed to epi(row, n0, v) as v[j] = column n0 + j, j < 4 (0 past N).
+// A [rows, K] is f32 in shared memory, row stride lda, with 0 in columns
+// K .. round4(K); w [K, N] and bias [N] are T in global memory (w staged in
+// f32); N <= kMaxN.
+//
+// A warp computes a tile of 8 * LP rows by 4 * LN columns (LN * LP = 32
+// lanes), each thread 8 rows LP apart by 4 columns: per 4-deep step a
+// thread reads 8 float4 of A (lanes sharing a row get one broadcast) and 4
+// of w (LN lanes read 64 or 128 contiguous bytes) for 128 FMAs. WN warps
+// span N; a round is the 8 / WN row blocks of all 8 warps, and every row of
+// a round is finished in it, so epi may overwrite A's rows of the round in
+// place: all warps pass a barrier between reading a round and its epilogue.
+// Warps whose rows start past `rows` skip the arithmetic. w goes to
+// shared memory by cp.async (chunks_of): whole where it fits kStageBytes,
+// else in k-chunks double-buffered, the next chunk's copy in flight during
+// this chunk's arithmetic; the caller has issued the first chunk with
+// prefetch(). The caller needs no barrier between writing A and the call
+// (the first chunk's barrier covers it); the call ends with the last
+// epilogue, after a barrier that every thread has passed.
+template <class T, class Epi>
+__device__ void gemm(const float* __restrict__ A, int lda, int rows, int K,
+                     const T* __restrict__ w, const T* __restrict__ bias, int N, float* Bs,
+                     const Epi& epi) {
+  const int LN = N > 16 ? 8 : (N > 8 ? 4 : (N > 4 ? 2 : 1));
+  const int LP = 32 / LN;
+  const int WN = (N + 4 * LN - 1) / (4 * LN);
+  const int RR = 8 / WN * 8 * LP;  // rows a round
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wrow = warp / WN * 8 * LP;  // the warp's first row in a round
+  const int n0 = ((warp % WN) * LN + lane % LN) * 4;
+  const bool on = warp / WN < 8 / WN && n0 < N;
+  const Chunks q = chunks_of(w, K, N);
+  const int rounds = (rows + RR - 1) / RR;
+  const int steps = q.whole ? rounds : rounds * q.chunks;
+
+  float acc[8][4];
+  for (int s = 0; s < steps; ++s) {
+    const int r = q.whole ? s : s / q.chunks, c = q.whole ? 0 : s % q.chunks;
+    const float* cur = Bs + (q.whole ? 0 : (s & 1) * q.KC * q.Np);
+    if (!q.whole && s + 1 < steps)
+      stage_chunk(q, (s + 1) % q.chunks, w, K, N, Bs + ((s + 1) & 1) * q.KC * q.Np);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+    const int row0 = r * RR + wrow + lane / LN;
+    if (on && r * RR + wrow < rows) {
+      const int k0 = c * q.KC, kn4 = (min(q.KC, K - k0) + 3) / 4 * 4;
+      int off[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) off[i] = min(row0 + i * LP, rows - 1) * lda + k0;
+      const float* b = cur + n0;
+#pragma unroll 1
+      for (int kk = 0; kk < kn4; kk += 4) {
+        const float4 b0 = ld4(b + kk * q.Np), b1 = ld4(b + (kk + 1) * q.Np);
+        const float4 b2 = ld4(b + (kk + 2) * q.Np), b3 = ld4(b + (kk + 3) * q.Np);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(A + off[i] + kk);
+          acc[i][0] = fmaf(a.w, b3.x, fmaf(a.z, b2.x, fmaf(a.y, b1.x, fmaf(a.x, b0.x, acc[i][0]))));
+          acc[i][1] = fmaf(a.w, b3.y, fmaf(a.z, b2.y, fmaf(a.y, b1.y, fmaf(a.x, b0.y, acc[i][1]))));
+          acc[i][2] = fmaf(a.w, b3.z, fmaf(a.z, b2.z, fmaf(a.y, b1.z, fmaf(a.x, b0.z, acc[i][2]))));
+          acc[i][3] = fmaf(a.w, b3.w, fmaf(a.z, b2.w, fmaf(a.y, b1.w, fmaf(a.x, b0.w, acc[i][3]))));
+        }
+      }
+    }
+    __syncthreads();
+    if (c == q.chunks - 1 && on) {
+      float bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = n0 + j < N ? to_f(bias[n0 + j]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = row0 + i * LP;
+        if (row < rows) {
+          const float v[4] = {acc[i][0] + bv[0], acc[i][1] + bv[1], acc[i][2] + bv[2],
+                              acc[i][3] + bv[3]};
+          epi(row, n0, v);
+        }
+      }
+    }
+  }
+}
+
+// u[p * ldu + k] = rnd<T>(dw3x3(t) + b) for the tile's pixels p = ty * tw + tx
+// and k < round4(ch) (0 past ch), t a halo tile of row width hw in shared
+// memory (row stride ldt). Each thread keeps one group of 4 channels' taps
+// in registers and walks the pixels.
+template <class T>
+__device__ void dw_tile(const float* __restrict__ t, int ldt, int hw, int tw, int P,
+                        const T* __restrict__ k3, const T* __restrict__ b, int ch,
+                        float* __restrict__ u, int ldu) {
+  const int c4 = (ch + 3) / 4, groups = kThreads / c4;
+  if (threadIdx.x >= groups * c4) return;
+  const int k = threadIdx.x % c4 * 4;
+  float wk[9][4], bk[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bk[j] = k + j < ch ? to_f(b[k + j]) : 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) wk[tap][j] = k + j < ch ? to_f(k3[tap * ch + k + j]) : 0.f;
+  }
+  for (int p = threadIdx.x / c4; p < P; p += groups) {
+    const float* tp = t + ((p / tw) * hw + p % tw) * ldt + k;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float4 v = ld4(tp + (dy * hw + dx) * ldt);
+        const float* q = wk[dy * 3 + dx];
+        s[0] = fmaf(v.x, q[0], s[0]); s[1] = fmaf(v.y, q[1], s[1]);
+        s[2] = fmaf(v.z, q[2], s[2]); s[3] = fmaf(v.w, q[3], s[3]);
+      }
+    *reinterpret_cast<float4*>(u + p * ldu + k) =
+        make_float4(rnd<T>(s[0] + bk[0]), rnd<T>(s[1] + bk[1]), rnd<T>(s[2] + bk[2]),
+                    rnd<T>(s[3] + bk[3]));
+  }
+}
+
+// The same from one image in global memory (row stride cin, channels
+// [0, ch)), zero padding, for the tile's pixels from (r0, c0): branch 1's
+// dw, whose 9 taps a pixel hit L1/L2. 16-byte loads when vec.
+template <class T>
+__device__ void dw_image(const T* __restrict__ xb, int cin, int H, int W, int r0, int c0,
+                         int tw, int P, const T* __restrict__ k3, const T* __restrict__ b,
+                         int ch, bool vec, float* __restrict__ u, int ldu) {
+  const int c4 = (ch + 3) / 4, groups = kThreads / c4;
+  if (threadIdx.x >= groups * c4) return;
+  const int k = threadIdx.x % c4 * 4;
+  float wk[9][4], bk[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bk[j] = k + j < ch ? to_f(b[k + j]) : 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) wk[tap][j] = k + j < ch ? to_f(k3[tap * ch + k + j]) : 0.f;
+  }
+  for (int p = threadIdx.x / c4; p < P; p += groups) {
+    const int r = r0 + p / tw, c = c0 + p % tw;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const int yy = r + dy - 1;
+      if (yy < 0 || yy >= H) continue;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int xx = c + dx - 1;
+        if (xx < 0 || xx >= W) continue;
+        const T* src = xb + ((size_t)yy * W + xx) * cin + k;
+        float4 v;
+        if (vec) {
+          v = ldg4(src);
+        } else {
+          v.x = to_f(src[0]);
+          v.y = k + 1 < ch ? to_f(src[1]) : 0.f;
+          v.z = k + 2 < ch ? to_f(src[2]) : 0.f;
+          v.w = k + 3 < ch ? to_f(src[3]) : 0.f;
+        }
+        const float* q = wk[dy * 3 + dx];
+        s[0] = fmaf(v.x, q[0], s[0]); s[1] = fmaf(v.y, q[1], s[1]);
+        s[2] = fmaf(v.z, q[2], s[2]); s[3] = fmaf(v.w, q[3], s[3]);
+      }
+    }
+    *reinterpret_cast<float4*>(u + p * ldu + k) =
+        make_float4(rnd<T>(s[0] + bk[0]), rnd<T>(s[1] + bk[1]), rnd<T>(s[2] + bk[2]),
+                    rnd<T>(s[3] + bk[3]));
+  }
+}
+
+// out[2j] = y1[j], out[2j + 1] = y2[j], j < 4: one 32-byte (f32) or 16-byte
+// (bf16) store of the shuffled pairs
+__device__ __forceinline__ void store_pairs(float* o, const float* y1, const float* y2) {
+  float4* d = reinterpret_cast<float4*>(o);
+  d[0] = make_float4(y1[0], y2[0], y1[1], y2[1]);
+  d[1] = make_float4(y1[2], y2[2], y1[3], y2[3]);
+}
+__device__ __forceinline__ void store_pairs(__nv_bfloat16* o, const float* y1, const float* y2) {
+  unsigned u[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(y1[j], y2[j]);
+    u[j] = *reinterpret_cast<const unsigned*>(&pair);
+  }
+  *reinterpret_cast<uint4*>(o) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// One block: image blockIdx.y, output pixels [r0, r0 + th) x [c0, c0 + tw)
+// clipped to the image, tile pixel p = (row - r0) * tw + (col - c0); the
+// halo tile is (th + 2) x (tw + 2) from (r0 - 1, c0 - 1). Shared memory:
+// the weights' k-chunks, bufT (x2 then t2 over the halo tile, in place;
+// then u1) and bufU (u2, then y2 in place). The f32 kernel fits 128
+// registers, so two blocks share an SM; the bf16 one, off every path,
+// needs 144 (its conversions) and takes one, since at 128 it spills.
+template <class T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 2 : 1)
 bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
                   const T* __restrict__ k1, const T* __restrict__ b1,
                   const T* __restrict__ w1, const T* __restrict__ c1,
                   const T* __restrict__ w2, const T* __restrict__ c2,
                   const T* __restrict__ k2, const T* __restrict__ b2,
                   const T* __restrict__ w3, const T* __restrict__ c3,
-                  int H, int W, int ch, int co2, int th, int tw, bool vec) {
+                  int H, int W, int ch, int co2, int th, int tw, bool vec_x, bool vec_out) {
   extern __shared__ float4 smem4[];
   const int hw = tw + 2, Ph = (th + 2) * hw, P = th * tw;
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + kAStage;
-  float* bufX = Bs + kBStage;              // x2 over the halo tile, then u1
-  float* bufT = bufX + (size_t)Ph * ch;    // t2 over the halo tile
-  float* bufU = bufT + (size_t)Ph * ch;    // u2
+  const int ldT = pad_ld(ch), ldU = pad_ld(max(ch, co2));
+  float* Bs = reinterpret_cast<float*>(smem4);
+  float* bufT = reinterpret_cast<float*>(smem4) + kStageBytes / sizeof(float);
+  float* bufU = bufT + Ph * ldT;
   const int tiles_w = (W + tw - 1) / tw;
   const int r0 = blockIdx.x / tiles_w * th, c0 = blockIdx.x % tiles_w * tw;
   const int cin = 2 * ch, cout = 2 * co2;
   const T* xb = x + (size_t)blockIdx.y * H * W * cin;
   T* ob = out + (size_t)blockIdx.y * H * W * cout;
-  // output pixel of tile pixel p, or -1 outside the image (a ragged tile)
-  auto opix = [&](int p) {
-    const int r = r0 + p / tw, c = c0 + p % tw;
-    return (r < H && c < W) ? r * W + c : -1;
-  };
 
   // branch 2: t2 = silu(x2 @ w2 + c2) over the halo tile, 0 outside the image
-  stage_tile<T>(xb + ch, cin, H, W, r0 - 1, c0 - 1, th + 2, hw, ch, vec, bufX, ch);
-  __syncthreads();
-  pointwise<T>(
-      Ph, ch, ch, [&](int p, int k) { return bufX[p * ch + k]; }, w2, c2,
-      [&](int p, int n, float v) {
-        const int r = r0 - 1 + p / hw, c = c0 - 1 + p % hw;
-        bufT[p * ch + n] = (r >= 0 && r < H && c >= 0 && c < W) ? rnd<T>(silu(v)) : 0.f;
-      },
-      As, Bs);
-  // u2 = dw3x3(t2) + b2
-  for (int e = threadIdx.x; e < P * ch; e += kThreads) {
-    const int k = e % ch, p = e / ch;
-    const float* t = bufT + ((p / tw) * hw + p % tw) * ch + k;
-    float s = 0.f;
+  prefetch<T>(w2, ch, ch, Bs);
+  stage_tile<T>(xb + ch, cin, H, W, r0 - 1, c0 - 1, th + 2, hw, ch, vec_x, bufT, ldT);
+  gemm<T>(bufT, ldT, Ph, ch, w2, c2, ch, Bs, [&](int p, int n0, const float* v) {
+    const int r = r0 - 1 + p / hw, c = c0 - 1 + p % hw;
+    const bool in = r >= 0 && r < H && c >= 0 && c < W;
+    float o[4];
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        s = fmaf(t[(dy * hw + dx) * ch], to_f(k2[(dy * 3 + dx) * ch + k]), s);
-    bufU[e] = rnd<T>(s + to_f(b2[k]));
-  }
+    for (int j = 0; j < 4; ++j) o[j] = in && n0 + j < ch ? rnd<T>(silu_fast(v[j])) : 0.f;
+    *reinterpret_cast<float4*>(bufT + p * ldT + n0) = make_float4(o[0], o[1], o[2], o[3]);
+  });
   __syncthreads();
-  pointwise<T>(
-      P, ch, co2, [&](int p, int k) { return bufU[p * ch + k]; }, w3, c3,
-      [&](int p, int n, float v) {
-        const int q = opix(p);
-        if (q >= 0) ob[(size_t)q * cout + 2 * n + 1] = from_f<T>(silu(v));
-      },
-      As, Bs);
-
-  // branch 1: u1 = dw3x3(x1) + b1 from global memory, zero padding
-  for (int e = threadIdx.x; e < P * ch; e += kThreads) {
-    const int k = e % ch, p = e / ch;
+  // u2 = dw3x3(t2) + b2, then y2 = silu(u2 @ w3 + c3) in place
+  prefetch<T>(w3, ch, co2, Bs);
+  dw_tile<T>(bufT, ldT, hw, tw, P, k2, b2, ch, bufU, ldU);
+  gemm<T>(bufU, ldU, P, ch, w3, c3, co2, Bs, [&](int p, int n0, const float* v) {
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = n0 + j < co2 ? rnd<T>(silu_fast(v[j])) : 0.f;
+    *reinterpret_cast<float4*>(bufU + p * ldU + n0) = make_float4(o[0], o[1], o[2], o[3]);
+  });
+  // branch 1: u1 = dw3x3(x1) + b1 (bufT's t2 was last read before the
+  // barriers of the product above), then y1 = silu(u1 @ w1 + c1), written
+  // with y2 as shuffled pairs
+  prefetch<T>(w1, ch, co2, Bs);
+  dw_image<T>(xb, cin, H, W, r0, c0, tw, P, k1, b1, ch, vec_x, bufT, ldT);
+  gemm<T>(bufT, ldT, P, ch, w1, c1, co2, Bs, [&](int p, int n0, const float* v) {
     const int r = r0 + p / tw, c = c0 + p % tw;
-    float s = 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      const int yy = r + dy - 1;
-      if (yy < 0 || yy >= H) continue;
-      for (int dx = 0; dx < 3; ++dx) {
-        const int xx = c + dx - 1;
-        if (xx < 0 || xx >= W) continue;
-        s = fmaf(to_f(xb[((size_t)yy * W + xx) * cin + k]), to_f(k1[(dy * 3 + dx) * ch + k]), s);
+    if (r >= H || c >= W) return;
+    const float4 y2 = *reinterpret_cast<const float4*>(bufU + p * ldU + n0);
+    const float y2v[4] = {y2.x, y2.y, y2.z, y2.w};
+    float y1v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y1v[j] = silu_fast(v[j]);
+    T* o = ob + ((size_t)r * W + c) * cout + 2 * n0;
+    if (vec_out) {
+      store_pairs(o, y1v, y2v);
+    } else {
+      for (int j = 0; j < 4 && n0 + j < co2; ++j) {
+        o[2 * j] = from_f<T>(y1v[j]);
+        o[2 * j + 1] = from_f<T>(y2v[j]);
       }
     }
-    bufX[e] = rnd<T>(s + to_f(b1[k]));
-  }
-  __syncthreads();
-  pointwise<T>(
-      P, ch, co2, [&](int p, int k) { return bufX[p * ch + k]; }, w1, c1,
-      [&](int p, int n, float v) {
-        const int q = opix(p);
-        if (q >= 0) ob[(size_t)q * cout + 2 * n] = from_f<T>(silu(v));
-      },
-      As, Bs);
+  });
 }
 
 template <class T>
@@ -353,9 +643,9 @@ downsample_kernel(const T* __restrict__ x, const T* __restrict__ tvec, T* __rest
 size_t stage_bytes() { return (size_t)(kAStage + kBStage) * sizeof(float); }
 
 // ops/shuffle.py::bottleneck_smem computes the same
-size_t bottleneck_smem(int th, int tw, int ch) {
+size_t bottleneck_smem(int th, int tw, int ch, int co2) {
   const size_t halo = (size_t)(th + 2) * (tw + 2), tile = (size_t)th * tw;
-  return stage_bytes() + (2 * halo + tile) * ch * sizeof(float);
+  return kStageBytes + (halo * pad_ld(ch) + tile * pad_ld(ch > co2 ? ch : co2)) * sizeof(float);
 }
 
 size_t downsample_smem(int W, int C, int co2, int tho) {
@@ -379,18 +669,19 @@ int pick_rows(int batch, int rows_out, Smem smem) {
 template <class T>
 int launch_bottleneck(const void* x, void* out, const void* const* p, int B, int H, int W,
                       int ch, int co2, int th, int tw, int smem, void* stream) {
-  if (th < 1 || tw < 1 || smem < 0 || (size_t)smem < bottleneck_smem(th, tw, ch) ||
-      smem > kSmemLimit)
+  if (th < 1 || tw < 1 || ch < 1 || co2 < 1 || ch > kMaxN || co2 > kMaxN || smem < 0 ||
+      (size_t)smem < bottleneck_smem(th, tw, ch, co2) || smem > kSmemLimit)
     return -1;
   cudaError_t err = cudaFuncSetAttribute(bottleneck_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((H + th - 1) / th) * ((W + tw - 1) / tw), B);
-  const bool vec = ch % (16 / (int)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec_x = ch % (16 / (int)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec_out = co2 % 4 == 0 && (uintptr_t)out % 16 == 0;
   const T* const* q = reinterpret_cast<const T* const*>(p);
   bottleneck_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (T*)out, q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], H, W,
-      ch, co2, th, tw, vec);
+      ch, co2, th, tw, vec_x, vec_out);
   return (int)cudaGetLastError();
 }
 

@@ -144,16 +144,25 @@ HALO_AIMS = (1.5, 2.0)      # halo factors (th + 2)(tw + 2) / (th tw) aimed at
 MAX_HALO = HALO_AIMS[-1]
 MAX_TILE = (32, 64)         # the largest th and tw tried
 ROW_GRANULE = 32            # pixel rows of a warp's tile in the pointwise products
-STAGE_BYTES = 20_736        # the pointwise products' staging of A and w (f32)
+STAGE_BYTES = 16_384        # the pointwise products' k-chunk buffers of weights
+MAX_CHANNELS = 256          # widest branch the kernel takes (8 warps x 32 columns)
+
+
+def pad_ld(c: int) -> int:
+    """The kernel's row stride in floats for c channels: the smallest value
+    >= c that is 4 modulo 8 (``pad_ld`` in csrc/shuffle_units.cu)."""
+    c4 = -(-c // 4) * 4
+    return c4 if c4 % 8 == 4 else c4 + 4
 
 
 def bottleneck_smem(th: int, tw: int, ch: int, co2: int) -> int:
     """Bytes of shared memory a bottleneck block of a th x tw tile needs
     (``bottleneck_smem`` in csrc/shuffle_units.cu computes the same): the
-    staging of the pointwise products, x2 and t2 over the halo tile
-    (th + 2) x (tw + 2), and one depthwise output over the tile, all f32."""
+    weights' k-chunk buffers, x2 and then t2 over the halo tile
+    (th + 2) x (tw + 2), and u2 and then y2 over the tile, all f32 in rows
+    of :func:`pad_ld` floats."""
     halo, tile = (th + 2) * (tw + 2), th * tw
-    return STAGE_BYTES + 4 * ch * (2 * halo + tile)
+    return STAGE_BYTES + 4 * (halo * pad_ld(ch) + tile * pad_ld(max(ch, co2)))
 
 
 class BottleneckPlan(NamedTuple):
@@ -208,9 +217,13 @@ def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int,
 
     ``dtype`` is the activations' type; the kernel holds every
     intermediate in f32, so the tile does not depend on it yet. Raises
-    ValueError when no tile fits.
+    ValueError when a branch is wider than ``MAX_CHANNELS`` (every
+    narrower one fits a 1 x 1 tile).
     """
     del dtype
+    if ch > MAX_CHANNELS or co2 > MAX_CHANNELS:
+        raise ValueError(f"the bottleneck kernel takes at most {MAX_CHANNELS} channels a branch, "
+                         f"got {ch} -> {co2}")
     cands = []
     for th in range(1, min(h, MAX_TILE[0]) + 1):
         for tw in range(1, min(w, MAX_TILE[1]) + 1):
@@ -219,9 +232,6 @@ def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int,
                 tiles_h, tiles_w = _ceil(h, th), _ceil(w, tw)
                 cands.append(BottleneckPlan(th, tw, tiles_h, tiles_w, smem,
                                             b * tiles_h * tiles_w))
-    if not cands:
-        raise ValueError(f"no bottleneck tile of {h}x{w} with ch {ch} fits {SMEM_LIMIT} B "
-                         "of shared memory")
     tiers = [[c for c in cands if c.smem <= TWO_BLOCKS_SMEM and c.halo <= aim]
              for aim in HALO_AIMS] + [[c for c in cands if c.halo <= MAX_HALO], cands]
     many = [[c for c in t if c.blocks >= TARGET_BLOCKS] for t in tiers[:-1]]

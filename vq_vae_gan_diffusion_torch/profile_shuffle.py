@@ -4,20 +4,21 @@ or what each ShuffleNet unit shape of one U-Net forward costs.
     python -m vq_vae_gan_diffusion_torch.profile_shuffle [--dtype float32|bfloat16]
     python -m vq_vae_gan_diffusion_torch.profile_shuffle --units gaussian3d|vqofficial [--dtype ...]
 
-With ``--units`` it builds only csrc/shuffle_units.cu and, at every distinct
-unit shape of one forward of the U-Net (base 64, mults (1, 2, 4, 8)) on the
-path's state ([16, 256, 96, 1] for gaussian3d, [16, 1024, 256, 1] for
-VQ_Official), on a seeded random unit, prints the kernel's ms a call by CUDA
-events, its max abs error against the plain version, the bound and what
-sets it, the bottleneck's tile plan and the calls a forward; then each
-kernel's mean over the forward's calls. It calls only the public
+With ``--units`` it builds only csrc/shuffle_units.cu (at the first call)
+and, at every distinct unit shape of one forward of the U-Net (base 64,
+mults (1, 2, 4, 8)) on the path's state ([16, 256, 96, 1] for gaussian3d,
+[16, 1024, 256, 1] for VQ_Official), on a seeded random unit, prints the
+kernel's ms a call by CUDA events, its max abs error against the plain
+version, the bound and what sets it, the bottleneck's tile plan and the
+calls a forward; then each kernel's mean over the forward's calls. It calls only the public
 ``fused_bottleneck`` / ``fused_downsample``, and prints the plan only where
 ``ops.shuffle`` has ``bottleneck_plan``, so the same file copied into an
 older tree times that tree's kernels. The downsample is a control.
 
-Without it, it builds the prior's U-Net of configs/inference_config_vqdiffusion.yml at
-full width (base 64, mults (1, 2, 4, 8), 1000 timesteps, flax-style weights
-from seed 0), folds it, and on a state of [16, 256, 96, 1] prints:
+Without it, it builds the prior's U-Net of
+configs/inference_config_vqdiffusion.yml at full width (base 64, mults
+(1, 2, 4, 8), 1000 timesteps, flax-style weights from seed 0), folds it,
+and on a state of [16, 256, 96, 1] prints:
 
 - per clipped DDPM reverse step (one U-Net forward through the kernels and
   the update), the report of ``utils.profiling.report``: host-clock time,
@@ -31,7 +32,6 @@ from seed 0), folds it, and on a state of [16, 256, 96, 1] prints:
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import torch
 
@@ -39,35 +39,17 @@ from .diffusion.gaussian3d import GaussianDiffusion3D, VQGaussianDiffusion3D
 from .models.shuffle_infer import apply_folded, fold_unet, unet_unit_shapes
 from .models.unet_shuffle import ShuffleUNet
 from .ops import shuffle
-from .ops._build import library
 from .utils import resolve_device
-from .utils.profiling import random_unit, report, shuffle_unit_bound
+from .utils.profiling import cuda_ms, random_unit, report, shuffle_unit_bound, smi_line
 
 B, N, D, T = 16, 256, 96, 1000
 STEPS = 10
 UNIT_GRIDS = {"gaussian3d": (N, D), "vqofficial": (1024, 256)}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Milliseconds a call of ``fn`` by CUDA events over ``reps`` calls,
-    after one warm-up call."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def units(grid: str, dtype: torch.dtype, reps: int) -> None:
     """The ``--units`` probe (module docstring)."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    library("shuffle_units")
+    card = smi_line()
     h, w = UNIT_GRIDS[grid]
     shapes = unet_unit_shapes(h, w)
     counts: dict = {}

@@ -1,11 +1,13 @@
 """Where a repeated call spends its time on the card: the report shared by
 ``profile_decode`` and ``profile_shuffle``, and the card's published rates
-with the ShuffleNet units' bound and random units, shared by
-``profile_shuffle`` and ``chip_smoke.py``."""
+with the ShuffleNet units' bound, random units, CUDA-event timing and the
+card's ``nvidia-smi`` line, shared by ``profile_shuffle`` and
+``chip_smoke.py``."""
 
 from __future__ import annotations
 
 import math
+import subprocess
 import time
 from typing import Callable, Dict, Tuple
 
@@ -16,6 +18,15 @@ F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them for the first card."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
 def hbm_bytes_per_s(name: str) -> float:
     """Published device-memory rate of the H100 variant ``name`` names."""
     if "PCIe" in name:
@@ -23,6 +34,20 @@ def hbm_bytes_per_s(name: str) -> float:
     if "NVL" in name:
         return 3.9e12
     return 3.35e12
+
+
+def cuda_ms(fn: Callable[[], object], reps: int = 1) -> float:
+    """Milliseconds a call of ``fn`` by CUDA events over ``reps`` back-to-back
+    calls, after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def random_unit(kind: str, c_in: int, c_out: int, dtype: torch.dtype,
