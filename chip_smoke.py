@@ -416,7 +416,7 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
             plain_ms = cuda_ms(lambda: plain(x, p), reps=plain_reps)
             by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
             bound = max(by_bytes, by_ops)
-            plan = (f"; {bottleneck_plan(B, uh, uw, c_in // 2, c_out // 2, dtype)}"
+            plan = (f"; {bottleneck_plan(B, uh, uw, c_in // 2, c_out // 2)}"
                     if kind == "K1" else "")
             print(f"({label}) {what} (x{count} a forward): max abs err {err:.3e}; "
                   f"kernel {ms:.4f} ms, "
@@ -449,8 +449,10 @@ def phase_other_shapes() -> None:
     short; a downsample there halves 49x96 to 25x48, reading the zero pad
     row past the image), the downsample's silu(x + t_vec) prologue on an
     odd grid, a downsample with a short last row tile, bottlenecks whose
-    last tile is short in rows and in columns, and widths that fill no
-    whole k-chunk or n-tile of the pointwise products."""
+    last tile is short in rows and in columns, widths that fill no whole
+    k-chunk or n-tile of the pointwise products, and bottleneck branches
+    wider than one 256-column pass of its products (512 -> 384 and
+    100 -> 290 channels)."""
     from vq_vae_gan_diffusion_torch.ops import shuffle
     from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, fused_bottleneck,
                                                         fused_downsample, reference_bottleneck,
@@ -459,7 +461,8 @@ def phase_other_shapes() -> None:
     if not any(kind == "K2" and h % 2 for kind, h, *_ in cases):
         raise AssertionError("the mnist geometry has no odd-grid downsample")
     cases |= {("K2", 98, 96, 32, 64), ("K1", 13, 7, 24, 12), ("K2", 14, 10, 20, 12),
-              ("K2", 13, 7, 20, 12), ("K1", 37, 53, 64, 64), ("K1", 19, 29, 48, 40)}
+              ("K2", 13, 7, 20, 12), ("K1", 37, 53, 64, 64), ("K1", 19, 29, 48, 40),
+              ("K1", 9, 11, 1024, 768), ("K1", 7, 9, 200, 580)}
     plans = [(h, w, bottleneck_plan(B, h, w, c_in // 2, c_out // 2))
              for kind, h, w, c_in, c_out in cases if kind == "K1"]
     if not (any(h % p.th for h, _, p in plans) and any(w % p.tw for _, w, p in plans)):
@@ -481,7 +484,7 @@ def phase_other_shapes() -> None:
             torch.cuda.synchronize()
             worst = max(worst, check_close(what + " t_vec", got, want, 1e-4))
     print(f"(f) f32, {len(cases)} shapes off the main path (mnist geometry 49x96 .. 4x6, "
-          f"short last tiles, narrow widths): max abs err {worst:.3e}")
+          f"short last tiles, narrow and wide branches): max abs err {worst:.3e}")
     # the C side refuses shared memory short of the tile's or above a
     # block's, before it launches anything
     lib, plan = shuffle._bind(), bottleneck_plan(B, 13, 7, 12, 6)

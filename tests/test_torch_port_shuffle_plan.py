@@ -8,12 +8,16 @@ within its limits. The kernel itself runs only on the card (``chip_smoke.py``);
 on the CPU ``fused_bottleneck`` is the plain version, exactly.
 """
 
+import inspect
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from vq_vae_gan_diffusion_torch.models.shuffle_infer import unet_unit_shapes
-from vq_vae_gan_diffusion_torch.ops.shuffle import (MAX_HALO, MAX_TILE, SMEM_LIMIT,
+from vq_vae_gan_diffusion_torch.ops.shuffle import (MAX_HALO, MAX_TILE, N_BLOCK, SMEM_LIMIT,
                                                     STAGE_BYTES, TARGET_BLOCKS,
                                                     TWO_BLOCKS_SMEM, bottleneck_plan,
                                                     bottleneck_smem, fused_bottleneck, pad_ld,
@@ -21,7 +25,8 @@ from vq_vae_gan_diffusion_torch.ops.shuffle import (MAX_HALO, MAX_TILE, SMEM_LIM
 
 B = 16
 GRIDS = {"gaussian3d": (256, 96), "vqofficial": (1024, 256), "mnist": (49, 96)}
-OFF_PATH = [("off", 13, 7, 24, 12), ("off", 37, 53, 64, 64), ("off", 19, 29, 48, 40)]
+OFF_PATH = [("off", 13, 7, 24, 12), ("off", 37, 53, 64, 64), ("off", 19, 29, 48, 40),
+            ("off", 9, 11, 1024, 768), ("off", 7, 9, 200, 580)]
 
 
 def _k1_shapes():
@@ -39,7 +44,7 @@ IDS = [f"{g}-{h}x{w}-{ci}-{co}" for g, h, w, ci, co in SHAPES]
 
 
 def _plan(h, w, c_in, c_out):
-    return bottleneck_plan(B, h, w, c_in // 2, c_out // 2, torch.float32)
+    return bottleneck_plan(B, h, w, c_in // 2, c_out // 2)
 
 
 def _halo(th, tw):
@@ -98,18 +103,25 @@ def test_row_stride_and_shared_memory_arithmetic():
     """Rows of pad_ld(c) floats: at least c, 16-byte aligned, 4 modulo 8
     (the float4s of 8 consecutive rows on 8 distinct bank groups), the
     least such; the block holds the weights' buffers, the halo tile at
-    pad_ld(ch) and the tile at pad_ld(max(ch, co2))."""
+    pad_ld(ch) and the tile at pad_ld(max(ch, co2)); a block of a branch
+    wider than one pass of the products holds two halo tiles at pad_ld(ch)
+    and the tile at pad_ld(co2)."""
     for c in range(1, 513):
         ld = pad_ld(c)
         assert ld >= c and ld % 8 == 4 and not any(v % 8 == 4 for v in range(c, ld))
     assert [pad_ld(c) for c in (6, 12, 16, 32, 64, 128, 256)] == [12, 12, 20, 36, 68, 132, 260]
     assert bottleneck_smem(14, 16, 32, 32) == STAGE_BYTES + 4 * (16 * 18 * 36 + 14 * 16 * 36)
     assert bottleneck_smem(4, 8, 12, 20) == STAGE_BYTES + 4 * (6 * 10 * 12 + 4 * 8 * 20)
+    assert bottleneck_smem(2, 3, 512, 384) == STAGE_BYTES + 4 * (2 * 4 * 5 * 516 + 2 * 3 * 388)
+    assert bottleneck_smem(2, 3, 100, 290) == STAGE_BYTES + 4 * (2 * 4 * 5 * 100 + 2 * 3 * 292)
+    assert bottleneck_smem(2, 3, N_BLOCK, N_BLOCK) == \
+        STAGE_BYTES + 4 * (4 * 5 * 260 + 2 * 3 * 260)
 
 
 def test_plan_is_the_same_for_both_types_and_cached():
-    assert bottleneck_plan(B, 1024, 256, 32, 32, torch.float32) == \
-        bottleneck_plan(B, 1024, 256, 32, 32, torch.bfloat16)
+    """The kernel holds every intermediate in f32, so the plan takes no
+    type: fused_bottleneck launches f32 and bf16 on one tile."""
+    assert list(inspect.signature(bottleneck_plan).parameters) == ["b", "h", "w", "ch", "co2"]
     assert bottleneck_plan(B, 64, 16, 256, 256) is bottleneck_plan(B, 64, 16, 256, 256)
 
 
@@ -143,7 +155,26 @@ def test_wrapper_raises_when_the_kernel_refuses_the_shared_memory():
 
 
 def test_plan_refuses_branches_wider_than_the_kernel_takes():
-    bottleneck_plan(B, 8, 8, 256, 256)
-    for ch, co2 in ((512, 256), (256, 512)):
-        with pytest.raises(ValueError, match="at most 256 channels"):
-            bottleneck_plan(B, 8, 8, ch, co2)
+    """Branches wider than one pass of the products are planned (a U-Net of
+    base 128 reaches 512 channels a branch); only where not even a 1 x 1
+    tile fits a block does the plan refuse."""
+    for ch, co2 in ((256, 256), (512, 256), (256, 512), (512, 512), (1024, 1024)):
+        plan = bottleneck_plan(B, 8, 8, ch, co2)
+        assert plan.smem == bottleneck_smem(plan.th, plan.tw, ch, co2) <= SMEM_LIMIT
+    assert bottleneck_smem(1, 1, 2800, 2800) <= SMEM_LIMIT < bottleneck_smem(1, 1, 2900, 2900)
+    bottleneck_plan(B, 8, 8, 2800, 2800)
+    with pytest.raises(ValueError, match="no tile"):
+        bottleneck_plan(B, 8, 8, 2900, 2900)
+
+
+def test_cuda_source_constants_match_the_plan():
+    """csrc/shuffle_units.cu repeats the plan's constants and row stride;
+    ops/shuffle.py owns them."""
+    from vq_vae_gan_diffusion_torch.ops import shuffle
+    src = (Path(shuffle.__file__).resolve().parent.parent / "csrc" / "shuffle_units.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert {k: int(consts[k]) for k in ("kSmemLimit", "kTargetBlocks", "kStageBytes", "kNBlock")} \
+        == {"kSmemLimit": SMEM_LIMIT, "kTargetBlocks": TARGET_BLOCKS,
+            "kStageBytes": STAGE_BYTES, "kNBlock": N_BLOCK}
+    assert "return c4 % 8 == 4 ? c4 : c4 + 4;" in src
+    assert "(ch > kNBlock || co2 > kNBlock)" in src

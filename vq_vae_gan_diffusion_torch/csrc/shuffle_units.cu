@@ -52,8 +52,15 @@
 //   padded to 4 mod 8 floats against bank conflicts; each thread holds an
 //   8-pixel x 4-column register tile, a warp 32 x 32 (narrower N: taller);
 //   weights come by cp.async, whole or in double-buffered k-chunks, each
-//   product's first chunk issued before the work that precedes it.
-// - SiLU uses the fast exp and divide; sums stay in f32 on CUDA cores.
+//   product's first chunk issued before the work that precedes it. A product
+//   covers kNBlock columns in one pass; a branch wider than that (off every
+//   path) runs in passes of kNBlock columns, and its block keeps t2 and y2
+//   apart from x2 and u2, since a pass must not overwrite the A it reads.
+// - Sums stay in f32 on CUDA cores; SiLU takes the plain version's expf and
+//   a divide within 2 ulp (silu_div2ulp).
+// ops/shuffle.py owns the constants both sides use (kSmemLimit,
+// kTargetBlocks, kStageBytes, kNBlock, pad_ld, bottleneck_smem);
+// tests/test_torch_port_shuffle_plan.py checks that this file agrees.
 // Downsample design: one block per (image, rows of full width), the first
 // version's GEMM loop. Tensor cores, TMA, channel streaming and fusing
 // units are later work.
@@ -73,7 +80,7 @@ constexpr int kBStage = kKC * 64;
 constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
 constexpr int kTargetBlocks = 264;  // two blocks for each of 132 SMs
 constexpr int kStageBytes = 16384;  // the bottleneck's k-chunk buffers of weights
-constexpr int kMaxN = 256;          // widest product of the bottleneck (8 warps x 32)
+constexpr int kNBlock = 256;        // columns of one pass of a bottleneck product (8 warps x 32)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -88,9 +95,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <class T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-// the bottleneck's: fast exp and divide, within about 2e-6 of silu's value
-// relative at the path's values (|v| < 10)
-__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
+// The bottleneck's: the same exp, the divide within 2 ulp (an IEEE divide
+// brings a slow-path call that costs the kernel 13% in spills)
+__device__ __forceinline__ float silu_div2ulp(float v) {
+  return __fdividef(v, 1.0f + expf(-v));
+}
 
 // The smallest row stride >= c floats with stride % 8 == 4: rows stay
 // 16-byte aligned, and the float4s at one column of 8 consecutive rows fall
@@ -235,23 +244,23 @@ __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int
   }
 }
 
-// How the bottleneck's products cut w [K, N] into k-chunks of shared
-// memory, held in f32 in rows of Np = round4(N): all of w where it fits
-// kStageBytes, else two buffers of KC rows each.
+// How the bottleneck's products cut w [K, N] (row stride ldw >= N) into
+// k-chunks of shared memory, held in f32 in rows of Np = round4(N): all of
+// w where it fits kStageBytes, else two buffers of KC rows each.
 struct Chunks {
   int Np, KC, chunks;
   bool whole, vec;
 };
 
 template <class T>
-__device__ __forceinline__ Chunks chunks_of(const T* w, int K, int N) {
+__device__ __forceinline__ Chunks chunks_of(const T* w, int K, int N, int ldw) {
   Chunks q;
   q.Np = (N + 3) / 4 * 4;
   const int K4 = (K + 3) / 4 * 4;
   q.whole = (size_t)K4 * q.Np * sizeof(float) <= kStageBytes;
   q.KC = q.whole ? K4 : kStageBytes / 2 / (int)sizeof(float) / q.Np / 4 * 4;
   q.chunks = (K + q.KC - 1) / q.KC;
-  q.vec = sizeof(T) == sizeof(float) && N % 4 == 0 &&
+  q.vec = sizeof(T) == sizeof(float) && N % 4 == 0 && ldw % 4 == 0 &&
           (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   return q;
 }
@@ -261,38 +270,43 @@ __device__ __forceinline__ Chunks chunks_of(const T* w, int K, int N) {
 // plain loads, converted, and stores
 template <class T>
 __device__ void stage_chunk(const Chunks& q, int c, const T* __restrict__ w, int K, int N,
-                            float* dst) {
+                            int ldw, float* dst) {
   const int k0 = c * q.KC, kn = min(q.KC, K - k0), kn4 = (kn + 3) / 4 * 4;
   if (q.vec) {
     const int per = N / 4;
     for (int e = threadIdx.x; e < kn * per; e += kThreads) {
       const int kk = e / per, j = e % per;
-      cp_async16(dst + kk * q.Np + 4 * j, w + (size_t)(k0 + kk) * N + 4 * j);
+      cp_async16(dst + kk * q.Np + 4 * j, w + (size_t)(k0 + kk) * ldw + 4 * j);
     }
     for (int e = kn * q.Np + threadIdx.x; e < kn4 * q.Np; e += kThreads) dst[e] = 0.f;
   } else {
     for (int e = threadIdx.x; e < kn4 * q.Np; e += kThreads) {
       const int kk = e / q.Np, n = e % q.Np;
-      dst[e] = (kk < kn && n < N) ? to_f(w[(size_t)(k0 + kk) * N + n]) : 0.f;
+      dst[e] = (kk < kn && n < N) ? to_f(w[(size_t)(k0 + kk) * ldw + n]) : 0.f;
     }
   }
 }
 
-// w's first k-chunk on its way to Bs, as one cp.async group: what gemm()
-// expects in flight when it is called. Issued as soon as Bs is free (every
-// thread past the previous product's last barrier), so that the copy runs
-// under the work before the product.
+// The first k-chunk of w's first kNBlock columns on its way to Bs, as one
+// cp.async group: what product() expects in flight when it is called.
+// Issued as soon as Bs is free (every thread past the previous product's
+// last barrier), so that the copy runs under the work before the product.
 template <class T>
-__device__ __forceinline__ void prefetch(const T* __restrict__ w, int K, int N, float* Bs) {
-  stage_chunk(chunks_of(w, K, N), 0, w, K, N, Bs);
+__device__ __forceinline__ void prefetch(const T* __restrict__ w, int K, int N, int ldw,
+                                         float* Bs) {
+  stage_chunk(chunks_of(w, K, N, ldw), 0, w, K, N, ldw, Bs);
   cp_async_commit();
 }
+template <class T>
+__device__ __forceinline__ void prefetch(const T* __restrict__ w, int K, int N, float* Bs) {
+  prefetch(w, K, min(N, kNBlock), N, Bs);
+}
 
-// The bottleneck's pointwise products: rows [0, rows) of A @ w + bias,
-// handed to epi(row, n0, v) as v[j] = column n0 + j, j < 4 (0 past N).
-// A [rows, K] is f32 in shared memory, row stride lda, with 0 in columns
-// K .. round4(K); w [K, N] and bias [N] are T in global memory (w staged in
-// f32); N <= kMaxN.
+// One pass of the bottleneck's pointwise products: rows [0, rows) of
+// A @ w + bias, handed to epi(row, n0, v) as v[j] = column n0 + j, j < 4 (0
+// past N). A [rows, K] is f32 in shared memory, row stride lda, with 0 in
+// columns K .. round4(K); w [K, N] (row stride ldw) and bias [N] are T in
+// global memory (w staged in f32); N <= kNBlock.
 //
 // A warp computes a tile of 8 * LP rows by 4 * LN columns (LN * LP = 32
 // lanes), each thread 8 rows LP apart by 4 columns: per 4-deep step a
@@ -310,8 +324,8 @@ __device__ __forceinline__ void prefetch(const T* __restrict__ w, int K, int N, 
 // epilogue, after a barrier that every thread has passed.
 template <class T, class Epi>
 __device__ void gemm(const float* __restrict__ A, int lda, int rows, int K,
-                     const T* __restrict__ w, const T* __restrict__ bias, int N, float* Bs,
-                     const Epi& epi) {
+                     const T* __restrict__ w, int ldw, const T* __restrict__ bias, int N,
+                     float* Bs, const Epi& epi) {
   const int LN = N > 16 ? 8 : (N > 8 ? 4 : (N > 4 ? 2 : 1));
   const int LP = 32 / LN;
   const int WN = (N + 4 * LN - 1) / (4 * LN);
@@ -320,7 +334,7 @@ __device__ void gemm(const float* __restrict__ A, int lda, int rows, int K,
   const int wrow = warp / WN * 8 * LP;  // the warp's first row in a round
   const int n0 = ((warp % WN) * LN + lane % LN) * 4;
   const bool on = warp / WN < 8 / WN && n0 < N;
-  const Chunks q = chunks_of(w, K, N);
+  const Chunks q = chunks_of(w, K, N, ldw);
   const int rounds = (rows + RR - 1) / RR;
   const int steps = q.whole ? rounds : rounds * q.chunks;
 
@@ -329,7 +343,7 @@ __device__ void gemm(const float* __restrict__ A, int lda, int rows, int K,
     const int r = q.whole ? s : s / q.chunks, c = q.whole ? 0 : s % q.chunks;
     const float* cur = Bs + (q.whole ? 0 : (s & 1) * q.KC * q.Np);
     if (!q.whole && s + 1 < steps)
-      stage_chunk(q, (s + 1) % q.chunks, w, K, N, Bs + ((s + 1) & 1) * q.KC * q.Np);
+      stage_chunk(q, (s + 1) % q.chunks, w, K, N, ldw, Bs + ((s + 1) & 1) * q.KC * q.Np);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
@@ -378,88 +392,69 @@ __device__ void gemm(const float* __restrict__ A, int lda, int rows, int K,
   }
 }
 
-// u[p * ldu + k] = rnd<T>(dw3x3(t) + b) for the tile's pixels p = ty * tw + tx
-// and k < round4(ch) (0 past ch), t a halo tile of row width hw in shared
-// memory (row stride ldt). Each thread keeps one group of 4 channels' taps
-// in registers and walks the pixels.
-template <class T>
-__device__ void dw_tile(const float* __restrict__ t, int ldt, int hw, int tw, int P,
-                        const T* __restrict__ k3, const T* __restrict__ b, int ch,
-                        float* __restrict__ u, int ldu) {
-  const int c4 = (ch + 3) / 4, groups = kThreads / c4;
-  if (threadIdx.x >= groups * c4) return;
-  const int k = threadIdx.x % c4 * 4;
-  float wk[9][4], bk[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    bk[j] = k + j < ch ? to_f(b[k + j]) : 0.f;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) wk[tap][j] = k + j < ch ? to_f(k3[tap * ch + k + j]) : 0.f;
-  }
-  for (int p = threadIdx.x / c4; p < P; p += groups) {
-    const float* tp = t + ((p / tw) * hw + p % tw) * ldt + k;
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float4 v = ld4(tp + (dy * hw + dx) * ldt);
-        const float* q = wk[dy * 3 + dx];
-        s[0] = fmaf(v.x, q[0], s[0]); s[1] = fmaf(v.y, q[1], s[1]);
-        s[2] = fmaf(v.z, q[2], s[2]); s[3] = fmaf(v.w, q[3], s[3]);
-      }
-    *reinterpret_cast<float4*>(u + p * ldu + k) =
-        make_float4(rnd<T>(s[0] + bk[0]), rnd<T>(s[1] + bk[1]), rnd<T>(s[2] + bk[2]),
-                    rnd<T>(s[3] + bk[3]));
+// A whole product A @ w + bias (w [K, N], bias [N]) handed to
+// epi(row, n0, v) as in gemm(): one pass where N <= kNBlock (Wide false),
+// else passes of kNBlock columns. The caller has issued the first pass's
+// first chunk with prefetch(); each later pass issues its own once the pass
+// before has left Bs. Only a product of one pass may write A in place.
+template <bool Wide, class T, class Epi>
+__device__ void product(const float* __restrict__ A, int lda, int rows, int K,
+                        const T* __restrict__ w, const T* __restrict__ bias, int N, float* Bs,
+                        const Epi& epi) {
+  if constexpr (!Wide) {
+    gemm<T>(A, lda, rows, K, w, N, bias, N, Bs, epi);
+  } else {
+    for (int nb = 0; nb < N; nb += kNBlock) {
+      const int nn = min(kNBlock, N - nb);
+      if (nb > 0) prefetch(w + nb, K, nn, N, Bs);
+      gemm<T>(A, lda, rows, K, w + nb, N, bias + nb, nn, Bs,
+              [&](int row, int n0, const float* v) { epi(row, nb + n0, v); });
+    }
   }
 }
 
-// The same from one image in global memory (row stride cin, channels
-// [0, ch)), zero padding, for the tile's pixels from (r0, c0): branch 1's
-// dw, whose 9 taps a pixel hit L1/L2. 16-byte loads when vec.
-template <class T>
-__device__ void dw_image(const T* __restrict__ xb, int cin, int H, int W, int r0, int c0,
-                         int tw, int P, const T* __restrict__ k3, const T* __restrict__ b,
-                         int ch, bool vec, float* __restrict__ u, int ldu) {
-  const int c4 = (ch + 3) / 4, groups = kThreads / c4;
-  if (threadIdx.x >= groups * c4) return;
-  const int k = threadIdx.x % c4 * 4;
-  float wk[9][4], bk[4];
+// u[p * ldu + k] = rnd<T>(dw3x3(src) + b) for the tile's P pixels
+// p = ty * tw + tx and k < round4(ch) (0 past ch). load(hy, hx, k) gives
+// channels k .. k + 3 of the source at (hy, hx) of the halo tile, whose
+// (0, 0) lies one row above and one column left of the tile's first pixel,
+// 0 outside the image. Each thread keeps one group of 4 channels' taps in
+// registers and walks the pixels; past kThreads groups (Wide only) it takes
+// the next group after.
+template <bool Wide, class T, class Load>
+__device__ void dw3x3(int tw, int P, const T* __restrict__ k3, const T* __restrict__ b, int ch,
+                      const Load& load, float* __restrict__ u, int ldu) {
+  const int c4 = (ch + 3) / 4, lanes = Wide ? min(c4, kThreads) : c4, groups = kThreads / lanes;
+  if (threadIdx.x >= groups * lanes) return;
+  auto group = [&](int g) {
+    const int k = 4 * g;
+    float wk[9][4], bk[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    bk[j] = k + j < ch ? to_f(b[k + j]) : 0.f;
+    for (int j = 0; j < 4; ++j) {
+      bk[j] = k + j < ch ? to_f(b[k + j]) : 0.f;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) wk[tap][j] = k + j < ch ? to_f(k3[tap * ch + k + j]) : 0.f;
-  }
-  for (int p = threadIdx.x / c4; p < P; p += groups) {
-    const int r = r0 + p / tw, c = c0 + p % tw;
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const int yy = r + dy - 1;
-      if (yy < 0 || yy >= H) continue;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int xx = c + dx - 1;
-        if (xx < 0 || xx >= W) continue;
-        const T* src = xb + ((size_t)yy * W + xx) * cin + k;
-        float4 v;
-        if (vec) {
-          v = ldg4(src);
-        } else {
-          v.x = to_f(src[0]);
-          v.y = k + 1 < ch ? to_f(src[1]) : 0.f;
-          v.z = k + 2 < ch ? to_f(src[2]) : 0.f;
-          v.w = k + 3 < ch ? to_f(src[3]) : 0.f;
-        }
-        const float* q = wk[dy * 3 + dx];
-        s[0] = fmaf(v.x, q[0], s[0]); s[1] = fmaf(v.y, q[1], s[1]);
-        s[2] = fmaf(v.z, q[2], s[2]); s[3] = fmaf(v.w, q[3], s[3]);
-      }
+      for (int tap = 0; tap < 9; ++tap) wk[tap][j] = k + j < ch ? to_f(k3[tap * ch + k + j]) : 0.f;
     }
-    *reinterpret_cast<float4*>(u + p * ldu + k) =
-        make_float4(rnd<T>(s[0] + bk[0]), rnd<T>(s[1] + bk[1]), rnd<T>(s[2] + bk[2]),
-                    rnd<T>(s[3] + bk[3]));
+    for (int p = threadIdx.x / lanes; p < P; p += groups) {
+      const int r = p / tw, c = p % tw;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float4 v = load(r + dy, c + dx, k);
+          const float* q = wk[dy * 3 + dx];
+          s[0] = fmaf(v.x, q[0], s[0]); s[1] = fmaf(v.y, q[1], s[1]);
+          s[2] = fmaf(v.z, q[2], s[2]); s[3] = fmaf(v.w, q[3], s[3]);
+        }
+      *reinterpret_cast<float4*>(u + p * ldu + k) =
+          make_float4(rnd<T>(s[0] + bk[0]), rnd<T>(s[1] + bk[1]), rnd<T>(s[2] + bk[2]),
+                      rnd<T>(s[3] + bk[3]));
+    }
+  };
+  if constexpr (Wide) {
+    for (int g = threadIdx.x % lanes; g < c4; g += lanes) group(g);
+  } else {
+    group(threadIdx.x % c4);
   }
 }
 
@@ -484,11 +479,13 @@ __device__ __forceinline__ void store_pairs(__nv_bfloat16* o, const float* y1, c
 // clipped to the image, tile pixel p = (row - r0) * tw + (col - c0); the
 // halo tile is (th + 2) x (tw + 2) from (r0 - 1, c0 - 1). Shared memory:
 // the weights' k-chunks, bufT (x2 then t2 over the halo tile, in place;
-// then u1) and bufU (u2, then y2 in place). The f32 kernel fits 128
-// registers, so two blocks share an SM; the bf16 one, off every path,
-// needs 144 (its conversions) and takes one, since at 128 it spills.
-template <class T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) ? 2 : 1)
+// then u1) and bufU (u2, then y2 in place). Wide (a branch wider than
+// kNBlock, off every path): bufT (x2, then u2, then u1), bufT2 (t2 over
+// the halo tile) and bufY (y2). The f32 kernel fits 128 registers with no
+// spill, so two blocks share an SM; the bf16 one needs 144 (its
+// conversions) and the wide one its pass loops, and they take one.
+template <class T, bool Wide>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) && !Wide ? 2 : 1)
 bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
                   const T* __restrict__ k1, const T* __restrict__ b1,
                   const T* __restrict__ w1, const T* __restrict__ c1,
@@ -498,10 +495,13 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
                   int H, int W, int ch, int co2, int th, int tw, bool vec_x, bool vec_out) {
   extern __shared__ float4 smem4[];
   const int hw = tw + 2, Ph = (th + 2) * hw, P = th * tw;
-  const int ldT = pad_ld(ch), ldU = pad_ld(max(ch, co2));
+  const int ldT = pad_ld(ch), ldU = Wide ? ldT : pad_ld(max(ch, co2));
+  const int ldY = Wide ? pad_ld(co2) : ldU;
   float* Bs = reinterpret_cast<float*>(smem4);
   float* bufT = reinterpret_cast<float*>(smem4) + kStageBytes / sizeof(float);
-  float* bufU = bufT + Ph * ldT;
+  float* bufT2 = Wide ? bufT + Ph * ldT : bufT;
+  float* bufU = Wide ? bufT : bufT + Ph * ldT;
+  float* bufY = Wide ? bufT2 + Ph * ldT : bufU;
   const int tiles_w = (W + tw - 1) / tw;
   const int r0 = blockIdx.x / tiles_w * th, c0 = blockIdx.x % tiles_w * tw;
   const int cin = 2 * ch, cout = 2 * co2;
@@ -511,37 +511,49 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
   // branch 2: t2 = silu(x2 @ w2 + c2) over the halo tile, 0 outside the image
   prefetch<T>(w2, ch, ch, Bs);
   stage_tile<T>(xb + ch, cin, H, W, r0 - 1, c0 - 1, th + 2, hw, ch, vec_x, bufT, ldT);
-  gemm<T>(bufT, ldT, Ph, ch, w2, c2, ch, Bs, [&](int p, int n0, const float* v) {
+  product<Wide, T>(bufT, ldT, Ph, ch, w2, c2, ch, Bs, [&](int p, int n0, const float* v) {
     const int r = r0 - 1 + p / hw, c = c0 - 1 + p % hw;
     const bool in = r >= 0 && r < H && c >= 0 && c < W;
     float o[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = in && n0 + j < ch ? rnd<T>(silu_fast(v[j])) : 0.f;
-    *reinterpret_cast<float4*>(bufT + p * ldT + n0) = make_float4(o[0], o[1], o[2], o[3]);
+    for (int j = 0; j < 4; ++j) o[j] = in && n0 + j < ch ? rnd<T>(silu_div2ulp(v[j])) : 0.f;
+    *reinterpret_cast<float4*>(bufT2 + p * ldT + n0) = make_float4(o[0], o[1], o[2], o[3]);
   });
   __syncthreads();
-  // u2 = dw3x3(t2) + b2, then y2 = silu(u2 @ w3 + c3) in place
+  // u2 = dw3x3(t2) + b2, then y2 = silu(u2 @ w3 + c3), in place unless wide
   prefetch<T>(w3, ch, co2, Bs);
-  dw_tile<T>(bufT, ldT, hw, tw, P, k2, b2, ch, bufU, ldU);
-  gemm<T>(bufU, ldU, P, ch, w3, c3, co2, Bs, [&](int p, int n0, const float* v) {
+  dw3x3<Wide, T>(tw, P, k2, b2, ch,
+           [&](int hy, int hx, int k) { return ld4(bufT2 + (hy * hw + hx) * ldT + k); }, bufU,
+           ldU);
+  product<Wide, T>(bufU, ldU, P, ch, w3, c3, co2, Bs, [&](int p, int n0, const float* v) {
     float o[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = n0 + j < co2 ? rnd<T>(silu_fast(v[j])) : 0.f;
-    *reinterpret_cast<float4*>(bufU + p * ldU + n0) = make_float4(o[0], o[1], o[2], o[3]);
+    for (int j = 0; j < 4; ++j) o[j] = n0 + j < co2 ? rnd<T>(silu_div2ulp(v[j])) : 0.f;
+    *reinterpret_cast<float4*>(bufY + p * ldY + n0) = make_float4(o[0], o[1], o[2], o[3]);
   });
-  // branch 1: u1 = dw3x3(x1) + b1 (bufT's t2 was last read before the
-  // barriers of the product above), then y1 = silu(u1 @ w1 + c1), written
-  // with y2 as shuffled pairs
+  // branch 1: u1 = dw3x3(x1) + b1 from global memory, its 9 taps a pixel L1
+  // and L2 hits (bufT's t2 or u2 was last read before the barriers of the
+  // product above), then y1 = silu(u1 @ w1 + c1), written with y2 as
+  // shuffled pairs
   prefetch<T>(w1, ch, co2, Bs);
-  dw_image<T>(xb, cin, H, W, r0, c0, tw, P, k1, b1, ch, vec_x, bufT, ldT);
-  gemm<T>(bufT, ldT, P, ch, w1, c1, co2, Bs, [&](int p, int n0, const float* v) {
+  dw3x3<Wide, T>(tw, P, k1, b1, ch,
+           [&](int hy, int hx, int k) {
+             const int r = r0 - 1 + hy, c = c0 - 1 + hx;
+             if (r < 0 || r >= H || c < 0 || c >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
+             const T* src = xb + ((size_t)r * W + c) * cin + k;
+             if (vec_x) return ldg4(src);
+             return make_float4(to_f(src[0]), k + 1 < ch ? to_f(src[1]) : 0.f,
+                                k + 2 < ch ? to_f(src[2]) : 0.f, k + 3 < ch ? to_f(src[3]) : 0.f);
+           },
+           bufT, ldT);
+  product<Wide, T>(bufT, ldT, P, ch, w1, c1, co2, Bs, [&](int p, int n0, const float* v) {
     const int r = r0 + p / tw, c = c0 + p % tw;
     if (r >= H || c >= W) return;
-    const float4 y2 = *reinterpret_cast<const float4*>(bufU + p * ldU + n0);
+    const float4 y2 = *reinterpret_cast<const float4*>(bufY + p * ldY + n0);
     const float y2v[4] = {y2.x, y2.y, y2.z, y2.w};
     float y1v[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y1v[j] = silu_fast(v[j]);
+    for (int j = 0; j < 4; ++j) y1v[j] = silu_div2ulp(v[j]);
     T* o = ob + ((size_t)r * W + c) * cout + 2 * n0;
     if (vec_out) {
       store_pairs(o, y1v, y2v);
@@ -645,7 +657,10 @@ size_t stage_bytes() { return (size_t)(kAStage + kBStage) * sizeof(float); }
 // ops/shuffle.py::bottleneck_smem computes the same
 size_t bottleneck_smem(int th, int tw, int ch, int co2) {
   const size_t halo = (size_t)(th + 2) * (tw + 2), tile = (size_t)th * tw;
-  return kStageBytes + (halo * pad_ld(ch) + tile * pad_ld(ch > co2 ? ch : co2)) * sizeof(float);
+  const size_t floats = (ch > kNBlock || co2 > kNBlock)
+                            ? 2 * halo * pad_ld(ch) + tile * pad_ld(co2)
+                            : halo * pad_ld(ch) + tile * pad_ld(ch > co2 ? ch : co2);
+  return kStageBytes + floats * sizeof(float);
 }
 
 size_t downsample_smem(int W, int C, int co2, int tho) {
@@ -669,17 +684,19 @@ int pick_rows(int batch, int rows_out, Smem smem) {
 template <class T>
 int launch_bottleneck(const void* x, void* out, const void* const* p, int B, int H, int W,
                       int ch, int co2, int th, int tw, int smem, void* stream) {
-  if (th < 1 || tw < 1 || ch < 1 || co2 < 1 || ch > kMaxN || co2 > kMaxN || smem < 0 ||
+  if (th < 1 || tw < 1 || ch < 1 || co2 < 1 || smem < 0 ||
       (size_t)smem < bottleneck_smem(th, tw, ch, co2) || smem > kSmemLimit)
     return -1;
-  cudaError_t err = cudaFuncSetAttribute(bottleneck_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = ch > kNBlock || co2 > kNBlock ? bottleneck_kernel<T, true>
+                                                   : bottleneck_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((H + th - 1) / th) * ((W + tw - 1) / tw), B);
   const bool vec_x = ch % (16 / (int)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
   const bool vec_out = co2 % 4 == 0 && (uintptr_t)out % 16 == 0;
   const T* const* q = reinterpret_cast<const T* const*>(p);
-  bottleneck_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (T*)out, q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], H, W,
       ch, co2, th, tw, vec_x, vec_out);
   return (int)cudaGetLastError();

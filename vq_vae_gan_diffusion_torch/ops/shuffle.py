@@ -136,6 +136,8 @@ def reference_downsample(x: torch.Tensor, p: Folded,
     return _unit(xf, xf, p, 2, x.dtype)
 
 
+# Shared with csrc/shuffle_units.cu (kSmemLimit, kTargetBlocks, kStageBytes,
+# kNBlock), which tests/test_torch_port_shuffle_plan.py holds to these values.
 SMEM_LIMIT = 232_448        # bytes of shared memory a block may use on sm_90
 TWO_BLOCKS_SMEM = 115_712   # the most that leaves room for two blocks on an SM
                             # (228 KB an SM, 1 KB of it reserved for each block)
@@ -145,7 +147,7 @@ MAX_HALO = HALO_AIMS[-1]
 MAX_TILE = (32, 64)         # the largest th and tw tried
 ROW_GRANULE = 32            # pixel rows of a warp's tile in the pointwise products
 STAGE_BYTES = 16_384        # the pointwise products' k-chunk buffers of weights
-MAX_CHANNELS = 256          # widest branch the kernel takes (8 warps x 32 columns)
+N_BLOCK = 256               # columns of one pass of a pointwise product (8 warps x 32)
 
 
 def pad_ld(c: int) -> int:
@@ -160,8 +162,13 @@ def bottleneck_smem(th: int, tw: int, ch: int, co2: int) -> int:
     (``bottleneck_smem`` in csrc/shuffle_units.cu computes the same): the
     weights' k-chunk buffers, x2 and then t2 over the halo tile
     (th + 2) x (tw + 2), and u2 and then y2 over the tile, all f32 in rows
-    of :func:`pad_ld` floats."""
+    of :func:`pad_ld` floats. A branch wider than ``N_BLOCK`` runs its
+    products in passes that must not overwrite their input, so its block
+    holds x2 and t2 apart over the halo tile, u2 over x2's, and y2 apart
+    over the tile."""
     halo, tile = (th + 2) * (tw + 2), th * tw
+    if max(ch, co2) > N_BLOCK:
+        return STAGE_BYTES + 4 * (2 * halo * pad_ld(ch) + tile * pad_ld(co2))
     return STAGE_BYTES + 4 * (halo * pad_ld(ch) + tile * pad_ld(max(ch, co2)))
 
 
@@ -196,8 +203,7 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int,
-                    dtype: torch.dtype = torch.float32) -> BottleneckPlan:
+def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int) -> BottleneckPlan:
     """The bottleneck kernel's tile for x [b, h, w, 2ch] -> [b, h, w, 2co2].
 
     A block covers one image's th x tw output pixels and all their
@@ -215,15 +221,13 @@ def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int,
        tile once, the tile twice), ragged last tiles included; then the
        larger tile, then the wider.
 
-    ``dtype`` is the activations' type; the kernel holds every
-    intermediate in f32, so the tile does not depend on it yet. Raises
-    ValueError when a branch is wider than ``MAX_CHANNELS`` (every
-    narrower one fits a 1 x 1 tile).
+    The kernel holds every intermediate in f32, so the tile is the same
+    for f32 and bf16 activations. The f32 kernel gets the two blocks an SM
+    planned for; the bf16 one, and any branch wider than ``N_BLOCK``, need
+    more registers and get one (both are off every path). Raises
+    ValueError when not even a 1 x 1 tile fits a block (branches of about
+    2,800 channels).
     """
-    del dtype
-    if ch > MAX_CHANNELS or co2 > MAX_CHANNELS:
-        raise ValueError(f"the bottleneck kernel takes at most {MAX_CHANNELS} channels a branch, "
-                         f"got {ch} -> {co2}")
     cands = []
     for th in range(1, min(h, MAX_TILE[0]) + 1):
         for tw in range(1, min(w, MAX_TILE[1]) + 1):
@@ -232,6 +236,9 @@ def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int,
                 tiles_h, tiles_w = _ceil(h, th), _ceil(w, tw)
                 cands.append(BottleneckPlan(th, tw, tiles_h, tiles_w, smem,
                                             b * tiles_h * tiles_w))
+    if not cands:
+        raise ValueError(f"no tile of the bottleneck kernel fits a block's shared memory at "
+                         f"{ch} -> {co2} channels a branch")
     tiers = [[c for c in cands if c.smem <= TWO_BLOCKS_SMEM and c.halo <= aim]
              for aim in HALO_AIMS] + [[c for c in cands if c.halo <= MAX_HALO], cands]
     many = [[c for c in t if c.blocks >= TARGET_BLOCKS] for t in tiers[:-1]]
@@ -298,7 +305,7 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     _check_cuda_args(x, folded, {
         "k1": (3, 3, ch), "b1": (ch,), "w1": (ch, co2), "c1": (co2,), "w2": (ch, ch),
         "c2": (ch,), "k2": (3, 3, ch), "b2": (ch,), "w3": (ch, co2), "c3": (co2,)}, {})
-    plan = bottleneck_plan(b, h, w, ch, co2, x.dtype)
+    plan = bottleneck_plan(b, h, w, ch, co2)
     out = torch.empty((b, h, w, 2 * co2), dtype=x.dtype, device=x.device)
     lib = _bind()
     fn = lib.shuffle_bottleneck_f32 if x.dtype == torch.float32 else lib.shuffle_bottleneck_bf16

@@ -44,10 +44,11 @@ from .utils.profiling import cuda_ms, random_unit, report, shuffle_unit_bound, s
 
 B, N, D, T = 16, 256, 96, 1000
 STEPS = 10
+UNIT_REPS = 10              # timed calls a unit shape in --units
 UNIT_GRIDS = {"gaussian3d": (N, D), "vqofficial": (1024, 256)}
 
 
-def units(grid: str, dtype: torch.dtype, reps: int) -> None:
+def units(grid: str, dtype: torch.dtype) -> None:
     """The ``--units`` probe (module docstring)."""
     card = smi_line()
     h, w = UNIT_GRIDS[grid]
@@ -66,10 +67,10 @@ def units(grid: str, dtype: torch.dtype, reps: int) -> None:
                          else (shuffle.fused_downsample, shuffle.reference_downsample))
         got = kernel(x, p)
         err = (got.float() - plain(x, p).float()).abs().max().item()
-        ms = cuda_ms(lambda: kernel(x, p), reps)
+        ms = cuda_ms(lambda: kernel(x, p), UNIT_REPS)
         by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
         plan = ("" if kind == "K2" or plan_of is None
-                else f"; {plan_of(B, uh, uw, c_in // 2, c_out // 2, dtype)}")
+                else f"; {plan_of(B, uh, uw, c_in // 2, c_out // 2)}")
         print(f"{grid} {tag} {kind} {uh}x{uw} {c_in}->{c_out} (x{count} a forward): "
               f"kernel {ms:.4f} ms, max abs err {err:.3e}, bound {max(by_bytes, by_ops):.4f} ms "
               f"by {'bytes' if by_bytes >= by_ops else 'operations'}{plan}")
@@ -88,14 +89,13 @@ def main(argv=None) -> int:
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--units", choices=sorted(UNIT_GRIDS),
                         help="time each unit shape of one U-Net forward on this path's grid")
-    parser.add_argument("--reps", type=int, default=10, help="timed calls a unit shape")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_shuffle needs a CUDA device")
     resolve_device("cuda")
     dtype = getattr(torch, args.dtype)
     if args.units:
-        units(args.units, dtype, args.reps)
+        units(args.units, dtype)
         return 0
     unet = ShuffleUNet(T, 256, 1, 1, 64, (1, 2, 4, 8))
     unet.init_weights(torch.Generator().manual_seed(0))
