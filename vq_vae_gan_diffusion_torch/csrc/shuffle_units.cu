@@ -96,7 +96,7 @@ template <class T> __device__ __forceinline__ float rnd(float v) { return to_f(f
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 // The bottleneck's: the same exp, the divide within 2 ulp (an IEEE divide
-// brings a slow-path call that costs the kernel 13% in spills)
+// brings a slow-path call, and with it spills, into the kernel)
 __device__ __forceinline__ float silu_div2ulp(float v) {
   return __fdividef(v, 1.0f + expf(-v));
 }
