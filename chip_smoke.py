@@ -25,11 +25,14 @@ Phases, each printed as it runs; any failure exits non-zero:
       versions at every distinct unit shape of the gaussian3d U-Net forward
       (state [16, 256, 96, 1], base 64, mults (1, 2, 4, 8)), in f32 and
       bf16, the downsample's silu(x + t_vec) prologue included; each shape's
-      kernel time, plain time and bound, and the bottleneck's tile plan
-      (``ops.shuffle.bottleneck_plan``); then, in f32, at shapes off that
-      path (every unit of the U-Net on the mnist config's odd grids, the
-      downsample's prologue on an odd grid, short last tiles in rows and
-      columns, widths that fill no whole tile of the pointwise products);
+      kernel time, plain time and bound, and each kernel's tile plan
+      (``ops.shuffle.bottleneck_plan`` / ``downsample_plan``); then, in f32,
+      at shapes off that path (every unit of the U-Net on the mnist config's
+      odd grids, the downsample's prologue on odd grids, short last tiles in
+      rows and columns, widths that fill no whole tile of the pointwise
+      products, branches wider than one 256-column pass); both kernels'
+      C entry points refuse shared memory short of the tile's or above a
+      block's;
   (g) the second path: ``vq_vae_gan_diffusion_torch.generate`` on
       configs/inference_config_vqdiffusion.yml at full width (16 samples,
       1000 clipped DDPM steps of the U-Net, cosine argmax to [16, 256]
@@ -54,7 +57,7 @@ Phases, each printed as it runs; any failure exits non-zero:
       the chain cut to 20 steps (t = 19..0 of the 1000-step schedule): 19
       B6, 780 K1 and 80 K2 launches; cold, then warm; K1 and K2 against
       their plain versions at every unit shape of this U-Net (1024x256 down
-      to 64x16), with the bottleneck's tile plan; ``fused_posterior`` on
+      to 64x16), with each kernel's tile plan; ``fused_posterior`` on
       against off with the same noise over the 20 steps (at least 99% of
       indices equal);
   (k) the transformer prior (codebook 1024, 256 tokens, 100 steps, width
@@ -377,11 +380,12 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
     widen to one step of the output's binade (2^-8 = 3.9e-3 of scale).
 
     Times are per call, at each shape, by CUDA events over back-to-back
-    calls, printed with the bottleneck's tile plan; the returned means are
+    calls, printed with each kernel's tile plan; the returned means are
     per call over one forward's 39 bottleneck and 4 downsample calls.
     """
-    from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, fused_bottleneck,
-                                                        fused_downsample, reference_bottleneck,
+    from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, downsample_plan,
+                                                        fused_bottleneck, fused_downsample,
+                                                        reference_bottleneck,
                                                         reference_downsample)
     units = unet_unit_shapes(h, w)
     counts: dict = {}
@@ -416,12 +420,12 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
             plain_ms = cuda_ms(lambda: plain(x, p), reps=plain_reps)
             by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
             bound = max(by_bytes, by_ops)
-            plan = (f"; {bottleneck_plan(B, uh, uw, c_in // 2, c_out // 2)}"
-                    if kind == "K1" else "")
+            plan = (bottleneck_plan(B, uh, uw, c_in // 2, c_out // 2) if kind == "K1"
+                    else downsample_plan(B, uh, uw, c_in, c_out // 2))
             print(f"({label}) {what} (x{count} a forward): max abs err {err:.3e}; "
                   f"kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
-                  f"{'bytes' if by_bytes >= by_ops else 'operations'}{plan}")
+                  f"{'bytes' if by_bytes >= by_ops else 'operations'}; {plan}")
             a = acc[kind]
             a["max_abs_err"] = max(a["max_abs_err"], err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", by_bytes),
@@ -446,27 +450,42 @@ def phase_other_shapes() -> None:
     """Both kernels against their plain versions in f32, tolerance 1e-4 as
     above, at shapes off the main path: every unit of the U-Net on the
     mnist config's state [16, 49, 96, 1] (odd grids, whose last row tile is
-    short; a downsample there halves 49x96 to 25x48, reading the zero pad
-    row past the image), the downsample's silu(x + t_vec) prologue on an
-    odd grid, a downsample with a short last row tile, bottlenecks whose
-    last tile is short in rows and in columns, widths that fill no whole
-    k-chunk or n-tile of the pointwise products, and bottleneck branches
-    wider than one 256-column pass of its products (512 -> 384 and
-    100 -> 290 channels)."""
+    short; a downsample there halves 49x96 to 25x48, its halo crossing the
+    zero pad row past the image), the downsample's silu(x + t_vec) prologue
+    on every odd grid, units whose last tile is short in rows and in
+    columns, widths that fill no whole k-chunk or n-tile of the pointwise
+    products or no 16-byte load (a downsample of 18 channels), and branches
+    wider than one 256-column pass of the products (bottlenecks 512 -> 384
+    and 100 -> 290 channels a branch, downsamples 300 -> 290 and
+    600 -> 150). Then each kernel's C entry point returns -1, launching
+    nothing, for shared memory short of its tile's or above a block's."""
     from vq_vae_gan_diffusion_torch.ops import shuffle
-    from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, fused_bottleneck,
-                                                        fused_downsample, reference_bottleneck,
+    from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, downsample_plan,
+                                                        fused_bottleneck, fused_downsample,
+                                                        reference_bottleneck,
                                                         reference_downsample)
     cases = set(unet_unit_shapes(49, GAUSSIAN_DIM))
     if not any(kind == "K2" and h % 2 for kind, h, *_ in cases):
         raise AssertionError("the mnist geometry has no odd-grid downsample")
     cases |= {("K2", 98, 96, 32, 64), ("K1", 13, 7, 24, 12), ("K2", 14, 10, 20, 12),
               ("K2", 13, 7, 20, 12), ("K1", 37, 53, 64, 64), ("K1", 19, 29, 48, 40),
-              ("K1", 9, 11, 1024, 768), ("K1", 7, 9, 200, 580)}
-    plans = [(h, w, bottleneck_plan(B, h, w, c_in // 2, c_out // 2))
-             for kind, h, w, c_in, c_out in cases if kind == "K1"]
-    if not (any(h % p.th for h, _, p in plans) and any(w % p.tw for _, w, p in plans)):
-        raise AssertionError("no bottleneck case has a short last tile in rows and one in columns")
+              ("K1", 9, 11, 1024, 768), ("K1", 7, 9, 200, 580), ("K2", 21, 45, 40, 24),
+              ("K2", 30, 46, 48, 40), ("K2", 17, 27, 18, 26), ("K2", 9, 11, 300, 580),
+              ("K2", 7, 9, 600, 300)}
+    for kind in ("K1", "K2"):
+        s = 2 if kind == "K2" else 1
+        plans = []
+        for k, h, w, c_in, c_out in cases:
+            if k == kind:
+                c = c_in // 2 if kind == "K1" else c_in        # one branch's input width
+                plan = (bottleneck_plan if kind == "K1" else downsample_plan)(B, h, w, c, c_out // 2)
+                plans.append((-(-h // s), -(-w // s), plan, max(c, c_out // 2)))
+        if not (any(ho % p.th for ho, _, p, _ in plans) and any(wo % p.tw for _, wo, p, _ in plans)
+                and any(c > 256 for *_, c in plans)):
+            raise AssertionError(f"no {kind} case has a short last tile in rows, one in columns "
+                                 "and a branch wider than 256 channels")
+        for ho, wo, p, _ in plans if kind == "K2" else []:
+            print(f"(f) K2 off-path plan on a {ho}x{wo} output grid: {p}")
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     for kind, h, w, c_in, c_out in sorted(cases):
@@ -479,12 +498,15 @@ def phase_other_shapes() -> None:
         torch.cuda.synchronize()
         worst = max(worst, check_close(what, got, want, 1e-4))
         if kind == "K2" and (h % 2 or w % 2):
+            # the halo of the last tile row or column crosses the zero pad
+            # row or column past the image, where the prologue must not apply
             t_vec = torch.randn(B, c_in, generator=gen, device="cuda")
             got, want = kernel(x, p, t_vec), plain(x, p, t_vec)
             torch.cuda.synchronize()
             worst = max(worst, check_close(what + " t_vec", got, want, 1e-4))
     print(f"(f) f32, {len(cases)} shapes off the main path (mnist geometry 49x96 .. 4x6, "
-          f"short last tiles, narrow and wide branches): max abs err {worst:.3e}")
+          f"short last tiles, narrow and wide branches, the prologue on odd grids): "
+          f"max abs err {worst:.3e}")
     # the C side refuses shared memory short of the tile's or above a
     # block's, before it launches anything
     lib, plan = shuffle._bind(), bottleneck_plan(B, 13, 7, 12, 6)
@@ -498,6 +520,18 @@ def phase_other_shapes() -> None:
         raise AssertionError(f"shuffle_bottleneck_f32 returned {codes} for short and excess "
                              "shared memory, not -1")
     print(f"(f) shuffle_bottleneck_f32 refuses {plan.smem - 1} and {shuffle.SMEM_LIMIT + 1} B "
+          f"for a tile that needs {plan.smem} B")
+    plan = downsample_plan(B, 13, 7, 20, 6)
+    x = torch.zeros(B, 13, 7, 20, device="cuda")
+    out, params = torch.empty(B, 7, 4, 12, device="cuda"), random_unit("K2", 20, 12, x.dtype, gen)
+    codes = [lib.shuffle_downsample_f32(x.data_ptr(), None, out.data_ptr(), shuffle._params(params),
+                                        B, 13, 7, 20, 6, plan.th, plan.tw, smem,
+                                        torch.cuda.current_stream().cuda_stream)
+             for smem in (plan.smem - 1, shuffle.SMEM_LIMIT + 1)]
+    if codes != [-1, -1]:
+        raise AssertionError(f"shuffle_downsample_f32 returned {codes} for short and excess "
+                             "shared memory, not -1")
+    print(f"(f) shuffle_downsample_f32 refuses {plan.smem - 1} and {shuffle.SMEM_LIMIT + 1} B "
           f"for a tile that needs {plan.smem} B")
 
 

@@ -27,43 +27,52 @@
 // t2, u2 and the outputs are rounded to T where the plain version
 // (reference_bottleneck / reference_downsample) rounds them.
 //
-// What bounds the bottleneck on an H100: its three pointwise products are
-// 80-90% of its operations, so at 128 input channels or more the f32
-// CUDA-core rate (67 TFLOP/s) bounds it, at 64 or fewer the bytes of its
-// input and output (3.35 TB/s; utils/profiling.py::shuffle_unit_bound). The first
-// version covered th rows of full image width a block, so its shared memory
-// grew with W: at W = 256 th fell to 1, one block of 8 warps sat on an SM,
-// branch 2's first product ran on 3 rows to give 1, and every product went
-// through a GEMM loop that staged A element by element with two barriers
-// every 16 deep.
+// What bounds the units on an H100: their three pointwise products are
+// 80-90% of their operations, so at 128 input channels or more the f32
+// CUDA-core rate (67 TFLOP/s) bounds them, at 64 or fewer the bytes of their
+// input and output (3.35 TB/s; utils/profiling.py::shuffle_unit_bound). The
+// first versions covered rows of full image width a block, so shared memory
+// grew with W: at W = 256 a block took one row (the downsample one output
+// row), one block of 8 warps sat on an SM, branch 2's first product ran on
+// 3 rows to give 1 (the downsample's on 3 input rows to give 2), and every
+// product went through a GEMM loop that staged A element by element with
+// two barriers every 16 deep.
 //
-// Bottleneck design:
+// Design, both units:
 // - One block per (image, th x tw tile of output pixels), the tile chosen
-//   in Python (ops/shuffle.py::bottleneck_plan, which mirrors this file's
-//   bottleneck_smem) so that shared memory follows the tile, not the width:
-//   two blocks an SM, a halo factor (th+2)(tw+2)/(th tw) of 1.2-1.9.
-// - x2 over the halo tile is staged in shared memory with 16-byte loads;
-//   t2 = silu(x2 @ w2 + c2) overwrites it in place, 0 at halo pixels
-//   outside the image (rows and columns); u2 = dw(t2) goes to a second
-//   buffer and y2 overwrites u2 in place; branch 1's dw reads x1 from
-//   global memory (L1/L2 hits) into the first buffer, and the last product's
-//   epilogue writes y1 and y2 as shuffled pairs, 32 bytes a thread (f32).
+//   in Python (ops/shuffle.py::bottleneck_plan and downsample_plan, which
+//   mirror this file's bottleneck_smem and downsample_smem) so that shared
+//   memory follows the tile, not the width: two blocks an SM. The input
+//   halo tile is (th + 2) x (tw + 2) from (r0 - 1, c0 - 1) for the
+//   bottleneck, (2th + 1) x (2tw + 1) from (2r0 - 1, 2c0 - 1) for the
+//   downsample; halo factors of 1.1-1.9.
+// - The input over the halo tile is staged in shared memory with 16-byte
+//   loads, 0 at halo pixels outside the image (rows and columns, the pad
+//   row or column past an odd grid included); the downsample's prologue
+//   silu(x + t) is applied there, once. t2 = silu(x @ w2 + c2) overwrites
+//   it in place, 0 outside the image; u2 = dw(t2) goes to a second buffer
+//   and y2 overwrites u2 in place; the last product's epilogue writes y1
+//   and y2 as shuffled pairs, 32 bytes a thread (f32).
+// - Branch 1's depthwise convolution: the bottleneck's reads x1 from global
+//   memory (L1/L2 hits) after branch 2; the downsample's reads the staged
+//   tile before t2 overwrites it, so both branches read x from shared
+//   memory. One depthwise template takes the stride.
 // - The products (gemm) read A from shared memory as float4 along k, rows
 //   padded to 4 mod 8 floats against bank conflicts; each thread holds an
 //   8-pixel x 4-column register tile, a warp 32 x 32 (narrower N: taller);
 //   weights come by cp.async, whole or in double-buffered k-chunks, each
 //   product's first chunk issued before the work that precedes it. A product
 //   covers kNBlock columns in one pass; a branch wider than that (off every
-//   path) runs in passes of kNBlock columns, and its block keeps t2 and y2
-//   apart from x2 and u2, since a pass must not overwrite the A it reads.
+//   path) runs in passes of kNBlock columns, and its block keeps each
+//   product's output apart from its input, since a pass must not overwrite
+//   the A it reads.
 // - Sums stay in f32 on CUDA cores; SiLU takes the plain version's expf and
 //   a divide within 2 ulp (silu_div2ulp).
 // ops/shuffle.py owns the constants both sides use (kSmemLimit,
-// kTargetBlocks, kStageBytes, kNBlock, pad_ld, bottleneck_smem);
-// tests/test_torch_port_shuffle_plan.py checks that this file agrees.
-// Downsample design: one block per (image, rows of full width), the first
-// version's GEMM loop. Tensor cores, TMA, channel streaming and fusing
-// units are later work.
+// kTargetBlocks, kStageBytes, kNBlock, pad_ld, bottleneck_smem,
+// downsample_smem); tests/test_torch_port_shuffle_plan.py checks that this
+// file agrees. Tensor cores, TMA, channel streaming and fusing units are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,14 +82,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kKC = 16;            // k-chunk of the pointwise GEMM
-constexpr int kMaxPT = 256;        // widest pixel tile (n-tile 16)
-constexpr int kAStage = kKC * (kMaxPT + 4);
-constexpr int kBStage = kKC * 64;
 constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
 constexpr int kTargetBlocks = 264;  // two blocks for each of 132 SMs
-constexpr int kStageBytes = 16384;  // the bottleneck's k-chunk buffers of weights
-constexpr int kNBlock = 256;        // columns of one pass of a bottleneck product (8 warps x 32)
+constexpr int kStageBytes = 16384;  // the products' k-chunk buffers of weights
+constexpr int kNBlock = 256;        // columns of one pass of a product (8 warps x 32)
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -94,9 +99,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // v rounded to T and held in f32: an operand of a product in T
 template <class T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-// The bottleneck's: the same exp, the divide within 2 ulp (an IEEE divide
-// brings a slow-path call, and with it spills, into the kernel)
+// SiLU with the plain version's exp and a divide within 2 ulp (an IEEE
+// divide brings a slow-path call, and with it spills, into the kernels)
 __device__ __forceinline__ float silu_div2ulp(float v) {
   return __fdividef(v, 1.0f + expf(-v));
 }
@@ -130,6 +134,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// 16 bytes from src, or 16 zero bytes where !in (no byte of src is read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -137,76 +148,53 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
-
-// C[P, N] = A[P, K] @ w[K, N] + bias, handed to store(p, n, value).
-// 256 threads; each holds a 4x4 accumulator tile. The n-tile NT is 64, 32
-// or 16 by N, the pixel tile 4096 / NT. A comes from loadA(p, k) (global
-// memory or shared memory), staged k-major in As; w is staged in Bs.
-// Ends with __syncthreads(), so the caller may overwrite what loadA read.
-template <class T, class LoadA, class Store>
-__device__ void pointwise(int P, int K, int N, const LoadA& loadA,
-                          const T* __restrict__ w, const T* __restrict__ bias,
-                          const Store& store, float* As, float* Bs) {
-  const int NT = N >= 64 ? 64 : (N >= 32 ? 32 : 16);
-  const int PT = 4096 / NT;
-  const int ast = PT + 4;
-  const int tid = threadIdx.x;
-  const int tx = tid % (NT / 4), ty = tid / (NT / 4);
-  for (int p0 = 0; p0 < P; p0 += PT) {
-    for (int n0 = 0; n0 < N; n0 += NT) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += kKC) {
-        __syncthreads();
-        for (int e = tid; e < PT * kKC; e += kThreads) {
-          const int kk = e % kKC, pp = e / kKC;
-          const int p = p0 + pp, k = k0 + kk;
-          As[kk * ast + pp] = (p < P && k < K) ? loadA(p, k) : 0.f;
-        }
-        for (int e = tid; e < kKC * NT; e += kThreads) {
-          const int nn = e % NT, kk = e / NT;
-          const int n = n0 + nn, k = k0 + kk;
-          Bs[kk * NT + nn] = (n < N && k < K) ? to_f(w[(size_t)k * N + n]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kKC; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(&As[kk * ast + ty * 4]);
-          const float4 b = *reinterpret_cast<const float4*>(&Bs[kk * NT + tx * 4]);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + ty * 4 + i;
-        if (p >= P) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + tx * 4 + j;
-          if (n < N) store(p, n, acc[i][j] + to_f(bias[n]));
-        }
-      }
-    }
-  }
-  __syncthreads();
+// every group has landed
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // rows x cols pixels of one image, from (y0, x0), channels [0, ch) of each
 // pixel (row stride cin), into dst[p * ld + k] as f32, p = row * cols + col;
 // 0 at pixels outside the image and at k in [ch, round4(ch)) (ld >= that).
-// 16-byte loads when vec (ch a multiple of 16 bytes, x 16-byte aligned).
-template <class T>
+// With tv (the downsample's prologue), a pixel inside the image holds
+// rnd<T>(silu(x + tv[k])); outside it stays 0. 16-byte loads when vec (ch a
+// multiple of 16 bytes, x 16-byte aligned). Async (f32 and vec only): the
+// loads are cp.async copies, all in flight at once rather than one a
+// thread at a time, and the call returns once every cp.async group the
+// thread has issued has landed; each thread then applies the prologue to
+// the pixels it copied.
+template <class T, bool Async = false>
 __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int y0, int x0,
-                           int rows, int cols, int ch, bool vec, float* __restrict__ dst, int ld) {
+                           int rows, int cols, int ch, bool vec, const T* __restrict__ tv,
+                           float* __restrict__ dst, int ld) {
   constexpr int V = 16 / sizeof(T);
+  if constexpr (Async && sizeof(T) == sizeof(float)) {
+    if (vec) {
+      const int per = ch / 4;
+      for (int e = threadIdx.x; e < rows * cols * per; e += kThreads) {
+        const int j = e % per, p = e / per;
+        const int y = y0 + p / cols, xx = x0 + p % cols;
+        const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
+        cp_async16_zfill(dst + p * ld + 4 * j, in ? src + ((size_t)y * W + xx) * cin + 4 * j : src,
+                         in);
+      }
+      cp_async_commit();
+      cp_async_wait0();
+      if (tv) {
+        for (int e = threadIdx.x; e < rows * cols * per; e += kThreads) {
+          const int j = e % per, p = e / per;
+          const int y = y0 + p / cols, xx = x0 + p % cols;
+          if (y < 0 || y >= H || xx < 0 || xx >= W) continue;
+          float4* d = reinterpret_cast<float4*>(dst + p * ld + 4 * j);
+          const float* t = tv + 4 * j;
+          const float4 v = *d;
+          *d = make_float4(silu_div2ulp(v.x + t[0]), silu_div2ulp(v.y + t[1]),
+                           silu_div2ulp(v.z + t[2]), silu_div2ulp(v.w + t[3]));
+        }
+      }
+      return;
+    }
+  }
   if (vec) {
     const int per = ch / V;
     for (int e = threadIdx.x; e < rows * cols * per; e += kThreads) {
@@ -223,6 +211,10 @@ __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int
           f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
           f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
         }
+        if (tv) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) f[i] = rnd<T>(silu_div2ulp(f[i] + to_f(tv[j * V + i])));
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i) f[i] = 0.f;
@@ -237,14 +229,17 @@ __device__ void stage_tile(const T* __restrict__ src, int cin, int H, int W, int
     for (int e = threadIdx.x; e < rows * cols * c4; e += kThreads) {
       const int k = e % c4, p = e / c4;
       const int y = y0 + p / cols, xx = x0 + p % cols;
-      dst[p * ld + k] = (k < ch && y >= 0 && y < H && xx >= 0 && xx < W)
-                            ? to_f(src[((size_t)y * W + xx) * cin + k])
-                            : 0.f;
+      float v = 0.f;
+      if (k < ch && y >= 0 && y < H && xx >= 0 && xx < W) {
+        v = to_f(src[((size_t)y * W + xx) * cin + k]);
+        if (tv) v = rnd<T>(silu_div2ulp(v + to_f(tv[k])));
+      }
+      dst[p * ld + k] = v;
     }
   }
 }
 
-// How the bottleneck's products cut w [K, N] (row stride ldw >= N) into
+// How the products cut w [K, N] (row stride ldw >= N) into
 // k-chunks of shared memory, held in f32 in rows of Np = round4(N): all of
 // w where it fits kStageBytes, else two buffers of KC rows each.
 struct Chunks {
@@ -302,7 +297,7 @@ __device__ __forceinline__ void prefetch(const T* __restrict__ w, int K, int N, 
   prefetch(w, K, min(N, kNBlock), N, Bs);
 }
 
-// One pass of the bottleneck's pointwise products: rows [0, rows) of
+// One pass of a unit's pointwise products: rows [0, rows) of
 // A @ w + bias, handed to epi(row, n0, v) as v[j] = column n0 + j, j < 4 (0
 // past N). A [rows, K] is f32 in shared memory, row stride lda, with 0 in
 // columns K .. round4(K); w [K, N] (row stride ldw) and bias [N] are T in
@@ -413,14 +408,15 @@ __device__ void product(const float* __restrict__ A, int lda, int rows, int K,
   }
 }
 
-// u[p * ldu + k] = rnd<T>(dw3x3(src) + b) for the tile's P pixels
-// p = ty * tw + tx and k < round4(ch) (0 past ch). load(hy, hx, k) gives
-// channels k .. k + 3 of the source at (hy, hx) of the halo tile, whose
-// (0, 0) lies one row above and one column left of the tile's first pixel,
-// 0 outside the image. Each thread keeps one group of 4 channels' taps in
-// registers and walks the pixels; past kThreads groups (Wide only) it takes
-// the next group after.
-template <bool Wide, class T, class Load>
+// u[p * ldu + k] = rnd<T>(dw3x3(src) + b), stride S, for the tile's P
+// output pixels p = ty * tw + tx and k < round4(ch) (0 past ch).
+// load(hy, hx, k) gives channels k .. k + 3 of the source at (hy, hx) of the
+// halo tile, whose (0, 0) lies one row above and one column left of the
+// tile's first input pixel (output pixel (ty, tx) reads S ty + dy,
+// S tx + dx), 0 outside the image. Each thread keeps one group of 4
+// channels' taps in registers and walks the pixels; past kThreads groups
+// (Wide only) it takes the next group after.
+template <int S, bool Wide, class T, class Load>
 __device__ void dw3x3(int tw, int P, const T* __restrict__ k3, const T* __restrict__ b, int ch,
                       const Load& load, float* __restrict__ u, int ldu) {
   const int c4 = (ch + 3) / 4, lanes = Wide ? min(c4, kThreads) : c4, groups = kThreads / lanes;
@@ -441,7 +437,7 @@ __device__ void dw3x3(int tw, int P, const T* __restrict__ k3, const T* __restri
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
-          const float4 v = load(r + dy, c + dx, k);
+          const float4 v = load(S * r + dy, S * c + dx, k);
           const float* q = wk[dy * 3 + dx];
           s[0] = fmaf(v.x, q[0], s[0]); s[1] = fmaf(v.y, q[1], s[1]);
           s[2] = fmaf(v.z, q[2], s[2]); s[3] = fmaf(v.w, q[3], s[3]);
@@ -510,7 +506,8 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
 
   // branch 2: t2 = silu(x2 @ w2 + c2) over the halo tile, 0 outside the image
   prefetch<T>(w2, ch, ch, Bs);
-  stage_tile<T>(xb + ch, cin, H, W, r0 - 1, c0 - 1, th + 2, hw, ch, vec_x, bufT, ldT);
+  stage_tile<T>(xb + ch, cin, H, W, r0 - 1, c0 - 1, th + 2, hw, ch, vec_x, nullptr, bufT,
+                ldT);
   product<Wide, T>(bufT, ldT, Ph, ch, w2, c2, ch, Bs, [&](int p, int n0, const float* v) {
     const int r = r0 - 1 + p / hw, c = c0 - 1 + p % hw;
     const bool in = r >= 0 && r < H && c >= 0 && c < W;
@@ -522,9 +519,9 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
   __syncthreads();
   // u2 = dw3x3(t2) + b2, then y2 = silu(u2 @ w3 + c3), in place unless wide
   prefetch<T>(w3, ch, co2, Bs);
-  dw3x3<Wide, T>(tw, P, k2, b2, ch,
-           [&](int hy, int hx, int k) { return ld4(bufT2 + (hy * hw + hx) * ldT + k); }, bufU,
-           ldU);
+  dw3x3<1, Wide, T>(tw, P, k2, b2, ch,
+                    [&](int hy, int hx, int k) { return ld4(bufT2 + (hy * hw + hx) * ldT + k); },
+                    bufU, ldU);
   product<Wide, T>(bufU, ldU, P, ch, w3, c3, co2, Bs, [&](int p, int n0, const float* v) {
     float o[4];
 #pragma unroll
@@ -536,16 +533,16 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
   // product above), then y1 = silu(u1 @ w1 + c1), written with y2 as
   // shuffled pairs
   prefetch<T>(w1, ch, co2, Bs);
-  dw3x3<Wide, T>(tw, P, k1, b1, ch,
-           [&](int hy, int hx, int k) {
-             const int r = r0 - 1 + hy, c = c0 - 1 + hx;
-             if (r < 0 || r >= H || c < 0 || c >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
-             const T* src = xb + ((size_t)r * W + c) * cin + k;
-             if (vec_x) return ldg4(src);
-             return make_float4(to_f(src[0]), k + 1 < ch ? to_f(src[1]) : 0.f,
-                                k + 2 < ch ? to_f(src[2]) : 0.f, k + 3 < ch ? to_f(src[3]) : 0.f);
-           },
-           bufT, ldT);
+  dw3x3<1, Wide, T>(tw, P, k1, b1, ch,
+                    [&](int hy, int hx, int k) {
+                      const int r = r0 - 1 + hy, c = c0 - 1 + hx;
+                      if (r < 0 || r >= H || c < 0 || c >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
+                      const T* src = xb + ((size_t)r * W + c) * cin + k;
+                      if (vec_x) return ldg4(src);
+                      return make_float4(to_f(src[0]), k + 1 < ch ? to_f(src[1]) : 0.f,
+                                         k + 2 < ch ? to_f(src[2]) : 0.f, k + 3 < ch ? to_f(src[3]) : 0.f);
+                    },
+                    bufT, ldT);
   product<Wide, T>(bufT, ldT, P, ch, w1, c1, co2, Bs, [&](int p, int n0, const float* v) {
     const int r = r0 + p / tw, c = c0 + p % tw;
     if (r >= H || c >= W) return;
@@ -566,119 +563,118 @@ bottleneck_kernel(const T* __restrict__ x, T* __restrict__ out,
   });
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads)
+// One block: image blockIdx.y, output pixels [r0, r0 + th) x [c0, c0 + tw)
+// of the Ho x Wo output grid, clipped to it, tile pixel p = (row - r0) * tw
+// + (col - c0); the input halo tile is (2th + 1) x (2tw + 1) from
+// (2r0 - 1, 2c0 - 1), halo pixel q = row * (2tw + 1) + col. Shared memory:
+// the weights' k-chunks, bufX (x over the halo tile, then t2 in place),
+// bufU (u1) and bufV (u2, then y2 in place); u1 is taken from x before the
+// t2 product overwrites it. Wide (a branch wider than kNBlock, off every
+// path): bufX (x, then u2), bufT (t2 over the halo tile, then y2) and bufU
+// (u1), so that no pass overwrites the A it reads. Registers as the
+// bottleneck's: two blocks an SM for the f32 kernel, one for the others.
+template <class T, bool Wide>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == sizeof(float) && !Wide ? 2 : 1)
 downsample_kernel(const T* __restrict__ x, const T* __restrict__ tvec, T* __restrict__ out,
                   const T* __restrict__ k1, const T* __restrict__ b1,
                   const T* __restrict__ w1, const T* __restrict__ c1,
                   const T* __restrict__ w2, const T* __restrict__ c2,
                   const T* __restrict__ k2, const T* __restrict__ b2,
                   const T* __restrict__ w3, const T* __restrict__ c3,
-                  int H, int W, int C, int co2, int tho) {
+                  int H, int W, int C, int co2, int th, int tw, bool vec_x, bool vec_out) {
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + kAStage;
-  float* bufT = Bs + kBStage;                          // (2 * tho + 1) * W * co2
-  float* bufU = bufT + (size_t)(2 * tho + 1) * W * co2;  // tho * Wo * max(C, co2)
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  const int i0 = blockIdx.x * tho;
-  const int rows = min(tho, Ho - i0);
-  const int cout = 2 * co2;
-  const int HW = H * W;
-  const T* xb = x + (size_t)blockIdx.y * HW * C;
-  const T* tb = tvec ? tvec + (size_t)blockIdx.y * C : nullptr;
-  T* ob = out + ((size_t)blockIdx.y * Ho * Wo + (size_t)i0 * Wo) * cout;
-  const int P = rows * Wo;
-  // input pixel q of this image, channel k, after the optional prologue
-  auto xin = [&](int q, int k) {
-    const float v = to_f(xb[(size_t)q * C + k]);
-    return tb ? rnd<T>(silu(v + to_f(tb[k]))) : v;
-  };
+  const int hw = 2 * tw + 1, Ph = (2 * th + 1) * hw, P = th * tw;
+  const int ldX = pad_ld(max(C, co2)), ldU = pad_ld(C), ldV = Wide ? ldX : pad_ld(co2);
+  float* Bs = reinterpret_cast<float*>(smem4);
+  float* bufX = reinterpret_cast<float*>(smem4) + kStageBytes / sizeof(float);
+  float* bufT = Wide ? bufX + Ph * ldX : bufX;
+  float* bufU = bufT + Ph * ldX;
+  float* bufV = Wide ? bufX : bufU + P * ldU;
+  float* bufY = Wide ? bufT : bufV;
+  const int tiles_w = (Wo + tw - 1) / tw;
+  const int r0 = blockIdx.x / tiles_w * th, c0 = blockIdx.x % tiles_w * tw;
+  const int y0 = 2 * r0 - 1, x0 = 2 * c0 - 1, cout = 2 * co2;
+  const T* xb = x + (size_t)blockIdx.y * H * W * C;
 
-  // branch 1: u1 = stride-2 dw3x3(x) + b1 over all C channels
-  for (int e = threadIdx.x; e < P * C; e += kThreads) {
-    const int k = e % C, p = e / C;
-    const int i = i0 + p / Wo, j = p % Wo;
-    float s = 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      const int yy = 2 * i + dy - 1;
-      if (yy < 0 || yy >= H) continue;
-      for (int dx = 0; dx < 3; ++dx) {
-        const int xx = 2 * j + dx - 1;
-        if (xx < 0 || xx >= W) continue;
-        s = fmaf(xin(yy * W + xx, k), to_f(k1[(dy * 3 + dx) * C + k]), s);
+  // x over the halo tile, the prologue applied once, 0 outside the image
+  prefetch<T>(w2, C, co2, Bs);
+  stage_tile<T, true>(xb, C, H, W, y0, x0, 2 * th + 1, hw, C, vec_x,
+                      tvec ? tvec + (size_t)blockIdx.y * C : nullptr, bufX, ldX);
+  __syncthreads();
+  // branch 1: u1 = stride-2 dw3x3(x) + b1
+  dw3x3<2, Wide, T>(tw, P, k1, b1, C,
+                    [&](int hy, int hx, int k) { return ld4(bufX + (hy * hw + hx) * ldX + k); },
+                    bufU, ldU);
+  // branch 2: t2 = silu(x @ w2 + c2) over the halo tile, 0 outside the
+  // image (the pad row or column past an odd grid too; a block whose halo
+  // tile lies inside the image skips the test)
+  const bool inside = y0 >= 0 && x0 >= 0 && y0 + 2 * th + 1 <= H && x0 + hw <= W;
+  product<Wide, T>(bufX, ldX, Ph, C, w2, c2, co2, Bs, [&](int q, int n0, const float* v) {
+    bool in = inside;
+    if (!in) {
+      const int r = y0 + q / hw, c = x0 + q % hw;
+      in = r >= 0 && r < H && c >= 0 && c < W;
+    }
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = in && n0 + j < co2 ? rnd<T>(silu_div2ulp(v[j])) : 0.f;
+    *reinterpret_cast<float4*>(bufT + q * ldX + n0) = make_float4(o[0], o[1], o[2], o[3]);
+  });
+  __syncthreads();
+  // u2 = stride-2 dw3x3(t2) + b2, then y2 = silu(u2 @ w3 + c3)
+  prefetch<T>(w3, co2, co2, Bs);
+  dw3x3<2, Wide, T>(tw, P, k2, b2, co2,
+                    [&](int hy, int hx, int k) { return ld4(bufT + (hy * hw + hx) * ldX + k); },
+                    bufV, ldV);
+  product<Wide, T>(bufV, ldV, P, co2, w3, c3, co2, Bs, [&](int p, int n0, const float* v) {
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = n0 + j < co2 ? rnd<T>(silu_div2ulp(v[j])) : 0.f;
+    *reinterpret_cast<float4*>(bufY + p * ldV + n0) = make_float4(o[0], o[1], o[2], o[3]);
+  });
+  // y1 = silu(u1 @ w1 + c1), written with y2 as shuffled pairs (the output
+  // address formed here: a pointer held across the phases spilled)
+  prefetch<T>(w1, C, co2, Bs);
+  product<Wide, T>(bufU, ldU, P, C, w1, c1, co2, Bs, [&](int p, int n0, const float* v) {
+    const int r = r0 + p / tw, c = c0 + p % tw;
+    if (r >= Ho || c >= Wo) return;
+    const float4 y2 = *reinterpret_cast<const float4*>(bufY + p * ldV + n0);
+    const float y2v[4] = {y2.x, y2.y, y2.z, y2.w};
+    float y1v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y1v[j] = silu_div2ulp(v[j]);
+    T* o = out + (((size_t)blockIdx.y * Ho + r) * Wo + c) * cout + 2 * n0;
+    if (vec_out) {
+      store_pairs(o, y1v, y2v);
+    } else {
+      for (int j = 0; j < 4 && n0 + j < co2; ++j) {
+        o[2 * j] = from_f<T>(y1v[j]);
+        o[2 * j + 1] = from_f<T>(y2v[j]);
       }
     }
-    bufU[e] = rnd<T>(s + to_f(b1[k]));
-  }
-  __syncthreads();
-  pointwise<T>(
-      P, C, co2, [&](int p, int k) { return bufU[p * C + k]; }, w1, c1,
-      [&](int p, int n, float v) { ob[(size_t)p * cout + 2 * n] = from_f<T>(silu(v)); }, As, Bs);
-
-  // branch 2: t2 = silu(x @ w2 + c2) at full resolution on input rows
-  // 2*i0-1 .. 2*(i0+rows-1)+1, 0 outside the image (row H of an odd grid too)
-  const int q0 = (2 * i0 - 1) * W;
-  pointwise<T>(
-      (2 * rows + 1) * W, C, co2,
-      [&](int p, int k) {
-        const int q = q0 + p;
-        return (q >= 0 && q < HW) ? xin(q, k) : 0.f;
-      },
-      w2, c2,
-      [&](int p, int n, float v) {
-        const int q = q0 + p;
-        bufT[p * co2 + n] = (q >= 0 && q < HW) ? rnd<T>(silu(v)) : 0.f;
-      },
-      As, Bs);
-  // u2 = stride-2 dw3x3(t2) + b2
-  for (int e = threadIdx.x; e < P * co2; e += kThreads) {
-    const int k = e % co2, p = e / co2;
-    const int i = p / Wo, j = p % Wo;
-    float s = 0.f;
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const int xx = 2 * j + dx - 1;
-        if (xx < 0 || xx >= W) continue;
-        s = fmaf(bufT[((2 * i + dy) * W + xx) * co2 + k], to_f(k2[(dy * 3 + dx) * co2 + k]), s);
-      }
-    }
-    bufU[e] = rnd<T>(s + to_f(b2[k]));
-  }
-  __syncthreads();
-  pointwise<T>(
-      P, co2, co2, [&](int p, int k) { return bufU[p * co2 + k]; }, w3, c3,
-      [&](int p, int n, float v) { ob[(size_t)p * cout + 2 * n + 1] = from_f<T>(silu(v)); },
-      As, Bs);
+  });
 }
-
-size_t stage_bytes() { return (size_t)(kAStage + kBStage) * sizeof(float); }
 
 // ops/shuffle.py::bottleneck_smem computes the same
 size_t bottleneck_smem(int th, int tw, int ch, int co2) {
-  const size_t halo = (size_t)(th + 2) * (tw + 2), tile = (size_t)th * tw;
+  const size_t halo = (size_t)(th + 2) * (tw + 2);
+  const size_t tile = (size_t)th * tw;
   const size_t floats = (ch > kNBlock || co2 > kNBlock)
                             ? 2 * halo * pad_ld(ch) + tile * pad_ld(co2)
                             : halo * pad_ld(ch) + tile * pad_ld(ch > co2 ? ch : co2);
   return kStageBytes + floats * sizeof(float);
 }
 
-size_t downsample_smem(int W, int C, int co2, int tho) {
-  const int wide = C > co2 ? C : co2;
-  return stage_bytes() +
-         ((size_t)(2 * tho + 1) * W * co2 + (size_t)tho * ((W + 1) / 2) * wide) * sizeof(float);
-}
-
-// Downsample rows per block: at most 4; fewer while a block would need more
-// than half an SM's shared memory or the grid would have fewer than
-// kTargetBlocks.
-template <class Smem>
-int pick_rows(int batch, int rows_out, Smem smem) {
-  int th = 4;
-  while (th > 1 && (smem(th) > (size_t)kSmemLimit / 2 ||
-                    (size_t)batch * ((rows_out + th - 1) / th) < kTargetBlocks))
-    th /= 2;
-  return th;
+// ops/shuffle.py::downsample_smem computes the same
+size_t downsample_smem(int th, int tw, int c, int co2) {
+  const size_t halo = (size_t)(2 * th + 1) * (2 * tw + 1);
+  const size_t tile = (size_t)th * tw;
+  const size_t ld = pad_ld(c > co2 ? c : co2);
+  const size_t floats = (c > kNBlock || co2 > kNBlock)
+                            ? 2 * halo * ld + tile * pad_ld(c)
+                            : halo * ld + tile * (pad_ld(c) + pad_ld(co2));
+  return kStageBytes + floats * sizeof(float);
 }
 
 template <class T>
@@ -704,29 +700,33 @@ int launch_bottleneck(const void* x, void* out, const void* const* p, int B, int
 
 template <class T>
 int launch_downsample(const void* x, const void* tvec, void* out, const void* const* p, int B,
-                      int H, int W, int C, int co2, void* stream) {
-  const int Ho = (H + 1) / 2;
-  const int tho = pick_rows(B, Ho, [&](int t) { return downsample_smem(W, C, co2, t); });
-  const size_t smem = downsample_smem(W, C, co2, tho);
-  if (smem > (size_t)kSmemLimit) return -1;
-  cudaError_t err = cudaFuncSetAttribute(downsample_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                      int H, int W, int C, int co2, int th, int tw, int smem, void* stream) {
+  if (th < 1 || tw < 1 || C < 1 || co2 < 1 || smem < 0 ||
+      (size_t)smem < downsample_smem(th, tw, C, co2) || smem > kSmemLimit)
+    return -1;
+  const auto kernel = C > kNBlock || co2 > kNBlock ? downsample_kernel<T, true>
+                                                  : downsample_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Ho + tho - 1) / tho, B);
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  const dim3 grid(((Ho + th - 1) / th) * ((Wo + tw - 1) / tw), B);
+  const bool vec_x = C % (16 / (int)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec_out = co2 % 4 == 0 && (uintptr_t)out % 16 == 0;
   const T* const* q = reinterpret_cast<const T* const*>(p);
-  downsample_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)tvec, (T*)out, q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7],
-      q[8], q[9], H, W, C, co2, tho);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)tvec, (T*)out, q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8],
+      q[9], H, W, C, co2, th, tw, vec_x, vec_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // params: ten device pointers in the order k1, b1, w1, c1, w2, c2, k2, b2, w3, c3.
-// The bottleneck takes its th x tw tile and the bytes of shared memory a
-// block gets from ops/shuffle.py::bottleneck_plan. Return 0, a cudaError_t,
-// or -1 when the bytes given fall short of what the tile needs or exceed
-// what a block may have (the downsample: when its rows need more than that).
+// Each unit takes its th x tw tile of output pixels and the bytes of shared
+// memory a block gets from ops/shuffle.py::bottleneck_plan / downsample_plan.
+// Return 0, a cudaError_t, or -1 when the bytes given fall short of what the
+// tile needs or exceed what a block may have.
 extern "C" int shuffle_bottleneck_f32(const void* x, void* out, const void* const* params, int B,
                                       int H, int W, int ch, int co2, int th, int tw, int smem,
                                       void* stream) {
@@ -742,12 +742,13 @@ extern "C" int shuffle_bottleneck_bf16(const void* x, void* out, const void* con
 
 extern "C" int shuffle_downsample_f32(const void* x, const void* tvec, void* out,
                                       const void* const* params, int B, int H, int W, int C,
-                                      int co2, void* stream) {
-  return launch_downsample<float>(x, tvec, out, params, B, H, W, C, co2, stream);
+                                      int co2, int th, int tw, int smem, void* stream) {
+  return launch_downsample<float>(x, tvec, out, params, B, H, W, C, co2, th, tw, smem, stream);
 }
 
 extern "C" int shuffle_downsample_bf16(const void* x, const void* tvec, void* out,
                                        const void* const* params, int B, int H, int W, int C,
-                                       int co2, void* stream) {
-  return launch_downsample<__nv_bfloat16>(x, tvec, out, params, B, H, W, C, co2, stream);
+                                       int co2, int th, int tw, int smem, void* stream) {
+  return launch_downsample<__nv_bfloat16>(x, tvec, out, params, B, H, W, C, co2, th, tw, smem,
+                                          stream);
 }

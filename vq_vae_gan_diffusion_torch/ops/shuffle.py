@@ -10,8 +10,9 @@ The PyTorch counterpart of the JAX ``ops/shuffle_pallas.py``:
 - :func:`fused_bottleneck` and :func:`fused_downsample` launch the
   hand-written CUDA kernels of ``csrc/shuffle_units.cu`` for CUDA tensors
   and run the plain versions for CPU tensors;
-- :func:`bottleneck_plan` chooses the bottleneck kernel's pixel tile and
-  its shared memory, the only place a tile is chosen.
+- :func:`bottleneck_plan` and :func:`downsample_plan` choose each kernel's
+  tile of output pixels and its shared memory, the only place a tile is
+  chosen; both rank tiles by one rule (:func:`_tile_plan`).
 
 Tensors are NHWC, channels contiguous, as in the JAX package. A folded unit
 is a dict of tensors in the activations' dtype::
@@ -142,7 +143,7 @@ SMEM_LIMIT = 232_448        # bytes of shared memory a block may use on sm_90
 TWO_BLOCKS_SMEM = 115_712   # the most that leaves room for two blocks on an SM
                             # (228 KB an SM, 1 KB of it reserved for each block)
 TARGET_BLOCKS = 264         # two blocks on each of the H100's 132 SMs
-HALO_AIMS = (1.5, 2.0)      # halo factors (th + 2)(tw + 2) / (th tw) aimed at
+HALO_AIMS = (1.5, 2.0)      # halo factors (TilePlan.halo) aimed at
 MAX_HALO = HALO_AIMS[-1]
 MAX_TILE = (32, 64)         # the largest th and tw tried
 ROW_GRANULE = 32            # pixel rows of a warp's tile in the pointwise products
@@ -172,26 +173,59 @@ def bottleneck_smem(th: int, tw: int, ch: int, co2: int) -> int:
     return STAGE_BYTES + 4 * (halo * pad_ld(ch) + tile * pad_ld(max(ch, co2)))
 
 
-class BottleneckPlan(NamedTuple):
-    """A bottleneck launch: block (i, b) computes image b's output pixels
-    [r0, r0 + th) x [c0, c0 + tw), clipped to the image, with all their
-    channels, where (r0, c0) = ``tile(i)``."""
+def downsample_smem(th: int, tw: int, c: int, co2: int) -> int:
+    """Bytes of shared memory a downsample block of a th x tw tile of output
+    pixels needs (``downsample_smem`` in csrc/shuffle_units.cu computes the
+    same): the weights' k-chunk buffers, x and then t2 over the input halo
+    tile (2th + 1) x (2tw + 1) in rows of ``pad_ld(max(c, co2))``, u1 over
+    the tile at ``pad_ld(c)``, and u2 and then y2 over the tile at
+    ``pad_ld(co2)``, all f32. A branch wider than ``N_BLOCK`` runs its
+    products in passes that must not overwrite their input, so its block
+    holds x (then u2) and t2 (then y2) apart over the halo tile, and u1 over
+    the tile."""
+    halo, tile, ld = (2 * th + 1) * (2 * tw + 1), th * tw, pad_ld(max(c, co2))
+    if max(c, co2) > N_BLOCK:
+        return STAGE_BYTES + 4 * (2 * halo * ld + tile * pad_ld(c))
+    return STAGE_BYTES + 4 * (halo * ld + tile * (pad_ld(c) + pad_ld(co2)))
+
+
+class TilePlan(NamedTuple):
+    """A launch of one unit kernel: block (i, b) computes image b's output
+    pixels [r0, r0 + th) x [c0, c0 + tw), clipped to the output grid, with
+    all their channels, where (r0, c0) = ``tile(i)``; it reads the input
+    pixels of its halo tile, ``halo_rows`` x ``halo_cols`` from
+    ``halo_origin(i)``, which a 3x3 depthwise convolution of padding 1 and
+    this stride needs (1: the bottleneck, 2: the downsample)."""
     th: int
     tw: int
     tiles_h: int
     tiles_w: int
     smem: int
     blocks: int
+    stride: int = 1
+
+    @property
+    def halo_rows(self) -> int:
+        return self.stride * self.th + 3 - self.stride
+
+    @property
+    def halo_cols(self) -> int:
+        return self.stride * self.tw + 3 - self.stride
 
     @property
     def halo(self) -> float:
-        """Branch 2's first pointwise product runs on (th + 2)(tw + 2)
-        pixels to give th * tw outputs: this ratio."""
-        return (self.th + 2) * (self.tw + 2) / (self.th * self.tw)
+        """Branch 2's first pointwise product runs on the halo tile's
+        pixels to give stride² th tw pixels' worth of outputs: this ratio."""
+        return self.halo_rows * self.halo_cols / (self.stride ** 2 * self.th * self.tw)
 
     def tile(self, i: int) -> Tuple[int, int]:
         """(r0, c0) of tile i, as the kernel decodes blockIdx.x."""
         return (i // self.tiles_w) * self.th, (i % self.tiles_w) * self.tw
+
+    def halo_origin(self, i: int) -> Tuple[int, int]:
+        """The input pixel at the halo tile's (0, 0), as the kernel computes it."""
+        r0, c0 = self.tile(i)
+        return self.stride * r0 - 1, self.stride * c0 - 1
 
     def __str__(self) -> str:
         return (f"tile {self.th}x{self.tw} (halo {self.halo:.3f}), {self.smem} B, "
@@ -202,13 +236,10 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=None)
-def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int) -> BottleneckPlan:
-    """The bottleneck kernel's tile for x [b, h, w, 2ch] -> [b, h, w, 2co2].
-
-    A block covers one image's th x tw output pixels and all their
-    channels; its shared memory follows the tile (:func:`bottleneck_smem`),
-    not the image width. Of every tile up to ``MAX_TILE`` that fits a block:
+def _tile_plan(b: int, ho: int, wo: int, stride: int, smem_of, what: str) -> TilePlan:
+    """The tile rule of both kernels, on an output grid ho x wo; smem_of(th,
+    tw) gives a block's bytes, ``what`` names the kernel in the error. Of every tile up to ``MAX_TILE`` that fits a
+    block:
 
     1. rank them in tiers: those that leave room for two blocks on an SM
        with a halo factor of at most 1.5, then with at most 2
@@ -221,33 +252,54 @@ def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int) -> BottleneckPlan
        tile once, the tile twice), ragged last tiles included; then the
        larger tile, then the wider.
 
-    The kernel holds every intermediate in f32, so the tile is the same
-    for f32 and bf16 activations. The f32 kernel gets the two blocks an SM
-    planned for; the bf16 one, and any branch wider than ``N_BLOCK``, need
-    more registers and get one (both are off every path). Raises
-    ValueError when not even a 1 x 1 tile fits a block (branches of about
-    2,800 channels).
+    The kernels hold every intermediate in f32, so the tile is the same for
+    f32 and bf16 activations. Raises ValueError when not even a 1 x 1 tile
+    fits a block.
     """
     cands = []
-    for th in range(1, min(h, MAX_TILE[0]) + 1):
-        for tw in range(1, min(w, MAX_TILE[1]) + 1):
-            smem = bottleneck_smem(th, tw, ch, co2)
+    for th in range(1, min(ho, MAX_TILE[0]) + 1):
+        for tw in range(1, min(wo, MAX_TILE[1]) + 1):
+            smem = smem_of(th, tw)
             if smem <= SMEM_LIMIT:
-                tiles_h, tiles_w = _ceil(h, th), _ceil(w, tw)
-                cands.append(BottleneckPlan(th, tw, tiles_h, tiles_w, smem,
-                                            b * tiles_h * tiles_w))
+                tiles_h, tiles_w = _ceil(ho, th), _ceil(wo, tw)
+                cands.append(TilePlan(th, tw, tiles_h, tiles_w, smem, b * tiles_h * tiles_w,
+                                      stride))
     if not cands:
-        raise ValueError(f"no tile of the bottleneck kernel fits a block's shared memory at "
-                         f"{ch} -> {co2} channels a branch")
+        raise ValueError(f"no tile of {what} fits a block's shared memory")
     tiers = [[c for c in cands if c.smem <= TWO_BLOCKS_SMEM and c.halo <= aim]
              for aim in HALO_AIMS] + [[c for c in cands if c.halo <= MAX_HALO], cands]
     many = [[c for c in t if c.blocks >= TARGET_BLOCKS] for t in tiers[:-1]]
     pool = next((t for t in many if t), None) or next(t for t in tiers if t)
 
-    def rows(c: BottleneckPlan) -> int:
+    def rows(c: TilePlan) -> int:
         g = ROW_GRANULE
-        return c.blocks * (_ceil((c.th + 2) * (c.tw + 2), g) + 2 * _ceil(c.th * c.tw, g)) * g
+        return c.blocks * (_ceil(c.halo_rows * c.halo_cols, g) + 2 * _ceil(c.th * c.tw, g)) * g
     return min(pool, key=lambda c: (rows(c), -c.th * c.tw, -c.tw))
+
+
+@functools.lru_cache(maxsize=None)
+def bottleneck_plan(b: int, h: int, w: int, ch: int, co2: int) -> TilePlan:
+    """The bottleneck kernel's tile for x [b, h, w, 2ch] -> [b, h, w, 2co2]:
+    :func:`_tile_plan` with :func:`bottleneck_smem`, halo (th + 2) x
+    (tw + 2). The f32 kernel gets the two blocks an SM planned for; the bf16
+    one, and any branch wider than ``N_BLOCK``, need more registers and get
+    one (both are off every path). Raises ValueError when not even a 1 x 1
+    tile fits a block (branches of about 2,800 channels)."""
+    return _tile_plan(b, h, w, 1, lambda th, tw: bottleneck_smem(th, tw, ch, co2),
+                      f"the bottleneck kernel at {ch} -> {co2} channels a branch")
+
+
+@functools.lru_cache(maxsize=None)
+def downsample_plan(b: int, h: int, w: int, c: int, co2: int) -> TilePlan:
+    """The downsample kernel's tile for x [b, h, w, c] -> [b, ceil(h/2),
+    ceil(w/2), 2co2]: :func:`_tile_plan` on the output grid with
+    :func:`downsample_smem`, halo (2th + 1) x (2tw + 1), halo factor
+    (2th + 1)(2tw + 1) / (4 th tw). Registers and blocks an SM as
+    :func:`bottleneck_plan`'s. Raises ValueError when not even a 1 x 1 tile
+    fits a block."""
+    return _tile_plan(b, _ceil(h, 2), _ceil(w, 2), 2,
+                      lambda th, tw: downsample_smem(th, tw, c, co2),
+                      f"the downsample kernel at {c} -> {co2} channels")
 
 
 def _check_cuda_args(x: torch.Tensor, p: Folded, shapes: Dict[str, tuple],
@@ -332,9 +384,10 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
     Returns [B, ceil(H/2), ceil(W/2), 2co2] in x's dtype, channel-shuffled
     (a stride-2 3x3 convolution with padding 1, odd grids included).
 
-    CUDA tensors go through the CUDA kernel, which adds one to
-    ``fused_downsample.launches`` per call; CPU tensors go through
-    :func:`reference_downsample`. Any other device raises.
+    CUDA tensors go through the CUDA kernel, on the tile of
+    :func:`downsample_plan`, which adds one to ``fused_downsample.launches``
+    per call; CPU tensors go through :func:`reference_downsample`. Any other
+    device raises.
     """
     if x.device.type == "cpu":
         return reference_downsample(x, folded, t_vec)
@@ -353,12 +406,14 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
     _check_cuda_args(x, folded, {
         "k1": (3, 3, c), "b1": (c,), "w1": (c, co2), "c1": (co2,), "w2": (c, co2),
         "c2": (co2,), "k2": (3, 3, co2), "b2": (co2,), "w3": (co2, co2), "c3": (co2,)}, extra)
+    plan = downsample_plan(b, h, w, c, co2)
     out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, 2 * co2), dtype=x.dtype, device=x.device)
     lib = _bind()
     fn = lib.shuffle_downsample_f32 if x.dtype == torch.float32 else lib.shuffle_downsample_bf16
     _launch(fn, "shuffle_downsample", x.data_ptr(),
             None if t_vec is None else t_vec.data_ptr(), out.data_ptr(), _params(folded),
-            b, h, w, c, co2, torch.cuda.current_stream(x.device).cuda_stream)
+            b, h, w, c, co2, plan.th, plan.tw, plan.smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
     fused_downsample.launches += 1
     return out
 
@@ -375,7 +430,7 @@ def _bind() -> ctypes.CDLL:
             fn.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
         for fn in (lib.shuffle_downsample_f32, lib.shuffle_downsample_bf16):
-            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 5 + [ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
         lib._bound = True
     return lib

@@ -9,11 +9,12 @@ and, at every distinct unit shape of one forward of the U-Net (base 64,
 mults (1, 2, 4, 8)) on the path's state ([16, 256, 96, 1] for gaussian3d,
 [16, 1024, 256, 1] for VQ_Official), on a seeded random unit, prints the
 kernel's ms a call by CUDA events, its max abs error against the plain
-version, the bound and what sets it, the bottleneck's tile plan and the
+version, the bound and what sets it, each kernel's tile plan and the
 calls a forward; then each kernel's mean over the forward's calls. It calls only the public
-``fused_bottleneck`` / ``fused_downsample``, and prints the plan only where
-``ops.shuffle`` has ``bottleneck_plan``, so the same file copied into an
-older tree times that tree's kernels. The downsample is a control.
+``fused_bottleneck`` / ``fused_downsample``, and prints a plan only where
+``ops.shuffle`` has ``bottleneck_plan`` / ``downsample_plan``, so the same
+file copied into an older tree times that tree's kernels. The bottleneck is
+a control.
 
 Without it, it builds the prior's U-Net of
 configs/inference_config_vqdiffusion.yml at full width (base 64, mults
@@ -56,7 +57,8 @@ def units(grid: str, dtype: torch.dtype) -> None:
     counts: dict = {}
     for u in shapes:
         counts[u] = counts.get(u, 0) + 1
-    plan_of = getattr(shuffle, "bottleneck_plan", None)
+    plan_of = {"K1": getattr(shuffle, "bottleneck_plan", None),
+               "K2": getattr(shuffle, "downsample_plan", None)}
     tag = "f32" if dtype == torch.float32 else "bf16"
     gen = torch.Generator(device="cuda").manual_seed(3)
     total = {"K1": [0.0, 0.0, 0], "K2": [0.0, 0.0, 0]}
@@ -69,8 +71,8 @@ def units(grid: str, dtype: torch.dtype) -> None:
         err = (got.float() - plain(x, p).float()).abs().max().item()
         ms = cuda_ms(lambda: kernel(x, p), UNIT_REPS)
         by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
-        plan = ("" if kind == "K2" or plan_of is None
-                else f"; {plan_of(B, uh, uw, c_in // 2, c_out // 2)}")
+        ch = c_in // 2 if kind == "K1" else c_in
+        plan = "" if plan_of[kind] is None else f"; {plan_of[kind](B, uh, uw, ch, c_out // 2)}"
         print(f"{grid} {tag} {kind} {uh}x{uw} {c_in}->{c_out} (x{count} a forward): "
               f"kernel {ms:.4f} ms, max abs err {err:.3e}, bound {max(by_bytes, by_ops):.4f} ms "
               f"by {'bytes' if by_bytes >= by_ops else 'operations'}{plan}")
