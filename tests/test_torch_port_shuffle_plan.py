@@ -115,7 +115,7 @@ def test_plan_halo_tile_covers_what_each_output_reads(kind, grid, h, w, c_in, c_
     ho, wo = _out_grid(kind, h, w)
     for i in range(plan.tiles_h * plan.tiles_w):
         r0, c0 = plan.tile(i)
-        y0, x0 = plan.halo_origin(i)
+        y0, x0 = s * r0 - 1, s * c0 - 1          # as the kernels compute it
         rows = [y for r in range(r0, min(r0 + plan.th, ho)) for y in (s * r - 1, s * r, s * r + 1)]
         cols = [x for c in range(c0, min(c0 + plan.tw, wo)) for x in (s * c - 1, s * c, s * c + 1)]
         assert y0 == min(rows) and x0 == min(cols), (i, y0, x0)
@@ -151,8 +151,8 @@ def test_plan_shared_memory(kind, grid, h, w, c_in, c_out):
 def test_plan_halo_factor(kind, grid, h, w, c_in, c_out):
     """The bottleneck: at most 1.5 at VQ_Official's two widest grids, at
     most 2 everywhere on the paths (the kernel runs branch 2's first product
-    on the halo). The downsample: at most 1.5 on every path (PR 2's row
-    tiles ran that product on 1.5 times the rows or more)."""
+    on the halo). The downsample: at most 1.5 on every path (rows of full
+    width ran that product on 1.5 times the rows or more)."""
     plan = _plan(h, w, c_in, c_out, kind)
     assert plan.halo == pytest.approx(_halo(plan.th, plan.tw, plan.stride))
     if kind == "K2":

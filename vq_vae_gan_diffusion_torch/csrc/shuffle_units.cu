@@ -30,13 +30,10 @@
 // What bounds the units on an H100: their three pointwise products are
 // 80-90% of their operations, so at 128 input channels or more the f32
 // CUDA-core rate (67 TFLOP/s) bounds them, at 64 or fewer the bytes of their
-// input and output (3.35 TB/s; utils/profiling.py::shuffle_unit_bound). The
-// first versions covered rows of full image width a block, so shared memory
-// grew with W: at W = 256 a block took one row (the downsample one output
-// row), one block of 8 warps sat on an SM, branch 2's first product ran on
-// 3 rows to give 1 (the downsample's on 3 input rows to give 2), and every
-// product went through a GEMM loop that staged A element by element with
-// two barriers every 16 deep.
+// input and output (3.35 TB/s; utils/profiling.py::shuffle_unit_bound).
+// Blocks of full-width rows would make shared memory grow with W (one block
+// of 8 warps an SM at W = 256) and run branch 2's first product on 3 rows to
+// give 1 (the downsample's on 3 input rows to give 2); hence 2-D tiles.
 //
 // Design, both units:
 // - One block per (image, th x tw tile of output pixels), the tile chosen

@@ -194,15 +194,15 @@ class TilePlan(NamedTuple):
     pixels [r0, r0 + th) x [c0, c0 + tw), clipped to the output grid, with
     all their channels, where (r0, c0) = ``tile(i)``; it reads the input
     pixels of its halo tile, ``halo_rows`` x ``halo_cols`` from
-    ``halo_origin(i)``, which a 3x3 depthwise convolution of padding 1 and
-    this stride needs (1: the bottleneck, 2: the downsample)."""
+    (stride r0 - 1, stride c0 - 1), which a 3x3 depthwise convolution of
+    padding 1 and this stride needs (1: the bottleneck, 2: the downsample)."""
     th: int
     tw: int
     tiles_h: int
     tiles_w: int
     smem: int
     blocks: int
-    stride: int = 1
+    stride: int
 
     @property
     def halo_rows(self) -> int:
@@ -222,11 +222,6 @@ class TilePlan(NamedTuple):
         """(r0, c0) of tile i, as the kernel decodes blockIdx.x."""
         return (i // self.tiles_w) * self.th, (i % self.tiles_w) * self.tw
 
-    def halo_origin(self, i: int) -> Tuple[int, int]:
-        """The input pixel at the halo tile's (0, 0), as the kernel computes it."""
-        r0, c0 = self.tile(i)
-        return self.stride * r0 - 1, self.stride * c0 - 1
-
     def __str__(self) -> str:
         return (f"tile {self.th}x{self.tw} (halo {self.halo:.3f}), {self.smem} B, "
                 f"{self.blocks} blocks")
@@ -238,8 +233,8 @@ def _ceil(a: int, b: int) -> int:
 
 def _tile_plan(b: int, ho: int, wo: int, stride: int, smem_of, what: str) -> TilePlan:
     """The tile rule of both kernels, on an output grid ho x wo; smem_of(th,
-    tw) gives a block's bytes, ``what`` names the kernel in the error. Of every tile up to ``MAX_TILE`` that fits a
-    block:
+    tw) gives a block's bytes, ``what`` names the kernel in the error. Of
+    every tile up to ``MAX_TILE`` that fits a block:
 
     1. rank them in tiers: those that leave room for two blocks on an SM
        with a halo factor of at most 1.5, then with at most 2
