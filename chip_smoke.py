@@ -47,9 +47,14 @@ Phases, each printed as it runs; any failure exits non-zero:
       [16, 256, 1024]), f32 and bf16 logits, trunc_k 0 and 881, carries with
       masked positions, t in {0, 1, T/2, T-1}: at least 99.9% of indices
       equal, and at every other row the plain version's two best scores
-      within 1e-4; each shape's kernel time, plain time and bound; then
-      B7's samples at fixed logits over 4096 seeds (1,048,576 draws)
-      against softmax(ev), total variation below 0.02;
+      within 1e-4; each shape's kernel time (device time from a CUDA
+      graph of 20 calls, and issued one call at a time), plain time and
+      bound; each kernel instance's registers from ptxas (no stack frame,
+      no spill); the same checks off the paths: K in {2, 129, 1025, 2048},
+      row counts no multiple of the rows a block, trunc_k in {0, 1, K-1,
+      K}, rows of all-equal logits, f32 and bf16; then B7's samples at
+      fixed logits over 4096 seeds (1,048,576 draws) against softmax(ev),
+      total variation below 0.02;
   (j) the third path: ``vq_vae_gan_diffusion_torch.generate`` on
       configs/inference_config_vqofficial.yml at full width (16 samples,
       the ShuffleNet U-Net on the [16, 1024, 256, 1] log-onehot image, K =
@@ -101,8 +106,10 @@ import torch
 
 from vq_vae_gan_diffusion_torch.models.shuffle_infer import unet_unit_shapes
 from vq_vae_gan_diffusion_torch.utils.profiling import (BF16_PEAK_FLOPS, F32_PEAK_FLOPS,
-                                                        cuda_ms, hbm_bytes_per_s, random_unit,
-                                                        shuffle_unit_bound, smi_line)
+                                                        cuda_graph_ms, cuda_ms, hbm_bytes_per_s,
+                                                        posterior_bound, ptxas_usage,
+                                                        random_unit, shuffle_unit_bound,
+                                                        smi_line)
 
 CONFIG = "configs/inference_config_small.yml"
 VQD_CONFIG = "configs/inference_config_vqdiffusion.yml"
@@ -617,26 +624,11 @@ def phase_vqd_routes() -> None:
         raise AssertionError(f"kernel and module routes agree on only {100 * agree:.2f}%")
 
 
-# per class of one row: the body's f32 operations (two max and two sum-exp
-# passes, the clamps, two log-add-exps and the selects, the score and the
-# argmax), Philox4x32-10's share (40 integer operations a block of four
-# classes) with the Gumbel transform, and the 32 counting passes of the
-# top-r radix select
-POSTERIOR_OPS, PHILOX_OPS, RADIX_OPS = 30, 15, 4 * 32
-
-
-def posterior_bound(km1: int, dtype: torch.dtype, prng: bool, trunc_k: int,
-                    name: str) -> tuple[float, str]:
-    """Least time of one call on [B, N] rows of K = km1 + 1 classes: the
-    logits (and, for B6, the f32 Gumbel noise) read once, the carry read and
-    the int64 indices written once, over the memory rate; or the operations
-    above over the f32 peak, whichever is larger."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    k, rows = km1 + 1, B * N
-    bytes_ = rows * (km1 * es + 16) + B * 40 + (B * 8 if prng else rows * k * 4)
-    ops = rows * k * (POSTERIOR_OPS + (PHILOX_OPS if prng else 0) + (RADIX_OPS if trunc_k else 0))
-    by_bytes, by_ops = bytes_ / hbm_bytes_per_s(name), ops / F32_PEAK_FLOPS
-    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+def posterior_bound_ms(km1: int, dtype: torch.dtype, prng: bool, trunc_k: int,
+                       name: str) -> tuple[float, str]:
+    """``utils.profiling.posterior_bound`` at [B, N] rows as (ms, what sets it)."""
+    by_bytes, by_ops = posterior_bound(B, N, km1, dtype, prng, trunc_k, name)
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
 def check_indices(what: str, got: torch.Tensor, scores: torch.Tensor) -> float:
@@ -660,6 +652,65 @@ def check_indices(what: str, got: torch.Tensor, scores: torch.Tensor) -> float:
     return gap
 
 
+def posterior_ptxas() -> None:
+    """Each posterior_kernel instance's registers, stack frame and spills
+    from the build log; fails on a stack frame or a spill."""
+    from vq_vae_gan_diffusion_torch.ops._build import library_path
+    usage = ptxas_usage(library_path("discrete_posterior").with_suffix(".log").read_text())
+    kernels = {k: v for k, v in usage.items() if "posterior_kernel" in k}
+    if len(kernels) != 4:
+        raise AssertionError(f"expected 4 posterior_kernel instances in the build log, got "
+                             f"{sorted(kernels)}")
+    for mangled, (regs, stack, spill) in sorted(kernels.items()):
+        label = (f"posterior_kernel<{'bf16' if 'bfloat16' in mangled else 'float'}, "
+                 f"{'prng' if 'Lb1' in mangled else 'gumbel'}>")
+        print(f"(i) ptxas {label}: {regs} registers, {stack} bytes stack frame, {spill} bytes "
+              f"spill stores")
+        if stack or spill:
+            raise AssertionError(f"{label} has a stack frame or spills")
+
+
+def posterior_edges(gen: torch.Generator) -> None:
+    """(i), off the paths: B6 and B7 against their plain versions at K in
+    {2, 129, 1025, 2048}, row counts that are no multiple of the rows a
+    block, trunc_k in {0, 1, K-1, K}, f32 and bf16 logits, with three rows
+    of all-equal logits and masked positions, by ``check_indices``."""
+    from vq_vae_gan_diffusion_torch.diffusion.discrete import make_discrete_schedule
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
+        gumbel_from_bits, gumbel_from_uniform, philox_bits, posterior_scores)
+    steps = 100
+    for k, b, n in ((2, 5, 201), (129, 3, 343), (1025, 2, 513), (2048, 1, 1023)):
+        km1 = k - 1
+        sched = make_discrete_schedule(steps, k, 0.9).to("cuda")
+        gumbel = gumbel_from_uniform(torch.rand(b, n, k, generator=gen, device="cuda"))
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (b, 2), dtype=torch.int32, generator=gen,
+                              device="cuda")
+        prng_gumbel = gumbel_from_bits(philox_bits(seeds, n, k))
+        x_t = torch.randint(0, k, (b, n), generator=gen, device="cuda")
+        x_t[:, ::5] = km1
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = 3 * torch.randn(b, n, km1, generator=gen, device="cuda")
+            logits[0, :3] = 1.25                                     # all-equal rows
+            logits = logits.to(dtype)
+            gap = 0.0
+            for t in (1, steps - 1):
+                coefs = gather_posterior_coefs(sched, torch.full((b,), t, device="cuda"), steps)
+                for trunc_k in sorted({0, 1, km1, k}):
+                    for name, fn, noise, g in (
+                            ("discrete_posterior", fused_posterior_sample, gumbel, gumbel),
+                            ("discrete_posterior_prng", fused_posterior_sample_prng, seeds,
+                             prng_gumbel)):
+                        got = fn(logits, x_t, coefs, noise, trunc_k=trunc_k)
+                        torch.cuda.synchronize()
+                        gap = max(gap, check_indices(
+                            f"{name} [{b}, {n}, {km1}] {dtype} t={t} trunc_k={trunc_k}", got,
+                            posterior_scores(logits, x_t, coefs, g, trunc_k)))
+            print(f"(i) off the paths, logits [{b}, {n}, {km1}] {dtype}, B6 and B7, t in "
+                  f"{{1, {steps - 1}}}, trunc_k in {sorted({0, 1, km1, k})}: checks pass, max "
+                  f"score gap {gap:.3e}")
+
+
 def phase_posterior(card: str) -> dict:
     """(i): B6 and B7 against their plain versions, timing, and B7's
     distribution. Returns, per kernel, the JSON numbers at its path's shape
@@ -670,6 +721,7 @@ def phase_posterior(card: str) -> dict:
         fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
         gumbel_from_bits, gumbel_from_uniform, philox_bits, posterior_log_probs,
         posterior_scores, reference_posterior_sample, reference_posterior_sample_prng)
+    posterior_ptxas()
     gen = torch.Generator(device="cuda").manual_seed(8)
     result = {}
     for k, steps, ctt_T in ((VQO_K, VQO_T, 0.99999), (TVQ_K, TVQ_T, 0.9)):
@@ -704,20 +756,24 @@ def phase_posterior(card: str) -> dict:
                     ("discrete_posterior_prng", fused_posterior_sample_prng,
                      reference_posterior_sample_prng, seeds)):
                 for trunc_k in (0, TRUNC_K):
-                    ms = cuda_ms(lambda: fn(logits, x_t, coefs, noise, trunc_k=trunc_k), reps=50)
+                    ms = cuda_graph_ms(lambda: fn(logits, x_t, coefs, noise, trunc_k=trunc_k))
+                    issued_ms = cuda_ms(lambda: fn(logits, x_t, coefs, noise, trunc_k=trunc_k),
+                                        reps=50)
                     plain_ms = cuda_ms(lambda: plain(logits, x_t, coefs, noise, trunc_k=trunc_k),
                                        reps=5)
-                    bound, bound_by = posterior_bound(km1, dtype, name.endswith("prng"),
-                                                      trunc_k, card)
+                    bound, bound_by = posterior_bound_ms(km1, dtype, name.endswith("prng"),
+                                                         trunc_k, card)
                     print(f"(i) {name} logits [{B}, {N}, {km1}] {dtype} trunc_k {trunc_k}: "
                           f"checks at 4 t x 2 trunc_k pass, max score gap {gaps[name]:.3e}; kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
-                          f"{bound_by}; {card}")
+                          f"{ms:.4f} ms (CUDA graph; {issued_ms:.4f} issued one by one), plain "
+                          f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}; {card}")
                     main_k = VQO_K if name == "discrete_posterior" else TVQ_K
                     if k == main_k and dtype == torch.float32 and trunc_k == 0:
                         result[name] = {"max_abs_err": gaps[name], "ms": ms, "plain_ms": plain_ms,
                                         "bound_ms": bound, "bound_by": bound_by}
             del logits
+
+    posterior_edges(gen)
 
     # B7's distribution: one row's logits everywhere, 256 calls of 16 seed pairs
     k, km1 = TVQ_K, TVQ_K - 1

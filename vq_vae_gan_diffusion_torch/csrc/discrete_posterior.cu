@@ -14,20 +14,39 @@
 //   out    = first argmax of ev + gumbel
 //
 // Bound: device memory. A row reads K-1 logits, K gumbel values (B6 only)
-// and writes one index; the arithmetic is a few dozen flops a class. At the
-// main path's 16 x 256 rows of 1024 classes that is ~33.5 MB a step for B6
-// and ~16.8 MB for B7, 10 and 5 us at 3.35 TB/s.
+// and writes one index. At the main path's 16 x 256 rows of 1024 classes
+// that is ~33.5 MB a step for B6 and ~16.8 MB for B7, 10 and 5 us at
+// 3.35 TB/s; the per-class arithmetic (3 expf and a log1pf, B7 two logf
+// more) issues in about as long.
 //
-// Design: the TPU kernel holds one batch row's whole [N, K] tile in VMEM;
-// on Hopper every (b, n) row is independent, so one warp takes one row and
-// keeps its K values in registers (lane l holds columns l, l + 32, ...,
-// coalesced loads). Every reduction (two max, two sum-exp, the argmax, the
-// 32 counting passes of the top-r radix select) is a warp shuffle: no
-// shared memory and no block barrier. All arithmetic is f32; bf16 logits
-// are converted on load. The formulas, their order of operations and the
-// constants are those of the plain version (ops/discrete_posterior.py), so
-// the two differ only by the order of the sums and the last bit of the
-// math library, which moves an index only at a near tie.
+// Design: one warp a (b, n) row, kRows rows a block. The row is staged in
+// shared memory, not registers, so a thread needs few registers
+// (__launch_bounds__ asks for 64 at most: 8 blocks, 32 warps an SM) and
+// every global read of the block is issued before any arithmetic. A block
+// copies its kRows consecutive rows as one contiguous span of logits (and,
+// for B6, one span of Gumbel noise) with 16-byte cp.async pieces; only the
+// span's two unaligned ends go element by element (K - 1 = 1023 leaves a
+// row 4-byte aligned only). The Gumbel span is a second copy group that
+// lands while the logits' passes run.
+//
+// Small blocks, no persistent loop: a block's rows are all in flight at
+// once (~200 KB a SM for B6 at K = 1024, far above what the memory's
+// latency needs), so what is left to overlap is one block's arithmetic
+// with another block's copies, and the scheduler does that across the
+// 1024 blocks of the main path (6-8 resident an SM). A double-buffered
+// persistent warp would hold half as many rows an SM for the same shared
+// memory and gain nothing the resident blocks do not give.
+//
+// The passes read the staged logits again instead of keeping them: two
+// max and two sum-exp passes (the warp reductions are shuffles), then ev
+// a class. With trunc_k = 0, ev goes straight into the argmax; otherwise
+// it is kept in shared memory (over the f32 logits it came from; bf16
+// rows get a region of their own) for the top-r select and the argmax.
+// All arithmetic is f32; bf16 logits are converted on read. The formulas,
+// their order of operations and the constants are those of the plain
+// version (ops/discrete_posterior.py), so the two differ only by the order
+// of the sums and the last bit of the math library, which moves an index
+// only at a near tie.
 //
 // B7's stream is Philox4x32-10 written out here (the plain version repeats
 // it in int64 arithmetic): word c % 4 at counter (c / 4, n, 0, 0) with key
@@ -41,8 +60,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;            // rows a block
-constexpr int kMaxClasses = 2048;    // K the widest instance (kPer 64) takes
+constexpr int kRows = 4;             // rows a block, one warp each
+constexpr int kMaxClasses = 2048;    // the widest row (K) the kernel takes
+constexpr int kSmemLimit = 232448;   // shared memory a block may use
 constexpr float kLogEps = -70.0f;
 constexpr float kMasked = -3e38f;
 
@@ -103,147 +123,218 @@ __device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
   return -logf(-logf(u + 1e-30f) + 1e-30f);
 }
 
-template <class T, int kPer, bool kPrng>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest one has landed
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ __forceinline__ int align16(int x) { return (x + 15) & ~15; }
+
+// Shared memory of one block: the logits span (kRows rows of K - 1 values
+// and up to 15 bytes of lead), the Gumbel span (B6), and the f32 ev of bf16
+// rows when trunc_k > 0 (f32 rows keep ev over their logits).
+__host__ __device__ int posterior_smem(int K, int es, int prng, int trunc) {
+  const int logits = align16(kRows * (K - 1) * es + 16);
+  const int noise = prng ? 0 : align16(kRows * K * 4 + 16);
+  const int ev = trunc && es != 4 ? kRows * (K - 1) * 4 : 0;
+  return logits + noise + ev;
+}
+
+// Copy the n elements at src into dst + (src % 16), dst 16-byte aligned:
+// 16-byte cp.async pieces between the first and the last 16-byte boundary
+// inside the span, single elements before and after them. Reads no byte
+// outside [src, src + n).
+template <class E>
+__device__ __forceinline__ void stage_span(char* dst, const E* src, long long n) {
+  const uintptr_t s = (uintptr_t)src, e = s + (uintptr_t)n * sizeof(E);
+  const uintptr_t base = s & ~(uintptr_t)15, a = (s + 15) & ~(uintptr_t)15,
+                  b = e & ~(uintptr_t)15;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (uintptr_t p = a + 16 * (uintptr_t)tid; p < b; p += 16 * (uintptr_t)nt)
+    cp_async16(dst + (p - base), (const void*)p);
+  const uintptr_t head = a < e ? a : e, tail = a > b ? a : b;
+  for (uintptr_t p = s + sizeof(E) * tid; p < head; p += sizeof(E) * nt)
+    *(E*)(dst + (p - base)) = *(const E*)p;
+  for (uintptr_t p = tail + sizeof(E) * tid; p < e; p += sizeof(E) * nt)
+    *(E*)(dst + (p - base)) = *(const E*)p;
+}
+
+// The per-row scalars of the q-posterior and ev of one class from its logit.
+struct Row {
+  float lse, q_lse, log_att_btt, log_at_bt, log_btt, log_ctt, log_bt, log_ct, log_att_m1,
+      log_btt_m1;
+  long long xt;
+  bool is_mask;
+
+  // q = log_x0 - q_pred(onehot x_t, t), masked rows against log ctt
+  __device__ __forceinline__ float q(float logit, int c) const {
+    const bool at_col = c == xt && !is_mask;
+    const float log_qt = at_col ? log_att_btt : (is_mask ? log_ctt : log_btt);
+    return clamp_log(logit - lse) - log_qt;
+  }
+  // ev = q_pred(q normalised, t - 1) + q_pred_one_timestep(onehot x_t, t) + q_lse
+  __device__ __forceinline__ float ev(float logit, int c) const {
+    const bool at_col = c == xt && !is_mask;
+    const float qp = logaddexp((q(logit, c) - q_lse) + log_att_m1, log_btt_m1);
+    const float qt1 = at_col ? log_at_bt : (is_mask ? log_ct : log_bt);
+    return clamp_log(qp + qt1 + q_lse);
+  }
+};
+
+struct Best {
+  float score = -INFINITY;
+  int c = 0x7fffffff;
+  __device__ __forceinline__ void take(float s, int col) {
+    if (s > score) {
+      score = s;
+      c = col;
+    }
+  }
+  // the first maximum over the warp
+  __device__ __forceinline__ int reduce() {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, score, o);
+      const int oc = __shfl_xor_sync(0xffffffffu, c, o);
+      if (ob > score || (ob == score && oc < c)) {
+        score = ob;
+        c = oc;
+      }
+    }
+    return c;
+  }
+};
+
+template <class T, bool kPrng>
+__global__ void __launch_bounds__(kRows * 32, 8)
 posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t,
                  const float* __restrict__ coefs, const float* __restrict__ gumbel,
                  const int* __restrict__ seeds, long long* __restrict__ out, int B, int N, int K,
                  int trunc_k) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= (long long)B * N) return;
-  const int b = (int)(row / N), n = (int)(row % N);
+  extern __shared__ __align__(16) char smem[];
   const int km1 = K - 1;
-  const T* lrow = logits + row * km1;
+  const long long rows = (long long)B * N, row0 = (long long)blockIdx.x * kRows;
+  const int nrows = (int)(rows - row0 < kRows ? rows - row0 : kRows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // every global read of the block first: the logits span, then (B6) the
+  // Gumbel span as a second group
+  const T* lspan = logits + row0 * km1;
+  const int lbytes = align16(kRows * km1 * (int)sizeof(T) + 16);
+  stage_span(smem, lspan, (long long)nrows * km1);
+  cp_async_commit();
+  const float* gspan = kPrng ? nullptr : gumbel + row0 * K;
+  if (!kPrng) stage_span(smem + lbytes, gspan, (long long)nrows * K);
+  cp_async_commit();
+
+  const bool live = warp < nrows;
+  const long long row = row0 + warp;
+  const int b = live ? (int)(row / N) : 0, n = live ? (int)(row % N) : 0;
   const float lz = log_zero();
-
-  // predict_start: log_softmax of the K-1 logits, clamped
-  float v[kPer];
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    v[j] = c < km1 ? to_f32(lrow[c]) : -INFINITY;
-    m = fmaxf(m, v[j]);
-  }
-  m = warp_max(m);
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-    if (lane + 32 * j < km1) s += expf(v[j] - m);
-  const float lse = m + logf(warp_sum(s));
-
+  Row r;
+  r.xt = live ? x_t[row] : 0;
+  r.is_mask = r.xt == km1;
   const float* cf = coefs + (size_t)b * 10;
   const float log_att = cf[0], log_btt = cf[1], log_ctt = cf[2];
   const float log_at = cf[3], log_bt = cf[4], log_ct = cf[5];
-  const float log_att_m1 = cf[6], log_btt_m1 = cf[7], log_ctt_m1 = cf[8], log_1mctt_m1 = cf[9];
-  const float log_att_btt = logaddexp(log_att, log_btt);
-  const float log_at_bt = logaddexp(log_at, log_bt);
-  const long long xt = x_t[row];
-  const bool is_mask = xt == km1;
+  const float log_ctt_m1 = cf[8], log_1mctt_m1 = cf[9];
+  r.log_btt = log_btt;
+  r.log_ctt = log_ctt;
+  r.log_bt = log_bt;
+  r.log_ct = log_ct;
+  r.log_att_m1 = cf[6];
+  r.log_btt_m1 = cf[7];
+  r.log_att_btt = logaddexp(log_att, log_btt);
+  r.log_at_bt = logaddexp(log_at, log_bt);
 
-  // q = log_x0 - q_pred(onehot x_t, t), masked rows against log ctt
-  float m2 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    if (c < km1) {
-      const bool at_col = c == xt && !is_mask;
-      const float log_qt = at_col ? log_att_btt : (is_mask ? log_ctt : log_btt);
-      v[j] = clamp_log(v[j] - lse) - log_qt;
-      m2 = fmaxf(m2, v[j]);
-    }
+  cp_async_wait1();
+  __syncthreads();
+  const T* lrow = (const T*)(smem + ((uintptr_t)lspan & 15)) + (size_t)warp * km1;
+  float ev_last = 0.0f;
+  if (live) {
+    // predict_start: log_softmax of the K-1 logits, clamped
+    float m = -INFINITY;
+    for (int c = lane; c < km1; c += 32) m = fmaxf(m, to_f32(lrow[c]));
+    m = warp_max(m);
+    float s = 0.0f;
+    for (int c = lane; c < km1; c += 32) s += expf(to_f32(lrow[c]) - m);
+    r.lse = m + logf(warp_sum(s));
+    // logsumexp over [q | log 1e-30]
+    float m2 = -INFINITY;
+    for (int c = lane; c < km1; c += 32) m2 = fmaxf(m2, r.q(to_f32(lrow[c]), c));
+    m2 = fmaxf(warp_max(m2), lz);
+    s = 0.0f;
+    for (int c = lane; c < km1; c += 32) s += expf(r.q(to_f32(lrow[c]), c) - m2);
+    r.q_lse = m2 + logf(warp_sum(s) + expf(lz - m2));
+    const float qp = logaddexp((lz - r.q_lse) + log_1mctt_m1, log_ctt_m1);
+    ev_last = clamp_log(qp + (r.is_mask ? 0.0f : lz) + r.q_lse);
   }
-  // logsumexp over [q | log 1e-30]
-  m2 = fmaxf(warp_max(m2), lz);
-  s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-    if (lane + 32 * j < km1) s += expf(v[j] - m2);
-  const float q_lse = m2 + logf(warp_sum(s) + expf(lz - m2));
+  cp_async_wait0();
+  __syncthreads();
+  if (!live) return;
 
-  // ev = q_pred(q normalised, t - 1) + q_pred_one_timestep(onehot x_t, t) + q_lse
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    if (c < km1) {
-      const bool at_col = c == xt && !is_mask;
-      const float qp = logaddexp((v[j] - q_lse) + log_att_m1, log_btt_m1);
-      const float qt1 = at_col ? log_at_bt : (is_mask ? log_ct : log_bt);
-      v[j] = clamp_log(qp + qt1 + q_lse);
-    } else if (c == km1) {
-      const float qp = logaddexp((lz - q_lse) + log_1mctt_m1, log_ctt_m1);
-      v[j] = clamp_log(qp + (is_mask ? 0.0f : lz) + q_lse);
+  const float* grow =
+      kPrng ? nullptr : (const float*)(smem + lbytes + ((uintptr_t)gspan & 15)) + (size_t)warp * K;
+  const uint32_t k0 = kPrng ? (uint32_t)seeds[2 * b] : 0u;
+  const uint32_t k1 = kPrng ? (uint32_t)seeds[2 * b + 1] : 0u;
+  auto noise = [&](int c) -> float {
+    if constexpr (kPrng) {
+      const uint4 w = philox4x32_10((uint32_t)(c >> 2), (uint32_t)n, k0, k1);
+      const int word = c & 3;
+      return gumbel_from_bits(word == 0 ? w.x : word == 1 ? w.y : word == 2 ? w.z : w.w);
+    } else {
+      return grow[c];
     }
-  }
+  };
 
-  // top-r: the trunc_k-th largest key by radix select, MSB first
-  uint32_t kth = 0;
-  if (trunc_k > 0) {
+  Best best;
+  if (trunc_k == 0) {
+    // the sample: first maximum of ev + gumbel
+    for (int c = lane; c < K; c += 32)
+      best.take((c < km1 ? r.ev(to_f32(lrow[c]), c) : ev_last) + noise(c), c);
+  } else {
+    // ev kept over the f32 logits, or in its own region after bf16 ones
+    float* evrow = sizeof(T) == 4
+                       ? (float*)lrow
+                       : (float*)(smem + lbytes + (kPrng ? 0 : align16(kRows * K * 4 + 16))) +
+                             (size_t)warp * km1;
+    for (int c = lane; c < km1; c += 32) evrow[c] = r.ev(to_f32(lrow[c]), c);
+    __syncwarp();
+    // top-r: the trunc_k-th largest key by radix select, MSB first
+    uint32_t kth = 0;
     int kk = trunc_k;
+    const uint32_t key_last = monotone_key(ev_last);
     for (int i = 31; i >= 0; --i) {
       const uint32_t hi = i < 31 ? (0xFFFFFFFFu << (i + 1)) : 0u;
       const uint32_t bit = 1u << i;
-      int cnt = 0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const uint32_t key = monotone_key(v[j]);
-        cnt += (lane + 32 * j < K) && (key & hi) == kth && (key & bit);
+      int cnt = lane == 0 && (key_last & hi) == kth && (key_last & bit);
+      for (int c = lane; c < km1; c += 32) {
+        const uint32_t key = monotone_key(evrow[c]);
+        cnt += (key & hi) == kth && (key & bit);
       }
       cnt = __reduce_add_sync(0xffffffffu, cnt);
       if (kk <= cnt) kth |= bit;
       else kk -= cnt;
     }
-  }
-
-  // the sample: first maximum of ev + gumbel
-  float best = -INFINITY;
-  int best_c = K;
-  const float* grow = kPrng ? nullptr : gumbel + row * K;
-  const uint32_t k0 = kPrng ? (uint32_t)seeds[2 * b] : 0u;
-  const uint32_t k1 = kPrng ? (uint32_t)seeds[2 * b + 1] : 0u;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    if (c < K) {
-      float g;
-      if (kPrng) {
-        const uint4 w = philox4x32_10((uint32_t)(c >> 2), (uint32_t)n, k0, k1);
-        const int word = c & 3;
-        g = gumbel_from_bits(word == 0 ? w.x : word == 1 ? w.y : word == 2 ? w.z : w.w);
-      } else {
-        g = grow[c];
-      }
-      float score = v[j] + g;
-      if (trunc_k > 0 && monotone_key(v[j]) < kth) score = kMasked;
-      if (score > best) {
-        best = score;
-        best_c = c;
-      }
+    for (int c = lane; c < K; c += 32) {
+      const float e = c < km1 ? evrow[c] : ev_last;
+      best.take(monotone_key(e) < kth ? kMasked : e + noise(c), c);
     }
   }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oc = __shfl_xor_sync(0xffffffffu, best_c, o);
-    if (ob > best || (ob == best && oc < best_c)) {
-      best = ob;
-      best_c = oc;
-    }
-  }
-  if (lane == 0) out[row] = best_c;
-}
-
-template <class T, int kPer, bool kPrng>
-int launch_per(const void* logits, const void* x_t, const void* coefs, const void* noise,
-               void* out, int B, int N, int K, int trunc_k, void* stream) {
-  const long long rows = (long long)B * N;
-  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  posterior_kernel<T, kPer, kPrng><<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const T*)logits, (const long long*)x_t, (const float*)coefs,
-      kPrng ? nullptr : (const float*)noise, kPrng ? (const int*)noise : nullptr,
-      (long long*)out, B, N, K, trunc_k);
-  return (int)cudaGetLastError();
+  const int pick = best.reduce();
+  if (lane == 0) out[row] = pick;
 }
 
 template <class T, bool kPrng>
@@ -251,13 +342,23 @@ int launch(const void* logits, const void* x_t, const void* coefs, const void* n
            int B, int N, int K, int trunc_k, void* stream) {
   if (K < 2 || K > kMaxClasses || trunc_k < 0 || trunc_k > K || B < 0 || N < 0)
     return (int)cudaErrorInvalidValue;
-  if ((long long)B * N == 0) return 0;
-  if (K <= 128) return launch_per<T, 4, kPrng>(logits, x_t, coefs, noise, out, B, N, K, trunc_k, stream);
-  if (K <= 256) return launch_per<T, 8, kPrng>(logits, x_t, coefs, noise, out, B, N, K, trunc_k, stream);
-  if (K <= 512) return launch_per<T, 16, kPrng>(logits, x_t, coefs, noise, out, B, N, K, trunc_k, stream);
-  if (K <= 33 * 32)
-    return launch_per<T, 33, kPrng>(logits, x_t, coefs, noise, out, B, N, K, trunc_k, stream);
-  return launch_per<T, 64, kPrng>(logits, x_t, coefs, noise, out, B, N, K, trunc_k, stream);
+  const long long rows = (long long)B * N;
+  if (rows == 0) return 0;
+  const int smem = posterior_smem(K, (int)sizeof(T), kPrng, trunc_k > 0);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        posterior_kernel<T, kPrng>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const unsigned blocks = (unsigned)((rows + kRows - 1) / kRows);
+  posterior_kernel<T, kPrng><<<blocks, kRows * 32, smem, (cudaStream_t)stream>>>(
+      (const T*)logits, (const long long*)x_t, (const float*)coefs,
+      kPrng ? nullptr : (const float*)noise, kPrng ? (const int*)noise : nullptr,
+      (long long*)out, B, N, K, trunc_k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

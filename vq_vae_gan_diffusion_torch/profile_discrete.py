@@ -1,7 +1,21 @@
 """Where a reverse step of the discrete VQ-diffusion samplers spends its time
-on the card.
+on the card, or what the posterior kernels cost alone.
 
     python -m vq_vae_gan_diffusion_torch.profile_discrete [--dtype float32|bfloat16]
+    python -m vq_vae_gan_diffusion_torch.profile_discrete --posterior
+
+With ``--posterior`` it builds only csrc/discrete_posterior.cu (at the
+first call), prints each kernel instance's registers, stack frame and
+spills from the build log, and times B6 (``fused_posterior_sample``) and
+B7 (``fused_posterior_sample_prng``) at both priors' shapes (logits
+[16, 256, 1023] for VQ_Official, [16, 256, 1024] for the transformer),
+trunc_k 0 and 881, f32 and bf16 logits: device ms a call by CUDA events
+over a CUDA graph of calls, ms a call issued one by one, the share of rows
+equal to the plain version's, the plain version's ms, and the bound with
+what sets it. It calls only the public wrappers, so the same file copied
+into an older tree (with ``utils/profiling.py``) times that tree's kernels.
+
+Without it:
 
 Two priors at full width, seeded weights, 16 samples over 256 tokens; for
 each, one structured reverse step per call (the noise draw, the denoiser
@@ -29,10 +43,61 @@ from .config import load_config
 from .models.transformer_vq_diffusion import TransformerVQDiffusion
 from .models.vq_diffusion_composite import VQDiffusionComposite
 from .utils import resolve_device
-from .utils.profiling import report
+from .utils.profiling import (cuda_graph_ms, cuda_ms, posterior_bound, ptxas_usage, report,
+                              smi_line)
 
 B = 16
 CONFIG = "configs/inference_config_vqofficial.yml"
+N = 256
+TRUNC_K = 881                       # fast_sample's top-r at 0.86 of 1025 classes
+# K, timesteps and the final mask rate of each prior's schedule
+POSTERIOR_PRIORS = {"VQ_Official": (1024, 1000, 0.99999), "transformer": (1025, 100, 0.9)}
+
+
+def posterior() -> None:
+    """The ``--posterior`` probe (module docstring)."""
+    from .diffusion.discrete import make_discrete_schedule
+    from .ops import _build
+    from .ops import discrete_posterior as dp
+
+    card = smi_line()
+    _build.library("discrete_posterior")
+    log = _build.library_path("discrete_posterior").with_suffix(".log")
+    for name, (regs, stack, spill) in sorted(ptxas_usage(log.read_text()).items()):
+        print(f"ptxas {name}: {regs} registers, {stack} bytes stack frame, {spill} bytes spill "
+              f"stores")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for prior, (k, steps, ctt_T) in POSTERIOR_PRIORS.items():
+        km1 = k - 1
+        sched = make_discrete_schedule(steps, k, ctt_T).to("cuda")
+        coefs = dp.gather_posterior_coefs(sched, torch.full((B,), steps // 2, device="cuda"),
+                                          steps)
+        x_t = torch.randint(0, k, (B, N), generator=gen, device="cuda")
+        x_t[:, ::5] = km1
+        gumbel = dp.gumbel_from_uniform(torch.rand(B, N, k, generator=gen, device="cuda"))
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), dtype=torch.int32, generator=gen,
+                              device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = (3 * torch.randn(B, N, km1, generator=gen, device="cuda")).to(dtype)
+            for label, fn, plain, noise in (
+                    ("B6", dp.fused_posterior_sample, dp.reference_posterior_sample, gumbel),
+                    ("B7", dp.fused_posterior_sample_prng, dp.reference_posterior_sample_prng,
+                     seeds)):
+                for trunc_k in (0, TRUNC_K):
+                    def call():
+                        return fn(logits, x_t, coefs, noise, trunc_k=trunc_k)
+                    equal = (call() == plain(logits, x_t, coefs, noise, trunc_k)).float().mean()
+                    ms = cuda_graph_ms(call)
+                    issued_ms = cuda_ms(call, 50)
+                    plain_ms = cuda_ms(lambda: plain(logits, x_t, coefs, noise, trunc_k), 3)
+                    by_bytes, by_ops = posterior_bound(B, N, km1, dtype, label == "B7", trunc_k,
+                                                       card)
+                    print(f"{prior} {label} logits [{B}, {N}, {km1}] {dtype} trunc_k {trunc_k}: "
+                          f"kernel {ms:.4f} ms (CUDA graph), {issued_ms:.4f} ms issued one by "
+                          f"one, {100 * equal.item():.3f}% rows equal to plain, plain "
+                          f"{plain_ms:.4f} ms, bound {max(by_bytes, by_ops):.4f} ms by "
+                          f"{'bytes' if by_bytes >= by_ops else 'operations'}; {card}")
+            del logits
 
 
 def _step(prior, truncated: bool = False):
@@ -53,10 +118,15 @@ def _step(prior, truncated: bool = False):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--posterior", action="store_true",
+                        help="time the posterior kernels alone at both priors' shapes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_discrete needs a CUDA device")
     resolve_device("cuda")
+    if args.posterior:
+        posterior()
+        return 0
 
     comp = VQDiffusionComposite(load_config(CONFIG), dtype=getattr(torch, args.dtype))
     comp.unet.init_weights(torch.Generator().manual_seed(0))

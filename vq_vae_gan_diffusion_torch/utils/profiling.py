@@ -1,12 +1,13 @@
 """Where a repeated call spends its time on the card: the report shared by
 ``profile_decode`` and ``profile_shuffle``, and the card's published rates
-with the ShuffleNet units' bound, random units, CUDA-event timing and the
-card's ``nvidia-smi`` line, shared by ``profile_shuffle`` and
-``chip_smoke.py``."""
+with the ShuffleNet units' and the posterior kernels' bounds, random units,
+CUDA-event timing and the card's ``nvidia-smi`` line, shared by the
+profiles and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
 import math
+import re
 import subprocess
 import time
 from typing import Callable, Dict, Tuple
@@ -50,6 +51,50 @@ def cuda_ms(fn: Callable[[], object], reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_graph_ms(fn: Callable[[], object], reps: int = 20, replays: int = 10) -> float:
+    """Device milliseconds a call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events after a
+    warm-up call and a warm-up replay. The host's time to issue a call
+    (argument checks, allocation, the launch) is not in the number, as it
+    is in :func:`cuda_ms` once a call takes less device time than that."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def ptxas_usage(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """(registers, stack frame bytes, spill store bytes) of each kernel in
+    an ``nvcc -Xptxas -v`` log, by mangled name."""
+    usage, name, stack, spill = {}, None, 0, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)), stack, spill)
+            name, stack, spill = None, 0, 0
+    return usage
+
+
 def random_unit(kind: str, c_in: int, c_out: int, dtype: torch.dtype,
                 gen: torch.Generator) -> Dict[str, torch.Tensor]:
     """A folded ShuffleNet unit ("K1" or "K2", ``ops.shuffle``'s dict) on
@@ -85,6 +130,42 @@ def shuffle_unit_bound(kind: str, h: int, w: int, c_in: int, c_out: int, batch: 
     bytes_ = (p_in * c_in + p_out * c_out + params) * es
     peak = F32_PEAK_FLOPS if dtype == torch.float32 else BF16_PEAK_FLOPS
     return 1e3 * bytes_ / hbm_bytes_per_s(name), 1e3 * ops / peak
+
+
+# per class of one posterior row (``ops.discrete_posterior``), in f32
+# operations: the body's two max and two sum-exp passes, the clamps, the
+# two log-add-exps and the selects, the score and the argmax (30); B7's
+# Philox4x32-10 (40 integer operations a block of four classes) with the
+# Gumbel transform's arithmetic (15); the top-r select as the function needs
+# it (19): one order-preserving key a class (3) and an exact select by 8-bit
+# digits, four passes of a prefix test, a digit and a count (4 each)
+POSTERIOR_OPS, PHILOX_OPS, SELECT_OPS = 30, 15, 3 + 4 * 4
+# transcendentals a class, on the SFU: B6's three expf and one log1pf; B7
+# two logf more for the Gumbel transform
+POSTERIOR_SFU, PHILOX_SFU = 4, 2
+# the SFU issues 16 a clock an SM against the 128 f32 lanes (which
+# F32_PEAK_FLOPS counts twice, a multiply-add being two operations)
+SFU_PEAK_PER_S = F32_PEAK_FLOPS / 2 / 8
+
+
+def posterior_bound(b: int, n: int, km1: int, dtype: torch.dtype, prng: bool, trunc_k: int,
+                    name: str) -> Tuple[float, float]:
+    """(ms by bytes, ms by operations) of one fused posterior-and-sample
+    call on [b, n] rows of K = km1 + 1 classes. Bytes: the logits (and, for
+    B6, the f32 Gumbel noise [b, n, K]) read once, the int64 carry read and
+    the int64 indices written once, the [b, 10] f32 coefficients (and, for
+    B7, the [b, 2] int32 seeds) read once, over the memory rate of the card
+    ``name``. Operations: per class POSTERIOR_OPS, PHILOX_OPS for B7 and
+    SELECT_OPS when trunc_k > 0 over the f32 peak, or POSTERIOR_SFU (B7
+    PHILOX_SFU more) transcendentals over the SFU's rate, whichever is
+    longer: the two pipes issue side by side."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    k, rows = km1 + 1, b * n
+    bytes_ = rows * (km1 * es + 16) + b * 40 + (b * 8 if prng else rows * k * 4)
+    ops = rows * k * (POSTERIOR_OPS + (PHILOX_OPS if prng else 0) + (SELECT_OPS if trunc_k else 0))
+    sfu = rows * k * (POSTERIOR_SFU + (PHILOX_SFU if prng else 0))
+    return 1e3 * bytes_ / hbm_bytes_per_s(name), 1e3 * max(ops / F32_PEAK_FLOPS,
+                                                           sfu / SFU_PEAK_PER_S)
 
 
 def report(label: str, fn: Callable[[int], object], calls: int, enqueue_calls: int,
