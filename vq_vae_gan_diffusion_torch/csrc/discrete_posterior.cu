@@ -37,21 +37,26 @@
 // persistent warp would hold half as many rows an SM for the same shared
 // memory and gain nothing the resident blocks do not give.
 //
-// The passes read the staged logits again instead of keeping them: two
-// max and two sum-exp passes (the warp reductions are shuffles), then ev
-// a class. With trunc_k = 0, ev goes straight into the argmax; otherwise
-// it is kept in shared memory (over the f32 logits it came from; bf16
-// rows get a region of their own) for the top-r select and the argmax.
-// All arithmetic is f32; bf16 logits are converted on read. The formulas,
-// their order of operations and the constants are those of the plain
-// version (ops/discrete_posterior.py), so the two differ only by the order
-// of the sums and the last bit of the math library, which moves an index
-// only at a near tie.
+// The passes read the staged row again instead of keeping it in
+// registers: two max and two sum-exp passes (the warp reductions are
+// shuffles), then ev a class. f32 rows keep q over their logits from the
+// third pass on; bf16 rows compute it again from the logit. With trunc_k
+// = 0, ev goes straight into the argmax. Otherwise each class's
+// order-preserving key of ev is computed once and kept in shared memory
+// (over the f32 row; bf16 rows get a region of their own), the trunc_k-th
+// largest key is found by 8-bit digits (four passes, a 256-bin histogram a
+// warp, a warp scan) where 32 one-bit passes stood, and the argmax reads
+// ev back from the keys. All arithmetic is f32; bf16 logits are converted
+// on read. The formulas, their order of operations and the constants are
+// those of the plain version (ops/discrete_posterior.py), so the two differ
+// only by the order of the sums and the last bit of the math library,
+// which moves an index only at a near tie.
 //
 // B7's stream is Philox4x32-10 written out here (the plain version repeats
 // it in int64 arithmetic): word c % 4 at counter (c / 4, n, 0, 0) with key
-// (seeds[b][0], seeds[b][1]); four lanes share one Philox block and each
-// keeps its own word.
+// (seeds[b][0], seeds[b][1]). In the argmax a lane computes each of its
+// Philox blocks once and takes the block's four columns (lane l: blocks l,
+// l + 32, ...); the staged row makes that layout free.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +68,7 @@ namespace {
 constexpr int kRows = 4;             // rows a block, one warp each
 constexpr int kMaxClasses = 2048;    // the widest row (K) the kernel takes
 constexpr int kSmemLimit = 232448;   // shared memory a block may use
+constexpr int kBins = 256;           // the top-r select's 8-bit digits
 constexpr float kLogEps = -70.0f;
 constexpr float kMasked = -3e38f;
 
@@ -143,13 +149,15 @@ __device__ __forceinline__ void cp_async_wait0() {
 __host__ __device__ __forceinline__ int align16(int x) { return (x + 15) & ~15; }
 
 // Shared memory of one block: the logits span (kRows rows of K - 1 values
-// and up to 15 bytes of lead), the Gumbel span (B6), and the f32 ev of bf16
-// rows when trunc_k > 0 (f32 rows keep ev over their logits).
+// and up to 15 bytes of lead), the Gumbel span (B6); when trunc_k > 0 the
+// keys of bf16 rows (f32 rows keep them over their logits) and a 256-bin
+// histogram a warp.
 __host__ __device__ int posterior_smem(int K, int es, int prng, int trunc) {
   const int logits = align16(kRows * (K - 1) * es + 16);
   const int noise = prng ? 0 : align16(kRows * K * 4 + 16);
-  const int ev = trunc && es != 4 ? kRows * (K - 1) * 4 : 0;
-  return logits + noise + ev;
+  const int keys = trunc && es != 4 ? kRows * (K - 1) * 4 : 0;
+  const int hist = trunc ? kRows * kBins * 4 : 0;
+  return logits + noise + keys + hist;
 }
 
 // Copy the n elements at src into dst + (src % 16), dst 16-byte aligned:
@@ -171,27 +179,80 @@ __device__ __forceinline__ void stage_span(char* dst, const E* src, long long n)
     *(E*)(dst + (p - base)) = *(const E*)p;
 }
 
-// The per-row scalars of the q-posterior and ev of one class from its logit.
+// The per-row scalars of the q-posterior; q and ev of one class. xcol is
+// the carry's column, -1 on a masked row; the *_row values hold elsewhere.
 struct Row {
-  float lse, q_lse, log_att_btt, log_at_bt, log_btt, log_ctt, log_bt, log_ct, log_att_m1,
-      log_btt_m1;
-  long long xt;
-  bool is_mask;
+  float lse, q_lse, log_att_btt, log_at_bt, log_qt_row, qt1_row, log_att_m1, log_btt_m1;
+  int xcol;
 
   // q = log_x0 - q_pred(onehot x_t, t), masked rows against log ctt
   __device__ __forceinline__ float q(float logit, int c) const {
-    const bool at_col = c == xt && !is_mask;
-    const float log_qt = at_col ? log_att_btt : (is_mask ? log_ctt : log_btt);
-    return clamp_log(logit - lse) - log_qt;
+    return clamp_log(logit - lse) - (c == xcol ? log_att_btt : log_qt_row);
   }
   // ev = q_pred(q normalised, t - 1) + q_pred_one_timestep(onehot x_t, t) + q_lse
-  __device__ __forceinline__ float ev(float logit, int c) const {
-    const bool at_col = c == xt && !is_mask;
-    const float qp = logaddexp((q(logit, c) - q_lse) + log_att_m1, log_btt_m1);
-    const float qt1 = at_col ? log_at_bt : (is_mask ? log_ct : log_bt);
-    return clamp_log(qp + qt1 + q_lse);
+  __device__ __forceinline__ float ev(float qc, int c) const {
+    const float qp = logaddexp((qc - q_lse) + log_att_m1, log_btt_m1);
+    return clamp_log(qp + (c == xcol ? log_at_bt : qt1_row) + q_lse);
   }
 };
+
+__device__ __forceinline__ float key_float(uint32_t k) {
+  return __uint_as_float((k >> 31) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The exact k-th largest of the row's keys (keys[0, km1) and key_last) by
+// 8-bit digits, most significant first: per digit a histogram of the keys
+// that match the digits chosen so far (shared-memory atomics; aggregating
+// equal digits first with __match_any_sync made the select 5x slower),
+// then a warp scan from the top digit down to the one that holds the k-th
+// key. The same key as 32 one-bit passes, ties included.
+__device__ uint32_t kth_largest_key(const uint32_t* keys, int km1, uint32_t key_last, int k,
+                                    int* hist, int lane) {
+  uint32_t prefix = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = lane; i < kBins; i += 32) hist[i] = 0;
+    __syncwarp();
+    const uint32_t above = shift == 24 ? 0u : 0xFFFFFFFFu << (shift + 8);
+    for (int c0 = 0; c0 < km1; c0 += 32) {
+      const int c = c0 + lane;
+      const uint32_t key = c < km1 ? keys[c] : 0u;
+      const bool in = c < km1 && ((key ^ prefix) & above) == 0;
+      const uint32_t d = (key >> shift) & 255u;
+      if (in) atomicAdd(&hist[d], 1);
+    }
+    if (lane == 0 && ((key_last ^ prefix) & above) == 0)
+      atomicAdd(&hist[(key_last >> shift) & 255u], 1);
+    __syncwarp();
+    // lane l holds digits 255 - 8l down to 248 - 8l
+    int h[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      h[j] = hist[255 - 8 * lane - j];
+      sum += h[j];
+    }
+    int upto = sum;   // keys of the candidates with digit >= 248 - 8 * lane
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, upto, o);
+      if (lane >= o) upto += t;
+    }
+    const bool here = upto - sum < k && k <= upto;
+    int digit = 0, rest = 0, acc = upto - sum;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (here && acc < k && k <= acc + h[j]) {
+        digit = 255 - 8 * lane - j;
+        rest = k - acc;
+      }
+      acc += h[j];
+    }
+    const int src = __ffs(__ballot_sync(0xffffffffu, here)) - 1;
+    prefix |= (uint32_t)__shfl_sync(0xffffffffu, digit, src) << shift;
+    k = __shfl_sync(0xffffffffu, rest, src);
+    __syncwarp();
+  }
+  return prefix;
+}
 
 struct Best {
   float score = -INFINITY;
@@ -217,12 +278,35 @@ struct Best {
   }
 };
 
+// The first maximum of score(c, gumbel_c) over the row's K classes. B6
+// reads gumbel_c from the staged row, lane l taking columns l, l + 32, ...;
+// B7 draws it: lane l computes Philox blocks l, l + 32, ... once each and
+// takes the four columns 4g..4g+3 of block g.
+template <bool kPrng, class Score>
+__device__ __forceinline__ int sample(Score score, int K, const float* grow, uint32_t n,
+                                      uint32_t k0, uint32_t k1, int lane) {
+  Best best;
+  if constexpr (kPrng) {
+    for (int g = lane; 4 * g < K; g += 32) {
+      const uint4 w = philox4x32_10((uint32_t)g, n, k0, k1);
+      const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * g + j < K) best.take(score(4 * g + j, gumbel_from_bits(bits[j])), 4 * g + j);
+    }
+  } else {
+    for (int c = lane; c < K; c += 32) best.take(score(c, grow[c]), c);
+  }
+  return best.reduce();
+}
+
 template <class T, bool kPrng>
 __global__ void __launch_bounds__(kRows * 32, 8)
 posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t,
                  const float* __restrict__ coefs, const float* __restrict__ gumbel,
                  const int* __restrict__ seeds, long long* __restrict__ out, int B, int N, int K,
                  int trunc_k) {
+  constexpr bool kF32 = sizeof(T) == 4;
   extern __shared__ __align__(16) char smem[];
   const int km1 = K - 1;
   const long long rows = (long long)B * N, row0 = (long long)blockIdx.x * kRows;
@@ -233,6 +317,7 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
   // Gumbel span as a second group
   const T* lspan = logits + row0 * km1;
   const int lbytes = align16(kRows * km1 * (int)sizeof(T) + 16);
+  const int gbytes = kPrng ? 0 : align16(kRows * K * 4 + 16);
   stage_span(smem, lspan, (long long)nrows * km1);
   cp_async_commit();
   const float* gspan = kPrng ? nullptr : gumbel + row0 * K;
@@ -243,25 +328,36 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
   const long long row = row0 + warp;
   const int b = live ? (int)(row / N) : 0, n = live ? (int)(row % N) : 0;
   const float lz = log_zero();
-  Row r;
-  r.xt = live ? x_t[row] : 0;
-  r.is_mask = r.xt == km1;
+  const long long xt = live ? x_t[row] : 0;
+  const bool is_mask = xt == km1;
   const float* cf = coefs + (size_t)b * 10;
   const float log_att = cf[0], log_btt = cf[1], log_ctt = cf[2];
   const float log_at = cf[3], log_bt = cf[4], log_ct = cf[5];
   const float log_ctt_m1 = cf[8], log_1mctt_m1 = cf[9];
-  r.log_btt = log_btt;
-  r.log_ctt = log_ctt;
-  r.log_bt = log_bt;
-  r.log_ct = log_ct;
+  Row r;
+  r.xcol = is_mask ? -1 : (int)xt;
+  r.log_qt_row = is_mask ? log_ctt : log_btt;
+  r.qt1_row = is_mask ? log_ct : log_bt;
   r.log_att_m1 = cf[6];
   r.log_btt_m1 = cf[7];
   r.log_att_btt = logaddexp(log_att, log_btt);
   r.log_at_bt = logaddexp(log_at, log_bt);
+  const uint32_t k0 = kPrng && live ? (uint32_t)seeds[2 * b] : 0u;
+  const uint32_t k1 = kPrng && live ? (uint32_t)seeds[2 * b + 1] : 0u;
 
   cp_async_wait1();
   __syncthreads();
-  const T* lrow = (const T*)(smem + ((uintptr_t)lspan & 15)) + (size_t)warp * km1;
+  T* lrow = (T*)(smem + ((uintptr_t)lspan & 15)) + (size_t)warp * km1;
+  // f32 rows keep q, then the keys of ev, over their logits; bf16 rows
+  // compute q again from the logit and keep the keys in a region of their own
+  float* qrow = (float*)lrow;
+  uint32_t* keys = kF32 ? (uint32_t*)lrow
+                        : (uint32_t*)(smem + lbytes + gbytes) + (size_t)warp * km1;
+  int* hist = (int*)(smem + lbytes + gbytes + (kF32 ? 0 : kRows * km1 * 4)) + warp * kBins;
+  auto q_at = [&](int c) -> float {
+    if constexpr (kF32) return qrow[c];
+    else return r.q(to_f32(lrow[c]), c);
+  };
   float ev_last = 0.0f;
   if (live) {
     // predict_start: log_softmax of the K-1 logits, clamped
@@ -273,13 +369,17 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
     r.lse = m + logf(warp_sum(s));
     // logsumexp over [q | log 1e-30]
     float m2 = -INFINITY;
-    for (int c = lane; c < km1; c += 32) m2 = fmaxf(m2, r.q(to_f32(lrow[c]), c));
+    for (int c = lane; c < km1; c += 32) {
+      const float qc = r.q(to_f32(lrow[c]), c);
+      if constexpr (kF32) qrow[c] = qc;
+      m2 = fmaxf(m2, qc);
+    }
     m2 = fmaxf(warp_max(m2), lz);
     s = 0.0f;
-    for (int c = lane; c < km1; c += 32) s += expf(r.q(to_f32(lrow[c]), c) - m2);
+    for (int c = lane; c < km1; c += 32) s += expf(q_at(c) - m2);
     r.q_lse = m2 + logf(warp_sum(s) + expf(lz - m2));
     const float qp = logaddexp((lz - r.q_lse) + log_1mctt_m1, log_ctt_m1);
-    ev_last = clamp_log(qp + (r.is_mask ? 0.0f : lz) + r.q_lse);
+    ev_last = clamp_log(qp + (is_mask ? 0.0f : lz) + r.q_lse);
   }
   cp_async_wait0();
   __syncthreads();
@@ -287,53 +387,26 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
 
   const float* grow =
       kPrng ? nullptr : (const float*)(smem + lbytes + ((uintptr_t)gspan & 15)) + (size_t)warp * K;
-  const uint32_t k0 = kPrng ? (uint32_t)seeds[2 * b] : 0u;
-  const uint32_t k1 = kPrng ? (uint32_t)seeds[2 * b + 1] : 0u;
-  auto noise = [&](int c) -> float {
-    if constexpr (kPrng) {
-      const uint4 w = philox4x32_10((uint32_t)(c >> 2), (uint32_t)n, k0, k1);
-      const int word = c & 3;
-      return gumbel_from_bits(word == 0 ? w.x : word == 1 ? w.y : word == 2 ? w.z : w.w);
-    } else {
-      return grow[c];
-    }
-  };
-
-  Best best;
+  int pick;
   if (trunc_k == 0) {
     // the sample: first maximum of ev + gumbel
-    for (int c = lane; c < K; c += 32)
-      best.take((c < km1 ? r.ev(to_f32(lrow[c]), c) : ev_last) + noise(c), c);
+    pick = sample<kPrng>(
+        [&](int c, float g) { return (c < km1 ? r.ev(q_at(c), c) : ev_last) + g; }, K, grow,
+        (uint32_t)n, k0, k1, lane);
   } else {
-    // ev kept over the f32 logits, or in its own region after bf16 ones
-    float* evrow = sizeof(T) == 4
-                       ? (float*)lrow
-                       : (float*)(smem + lbytes + (kPrng ? 0 : align16(kRows * K * 4 + 16))) +
-                             (size_t)warp * km1;
-    for (int c = lane; c < km1; c += 32) evrow[c] = r.ev(to_f32(lrow[c]), c);
+    // top-r: the keys of ev once, the trunc_k-th largest, then the sample
+    // among the classes at or above it
+    for (int c = lane; c < km1; c += 32) keys[c] = monotone_key(r.ev(q_at(c), c));
     __syncwarp();
-    // top-r: the trunc_k-th largest key by radix select, MSB first
-    uint32_t kth = 0;
-    int kk = trunc_k;
     const uint32_t key_last = monotone_key(ev_last);
-    for (int i = 31; i >= 0; --i) {
-      const uint32_t hi = i < 31 ? (0xFFFFFFFFu << (i + 1)) : 0u;
-      const uint32_t bit = 1u << i;
-      int cnt = lane == 0 && (key_last & hi) == kth && (key_last & bit);
-      for (int c = lane; c < km1; c += 32) {
-        const uint32_t key = monotone_key(evrow[c]);
-        cnt += (key & hi) == kth && (key & bit);
-      }
-      cnt = __reduce_add_sync(0xffffffffu, cnt);
-      if (kk <= cnt) kth |= bit;
-      else kk -= cnt;
-    }
-    for (int c = lane; c < K; c += 32) {
-      const float e = c < km1 ? evrow[c] : ev_last;
-      best.take(monotone_key(e) < kth ? kMasked : e + noise(c), c);
-    }
+    const uint32_t kth = kth_largest_key(keys, km1, key_last, trunc_k, hist, lane);
+    pick = sample<kPrng>(
+        [&](int c, float g) {
+          const uint32_t key = c < km1 ? keys[c] : key_last;
+          return key < kth ? kMasked : key_float(key) + g;
+        },
+        K, grow, (uint32_t)n, k0, k1, lane);
   }
-  const int pick = best.reduce();
   if (lane == 0) out[row] = pick;
 }
 
