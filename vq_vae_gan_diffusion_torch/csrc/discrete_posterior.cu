@@ -13,44 +13,52 @@
 //   (trunc_k > 0: keep the trunc_k largest ev, ties at the threshold kept)
 //   out    = first argmax of ev + gumbel
 //
-// Bound: device memory. A row reads K-1 logits, K gumbel values (B6 only)
-// and writes one index. At the main path's 16 x 256 rows of 1024 classes
-// that is ~33.5 MB a step for B6 and ~16.8 MB for B7, 10 and 5 us at
-// 3.35 TB/s; the per-class arithmetic (3 expf and a log1pf, B7 two logf
-// more) issues in about as long.
+// Bound: device memory for B6, the SFU for B7. A row reads K-1 logits, K
+// gumbel values (B6 only) and writes one index: at the main path's 16 x 256
+// rows of 1024 classes ~33.5 MB a step for B6 and ~16.8 MB for B7, 10 and
+// 5 us at 3.35 TB/s. Per class the function needs 3 expf and a log1pf (B7
+// two logf more) on the SFU, 4 and 6 us. What this kernel takes is set by
+// neither: the library's expf, log1pf and logf cost about 100 instructions
+// a class, in dependent chains, and the arithmetic alone (no copies) takes
+// about four fifths of B6's time on an H100 (utils/profiling.
+// posterior_bound counts the function's work, not these instructions).
 //
 // Design: one warp a (b, n) row, kRows rows a block. The row is staged in
 // shared memory, not registers, so a thread needs few registers
-// (__launch_bounds__ asks for 64 at most: 8 blocks, 32 warps an SM) and
-// every global read of the block is issued before any arithmetic. A block
-// copies its kRows consecutive rows as one contiguous span of logits (and,
-// for B6, one span of Gumbel noise) with 16-byte cp.async pieces; only the
-// span's two unaligned ends go element by element (K - 1 = 1023 leaves a
-// row 4-byte aligned only). The Gumbel span is a second copy group that
-// lands while the logits' passes run.
+// (__launch_bounds__ asks for 64 at most: 32 warps an SM; f32 B6 at K =
+// 1024 holds 6 blocks, 24 warps, by its 32.8 KB of staged rows a block),
+// and every global read of the block is issued before any arithmetic. A
+// block copies its kRows consecutive rows as one contiguous span of logits
+// (and, for B6, one span of Gumbel noise) with 16-byte cp.async pieces;
+// only the span's two unaligned ends go element by element (K - 1 = 1023
+// leaves a row 4-byte aligned only). The Gumbel span is a second copy
+// group that lands while the logits' passes run.
 //
 // Small blocks, no persistent loop: a block's rows are all in flight at
-// once (~200 KB a SM for B6 at K = 1024, far above what the memory's
-// latency needs), so what is left to overlap is one block's arithmetic
-// with another block's copies, and the scheduler does that across the
-// 1024 blocks of the main path (6-8 resident an SM). A double-buffered
-// persistent warp would hold half as many rows an SM for the same shared
-// memory and gain nothing the resident blocks do not give.
+// once, so what is left to overlap is one block's arithmetic with another
+// block's copies, and the scheduler does that across the 1024 blocks of
+// the main path. A persistent grid with a double-buffered span a block
+// holds half as many rows an SM for the same shared memory, and measured
+// slower (B6 0.033 against 0.027 ms on an H100): the arithmetic needs the
+// resident warps more than the copies need a second buffer.
 //
 // The passes read the staged row again instead of keeping it in
 // registers: two max and two sum-exp passes (the warp reductions are
 // shuffles), then ev a class. f32 rows keep q over their logits from the
 // third pass on; bf16 rows compute it again from the logit. With trunc_k
-// = 0, ev goes straight into the argmax. Otherwise each class's
-// order-preserving key of ev is computed once and kept in shared memory
-// (over the f32 row; bf16 rows get a region of their own), the trunc_k-th
-// largest key is found by 8-bit digits (four passes, a 256-bin histogram a
-// warp, a warp scan) where 32 one-bit passes stood, and the argmax reads
-// ev back from the keys. All arithmetic is f32; bf16 logits are converted
-// on read. The formulas, their order of operations and the constants are
-// those of the plain version (ops/discrete_posterior.py), so the two differ
-// only by the order of the sums and the last bit of the math library,
-// which moves an index only at a near tie.
+// = 0, ev goes straight into the argmax, which computes ev at every column
+// and selects the mask column's value after, with no branch around the
+// arithmetic. Otherwise each class's order-preserving key of ev is
+// computed once, with its top digit counted, and kept in shared memory
+// (over the f32 row; bf16 rows get a region of their own); the trunc_k-th
+// largest key is found by 8-bit digits (a 256-bin histogram a warp, a warp
+// scan; three more passes over the keys) where 32 one-bit passes stood,
+// and the argmax reads ev back from the keys. All arithmetic is f32; bf16
+// logits are converted on read. The formulas, their order of operations
+// and the constants are those of the plain version
+// (ops/discrete_posterior.py), so the two differ only by the order of the
+// sums and the last bit of the math library, which moves an index only at
+// a near tie.
 //
 // B7's stream is Philox4x32-10 written out here (the plain version repeats
 // it in int64 arithmetic): word c % 4 at counter (c / 4, n, 0, 0) with key
@@ -205,23 +213,21 @@ __device__ __forceinline__ float key_float(uint32_t k) {
 // that match the digits chosen so far (shared-memory atomics; aggregating
 // equal digits first with __match_any_sync made the select 5x slower),
 // then a warp scan from the top digit down to the one that holds the k-th
-// key. The same key as 32 one-bit passes, ties included.
+// key. hist comes in with the top digit counted. The same key as 32
+// one-bit passes, ties included.
 __device__ uint32_t kth_largest_key(const uint32_t* keys, int km1, uint32_t key_last, int k,
                                     int* hist, int lane) {
   uint32_t prefix = 0;
   for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = lane; i < kBins; i += 32) hist[i] = 0;
-    __syncwarp();
-    const uint32_t above = shift == 24 ? 0u : 0xFFFFFFFFu << (shift + 8);
-    for (int c0 = 0; c0 < km1; c0 += 32) {
-      const int c = c0 + lane;
-      const uint32_t key = c < km1 ? keys[c] : 0u;
-      const bool in = c < km1 && ((key ^ prefix) & above) == 0;
-      const uint32_t d = (key >> shift) & 255u;
-      if (in) atomicAdd(&hist[d], 1);
+    if (shift < 24) {   // the top digit's histogram comes with the keys
+      const uint32_t above = 0xFFFFFFFFu << (shift + 8);
+      for (int i = lane; i < kBins; i += 32) hist[i] = 0;
+      __syncwarp();
+      for (int c = lane; c < km1; c += 32)
+        if (((keys[c] ^ prefix) & above) == 0) atomicAdd(&hist[(keys[c] >> shift) & 255u], 1);
+      if (lane == 0 && ((key_last ^ prefix) & above) == 0)
+        atomicAdd(&hist[(key_last >> shift) & 255u], 1);
     }
-    if (lane == 0 && ((key_last ^ prefix) & above) == 0)
-      atomicAdd(&hist[(key_last >> shift) & 255u], 1);
     __syncwarp();
     // lane l holds digits 255 - 8l down to 248 - 8l
     int h[8], sum = 0;
@@ -282,26 +288,39 @@ struct Best {
 // reads gumbel_c from the staged row, lane l taking columns l, l + 32, ...;
 // B7 draws it: lane l computes Philox blocks l, l + 32, ... once each and
 // takes the four columns 4g..4g+3 of block g.
-template <bool kPrng, class Score>
-__device__ __forceinline__ int sample(Score score, int K, const float* grow, uint32_t n,
-                                      uint32_t k0, uint32_t k1, int lane) {
+template <bool kPrng, class Score, class Last>
+__device__ __forceinline__ int sample(Score score, Last last, int km1, const float* grow,
+                                      uint32_t n, uint32_t k0, uint32_t k1, int lane) {
   Best best;
+  const int K = km1 + 1;
+  // score runs at every column, clamped below km1, and the mask column's
+  // value is selected after: no branch around the arithmetic, so the
+  // columns of one lane overlap
   if constexpr (kPrng) {
     for (int g = lane; 4 * g < K; g += 32) {
       const uint4 w = philox4x32_10((uint32_t)g, n, k0, k1);
       const uint32_t bits[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (4 * g + j < K) best.take(score(4 * g + j, gumbel_from_bits(bits[j])), 4 * g + j);
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * g + j;
+        const float gm = gumbel_from_bits(bits[j]);
+        const float e = score(c < km1 ? c : km1 - 1, gm);
+        const float s = c < km1 ? e : last(gm);
+        if (c < K) best.take(s, c);
+      }
     }
   } else {
-    for (int c = lane; c < K; c += 32) best.take(score(c, grow[c]), c);
+    for (int c = lane; c < K; c += 32) {
+      const float gm = grow[c];
+      const float e = score(c < km1 ? c : km1 - 1, gm);
+      best.take(c < km1 ? e : last(gm), c);
+    }
   }
   return best.reduce();
 }
 
 template <class T, bool kPrng>
-__global__ void __launch_bounds__(kRows * 32, 8)
+__global__ void __launch_bounds__(kRows * 32, 32 / kRows)
 posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t,
                  const float* __restrict__ coefs, const float* __restrict__ gumbel,
                  const int* __restrict__ seeds, long long* __restrict__ out, int B, int N, int K,
@@ -390,22 +409,27 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
   int pick;
   if (trunc_k == 0) {
     // the sample: first maximum of ev + gumbel
-    pick = sample<kPrng>(
-        [&](int c, float g) { return (c < km1 ? r.ev(q_at(c), c) : ev_last) + g; }, K, grow,
-        (uint32_t)n, k0, k1, lane);
+    pick = sample<kPrng>([&](int c, float g) { return r.ev(q_at(c), c) + g; },
+                         [&](float g) { return ev_last + g; }, km1, grow, (uint32_t)n, k0, k1,
+                         lane);
   } else {
-    // top-r: the keys of ev once, the trunc_k-th largest, then the sample
-    // among the classes at or above it
-    for (int c = lane; c < km1; c += 32) keys[c] = monotone_key(r.ev(q_at(c), c));
+    // top-r: the keys of ev once (counting their top digits), the
+    // trunc_k-th largest, then the sample among the classes at or above it
+    for (int i = lane; i < kBins; i += 32) hist[i] = 0;
     __syncwarp();
     const uint32_t key_last = monotone_key(ev_last);
+    if (lane == 0) atomicAdd(&hist[key_last >> 24], 1);
+    for (int c = lane; c < km1; c += 32) {
+      const uint32_t key = monotone_key(r.ev(q_at(c), c));
+      keys[c] = key;
+      atomicAdd(&hist[key >> 24], 1);
+    }
+    __syncwarp();
     const uint32_t kth = kth_largest_key(keys, km1, key_last, trunc_k, hist, lane);
     pick = sample<kPrng>(
-        [&](int c, float g) {
-          const uint32_t key = c < km1 ? keys[c] : key_last;
-          return key < kth ? kMasked : key_float(key) + g;
-        },
-        K, grow, (uint32_t)n, k0, k1, lane);
+        [&](int c, float g) { return keys[c] < kth ? kMasked : key_float(keys[c]) + g; },
+        [&](float g) { return key_last < kth ? kMasked : ev_last + g; }, km1, grow, (uint32_t)n,
+        k0, k1, lane);
   }
   if (lane == 0) out[row] = pick;
 }
