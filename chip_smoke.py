@@ -624,13 +624,6 @@ def phase_vqd_routes() -> None:
         raise AssertionError(f"kernel and module routes agree on only {100 * agree:.2f}%")
 
 
-def posterior_bound_ms(km1: int, dtype: torch.dtype, prng: bool, trunc_k: int,
-                       name: str) -> tuple[float, str]:
-    """``utils.profiling.posterior_bound`` at [B, N] rows as (ms, what sets it)."""
-    by_bytes, by_ops = posterior_bound(B, N, km1, dtype, prng, trunc_k, name)
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-
-
 def check_indices(what: str, got: torch.Tensor, scores: torch.Tensor) -> float:
     """The kernel's indices against the plain version's scores [B, N, K]:
     at least 99.9% of rows pick the plain argmax, and at every other row
@@ -761,8 +754,10 @@ def phase_posterior(card: str) -> dict:
                                         reps=50)
                     plain_ms = cuda_ms(lambda: plain(logits, x_t, coefs, noise, trunc_k=trunc_k),
                                        reps=5)
-                    bound, bound_by = posterior_bound_ms(km1, dtype, name.endswith("prng"),
-                                                         trunc_k, card)
+                    by_bytes, by_ops = posterior_bound(B, N, km1, dtype, name.endswith("prng"),
+                                                       trunc_k, card)
+                    bound = max(by_bytes, by_ops)
+                    bound_by = "bytes" if by_bytes >= by_ops else "operations"
                     print(f"(i) {name} logits [{B}, {N}, {km1}] {dtype} trunc_k {trunc_k}: "
                           f"checks at 4 t x 2 trunc_k pass, max score gap {gaps[name]:.3e}; kernel "
                           f"{ms:.4f} ms (CUDA graph; {issued_ms:.4f} issued one by one), plain "

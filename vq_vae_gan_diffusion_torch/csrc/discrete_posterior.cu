@@ -20,8 +20,9 @@
 // two logf more) on the SFU, 4 and 6 us. What this kernel takes is set by
 // neither: the library's expf, log1pf and logf cost about 100 instructions
 // a class, in dependent chains, and the arithmetic alone (no copies) takes
-// about four fifths of B6's time on an H100 (utils/profiling.
-// posterior_bound counts the function's work, not these instructions).
+// about four fifths of B6's time on an NVIDIA H100 80GB HBM3 at 700 W
+// (utils/profiling.posterior_bound counts the function's work, not these
+// instructions).
 //
 // Design: one warp a (b, n) row, kRows rows a block. The row is staged in
 // shared memory, not registers, so a thread needs few registers
@@ -39,8 +40,9 @@
 // block's copies, and the scheduler does that across the 1024 blocks of
 // the main path. A persistent grid with a double-buffered span a block
 // holds half as many rows an SM for the same shared memory, and measured
-// slower (B6 0.033 against 0.027 ms on an H100): the arithmetic needs the
-// resident warps more than the copies need a second buffer.
+// slower (B6 0.033 against 0.027 ms on an NVIDIA H100 80GB HBM3 at 700 W):
+// the arithmetic needs the resident warps more than the copies need a
+// second buffer.
 //
 // The passes read the staged row again instead of keeping it in
 // registers: two max and two sum-exp passes (the warp reductions are
