@@ -8,11 +8,10 @@ checked on the CPU where the kernel cannot run:
   included;
 - Philox4x32-10 computed once a block, its four words spread over columns
   4j..4j+3 by the kernel's lane layout, equals ``philox_bits`` bit for bit;
-- the launch, which the C side computes for itself and this file repeats
-  (``posterior_plan``, ``stage_pieces``): every row in one block, the
-  shared memory within a block's limit and equal to C's
-  ``posterior_smem``, and the span copy (C's ``stage_span``) reading every
-  byte of a block's span once and none outside it;
+- the widest row the wrappers pass is the widest the kernel takes, which
+  the .cu holds to a block's shared memory by a ``static_assert`` (the
+  launch itself, 4 rows a block and the span copy, is the kernel's alone
+  and is checked on the card at unaligned and partial-block shapes);
 - ``utils.profiling.posterior_bound`` at the paths' shapes.
 
 One ``jax.jit`` per JAX reference, at the shapes below (at most 1025
@@ -21,7 +20,6 @@ classes and a few dozen rows).
 
 import re
 from pathlib import Path
-from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -37,59 +35,6 @@ from vq_vae_gan_diffusion_tpu.ops import discrete_posterior_pallas as jp
 _U32 = 0xFFFFFFFF
 SRC = Path(tp.__file__).resolve().parent.parent / "csrc" / "discrete_posterior.cu"
 H100 = "NVIDIA H100 80GB HBM3"
-ROWS_PER_BLOCK = 4                  # rows a block of the kernel, one warp each
-SMEM_LIMIT = 232448                 # shared memory a block may use (H100)
-DIGIT_BINS = 256                    # the top-r select's 8-bit digits
-
-
-class PosteriorPlan(NamedTuple):
-    """One launch of the kernel: ``blocks`` blocks of ``rows_per_block``
-    warps, block i taking rows [i * rows_per_block, (i + 1) *
-    rows_per_block) of the B * N, with ``smem`` bytes of shared memory."""
-    rows_per_block: int
-    blocks: int
-    smem: int
-
-
-def _align16(x: int) -> int:
-    return (x + 15) & ~15
-
-
-def posterior_smem(k: int, es: int, prng: bool, trunc: bool) -> int:
-    """Shared memory of one block: the logits span (ROWS_PER_BLOCK rows of
-    K - 1 values of ``es`` bytes and up to 15 bytes of lead), the f32
-    Gumbel span (B6), and when trunc_k > 0 the uint32 keys of bf16 rows
-    (f32 rows keep them over their logits) and DIGIT_BINS int32 counts a
-    warp."""
-    logits = _align16(ROWS_PER_BLOCK * (k - 1) * es + 16)
-    noise = 0 if prng else _align16(ROWS_PER_BLOCK * k * 4 + 16)
-    keys = ROWS_PER_BLOCK * (k - 1) * 4 if trunc and es != 4 else 0
-    hist = ROWS_PER_BLOCK * DIGIT_BINS * 4 if trunc else 0
-    return logits + noise + keys + hist
-
-
-def posterior_plan(b: int, n: int, k: int, dtype: torch.dtype, prng: bool,
-                   trunc_k: int) -> PosteriorPlan:
-    """The launch the kernel makes for logits [b, n, k - 1] of ``dtype``;
-    raises where the C side returns cudaErrorInvalidValue."""
-    if not 2 <= k <= tp.MAX_CLASSES or not 0 <= trunc_k <= k:
-        raise ValueError(f"K {k}, trunc_k {trunc_k}")
-    es = torch.tensor([], dtype=dtype).element_size()
-    smem = posterior_smem(k, es, prng, trunc_k > 0)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{smem} bytes of shared memory a block exceed {SMEM_LIMIT}")
-    return PosteriorPlan(ROWS_PER_BLOCK, -(-b * n // ROWS_PER_BLOCK), smem)
-
-
-def stage_pieces(start: int, count: int, es: int) -> Tuple[range, range, range]:
-    """How a block copies the ``count`` elements of ``es`` bytes at byte
-    address ``start`` (C's ``stage_span``), as byte ranges: single elements
-    before the first 16-byte boundary inside the span, 16-byte pieces up to
-    the last one, single elements after it. Byte x lands at shared offset
-    x - (start & ~15)."""
-    end = start + count * es
-    a, b = (start + 15) & ~15, end & ~15
-    return (range(start, min(a, end), es), range(a, b, 16), range(max(a, b), end, es))
 
 
 def monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -145,8 +90,9 @@ def jax_kth():
     return run
 
 
-# (K, trunc_k): k in {1, 2, 881, K-1, K} where it is a top-r of K classes
-SELECT_CASES = sorted({(kc, k) for kc in (2, 17, 1024, 1025)
+# (K, trunc_k): k in {1, 2, 881, K-1, K} where it is a top-r of K classes, up
+# to the widest row the kernel takes
+SELECT_CASES = sorted({(kc, k) for kc in (2, 17, 1024, 1025, tp.MAX_CLASSES)
                        for k in (1, 2, 881, kc - 1, kc) if 1 <= k <= kc})
 
 
@@ -204,109 +150,13 @@ def test_philox_once_a_block_matches_the_stream(k):
     assert torch.equal(got, want)
 
 
-PLAN_K = [2, 128, 129, 1023, 1024, 1025, 2048]
-PLAN_ROWS = [1, 31, 4096, 4097]
-
-
-@pytest.mark.parametrize("k", PLAN_K)
-@pytest.mark.parametrize("rows", PLAN_ROWS)
-def test_plan_covers_every_row_once_within_shared_memory(k, rows):
-    for dtype in (torch.float32, torch.bfloat16):
-        for prng in (False, True):
-            for trunc_k in (0, 1, k):
-                plan = posterior_plan(1, rows, k, dtype, prng, trunc_k)
-                assert plan.smem <= SMEM_LIMIT <= 227 * 1024
-                covered = torch.zeros(rows, dtype=torch.int64)
-                for blk in range(plan.blocks):
-                    lo = blk * plan.rows_per_block
-                    covered[lo:min(lo + plan.rows_per_block, rows)] += 1
-                assert bool((covered == 1).all())
-
-
-@pytest.mark.parametrize("k", PLAN_K)
-@pytest.mark.parametrize("rows", PLAN_ROWS)
-def test_span_copy_reads_each_byte_of_the_span_once(k, rows):
-    """Every block's logits span ([B*N, K-1], f32 and bf16, the tensor
-    starting 16-byte aligned or one element past it) and Gumbel span ([B*N,
-    K] f32): the pieces read each byte of the span once and no byte outside
-    it, the 16-byte pieces are aligned, and every byte lands inside the
-    block's region of shared memory."""
-    r = ROWS_PER_BLOCK
-    blocks = -(-rows // r)
-    for es, width, region in ((4, k - 1, _align16(r * (k - 1) * 4 + 16)),
-                              (2, k - 1, _align16(r * (k - 1) * 2 + 16)),
-                              (4, k, _align16(r * k * 4 + 16))):
-        for base in (1 << 20, (1 << 20) + es):
-            # the first two blocks, the last one and a middle one
-            for blk in sorted({0, min(1, blocks - 1), blocks // 2, blocks - 1}):
-                row0 = blk * r
-                count = min(r, rows - row0) * width
-                start = base + row0 * width * es
-                head, body, tail = stage_pieces(start, count, es)
-                assert all(p % 16 == 0 for p in (body.start, body.stop)) or not body
-                read = sorted(list(head) + [p + i for p in body for i in range(0, 16, es)]
-                              + list(tail))
-                assert read == list(range(start, start + count * es, es))
-                lo = start & ~15
-                assert start - lo + count * es <= region
-                assert all(p - lo + 16 <= region for p in body)
-
-
-def _c_int_function(name: str):
-    """An int function of ints in the .cu, of `const int` statements with
-    at most one `?:` each, as a Python function."""
+def test_cuda_source_takes_the_widest_row_the_wrappers_pass():
+    """The wrappers refuse rows wider than ``MAX_CLASSES``; the kernel takes
+    every row up to its ``kMaxClasses`` and asserts at compile time that a
+    block of those rows fits its shared memory."""
     src = SRC.read_text()
-    m = re.search(r"int " + name + r"\(([^)]*)\) \{(.*?)\n\}", src, re.S)
-    args = [a.split()[-1] for a in m.group(1).split(",")]
-    body = []
-    for stmt in " ".join(m.group(2).split()).split(";"):
-        stmt = stmt.strip().replace("&&", " and ").replace("!=", " != ")
-        if not stmt:
-            continue
-        lhs, expr = (("return", stmt[len("return"):]) if stmt.startswith("return")
-                     else stmt[len("const int "):].split("=", 1))
-        if "?" in expr:
-            cond, rest = expr.split("?", 1)
-            a, b = rest.split(":", 1)
-            expr = f"({a}) if ({cond}) else ({b})"
-        body.append(f"    return {expr}" if lhs == "return" else f"    {lhs.strip()} = {expr}")
-    ns = {"align16": _align16, "kRows": ROWS_PER_BLOCK, "kBins": DIGIT_BINS}
-    exec(f"def {name}({', '.join(args)}):\n" + "\n".join(body), ns)
-    return ns[name]
-
-
-def test_cuda_source_matches_the_plan():
-    """csrc/discrete_posterior.cu repeats the plan's constants, its shared
-    memory formula and the span copy that stage_pieces describes."""
-    src = SRC.read_text()
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert {k: int(consts[k]) for k in ("kRows", "kMaxClasses", "kSmemLimit", "kBins")} == {
-        "kRows": ROWS_PER_BLOCK, "kMaxClasses": tp.MAX_CLASSES, "kSmemLimit": SMEM_LIMIT,
-        "kBins": DIGIT_BINS}
-    smem = _c_int_function("posterior_smem")
-    for k in PLAN_K + [3, 17, 1022]:
-        for es in (2, 4):
-            for prng in (0, 1):
-                for trunc in (0, 1):
-                    assert smem(k, es, prng, trunc) == posterior_smem(k, es, prng, trunc)
-    for line in ("const uintptr_t base = s & ~(uintptr_t)15, a = (s + 15) & ~(uintptr_t)15,",
-                 "b = e & ~(uintptr_t)15;",
-                 "const uintptr_t head = a < e ? a : e, tail = a > b ? a : b;",
-                 "const int lbytes = align16(kRows * km1 * (int)sizeof(T) + 16);",
-                 "const unsigned blocks = (unsigned)((rows + kRows - 1) / kRows);"):
-        assert line in src, line
-
-
-def test_plan_refuses_what_the_kernel_refuses():
-    with pytest.raises(ValueError):
-        posterior_plan(1, 4, tp.MAX_CLASSES + 1, torch.float32, False, 0)
-    with pytest.raises(ValueError):
-        posterior_plan(1, 4, 1, torch.float32, False, 0)
-    with pytest.raises(ValueError):
-        posterior_plan(1, 4, 16, torch.float32, False, 17)
-    # the widest row fits: 2048 bf16 classes with Gumbel, keys and histograms
-    assert posterior_plan(16, 256, 2048, torch.bfloat16, False, 2048).smem == (
-        16400 + 32784 + 4 * 2047 * 4 + 4 * 256 * 4)
+    assert int(re.search(r"constexpr int kMaxClasses = (\d+);", src).group(1)) == tp.MAX_CLASSES
+    assert "static_assert(posterior_smem(kMaxClasses, 4, false, true) <= kSmemLimit" in src
 
 
 @pytest.mark.parametrize("km1,dtype,prng,trunc_k,by_bytes,by_ops", [

@@ -78,6 +78,7 @@ namespace {
 constexpr int kRows = 4;             // rows a block, one warp each
 constexpr int kMaxClasses = 2048;    // the widest row (K) the kernel takes
 constexpr int kSmemLimit = 232448;   // shared memory a block may use
+constexpr int kSmemDefault = 49152;  // what a block may use without opting in
 constexpr int kBins = 256;           // the top-r select's 8-bit digits
 constexpr float kLogEps = -70.0f;
 constexpr float kMasked = -3e38f;
@@ -156,19 +157,20 @@ __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__host__ __device__ __forceinline__ int align16(int x) { return (x + 15) & ~15; }
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
 // Shared memory of one block: the logits span (kRows rows of K - 1 values
 // and up to 15 bytes of lead), the Gumbel span (B6); when trunc_k > 0 the
 // keys of bf16 rows (f32 rows keep them over their logits) and a 256-bin
 // histogram a warp.
-__host__ __device__ int posterior_smem(int K, int es, int prng, int trunc) {
-  const int logits = align16(kRows * (K - 1) * es + 16);
-  const int noise = prng ? 0 : align16(kRows * K * 4 + 16);
-  const int keys = trunc && es != 4 ? kRows * (K - 1) * 4 : 0;
-  const int hist = trunc ? kRows * kBins * 4 : 0;
-  return logits + noise + keys + hist;
+__host__ __device__ constexpr int posterior_smem(int K, int es, bool prng, bool trunc) {
+  return align16(kRows * (K - 1) * es + 16) + (prng ? 0 : align16(kRows * K * 4 + 16)) +
+         (trunc && es != 4 ? kRows * (K - 1) * 4 : 0) + (trunc ? kRows * kBins * 4 : 0);
 }
+// the widest row fits in either type, so no K the kernel takes is refused
+static_assert(posterior_smem(kMaxClasses, 4, false, true) <= kSmemLimit &&
+                  posterior_smem(kMaxClasses, 2, false, true) <= kSmemLimit,
+              "a block of the widest rows exceeds the shared memory of a block");
 
 // Copy the n elements at src into dst + (src % 16), dst 16-byte aligned:
 // 16-byte cp.async pieces between the first and the last 16-byte boundary
@@ -444,13 +446,10 @@ int launch(const void* logits, const void* x_t, const void* coefs, const void* n
   const long long rows = (long long)B * N;
   if (rows == 0) return 0;
   const int smem = posterior_smem(K, (int)sizeof(T), kPrng, trunc_k > 0);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  static bool opted_in = false;
-  if (!opted_in) {
+  if (smem > kSmemDefault) {   // the opt-in is the current device's: set it at every launch
     const cudaError_t err = cudaFuncSetAttribute(
-        posterior_kernel<T, kPrng>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+        posterior_kernel<T, kPrng>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
   }
   const unsigned blocks = (unsigned)((rows + kRows - 1) / kRows);
   posterior_kernel<T, kPrng><<<blocks, kRows * 32, smem, (cudaStream_t)stream>>>(

@@ -9,10 +9,10 @@ first call), prints each kernel instance's registers, stack frame and
 spills from the build log, and times B6 (``fused_posterior_sample``) and
 B7 (``fused_posterior_sample_prng``) at both priors' shapes (logits
 [16, 256, 1023] for VQ_Official, [16, 256, 1024] for the transformer),
-trunc_k 0 and 881, f32 and bf16 logits: device ms a call by CUDA events
-over a CUDA graph of calls, ms a call issued one by one, the share of rows
-equal to the plain version's, the plain version's ms, and the bound with
-what sets it. It calls only the public wrappers, so the same file copied
+trunc_k 0 and 881, f32 and bf16 logits: ms a call by CUDA events over
+calls issued one by one (as ``chip_smoke.py`` times every kernel), device
+ms a call over a CUDA graph of calls, the share of rows equal to the plain
+version's, the plain version's ms, and the bound with what sets it. It calls only the public wrappers, so the same file copied
 into an older tree (with ``utils/profiling.py``) times that tree's kernels.
 
 Without it:
@@ -87,14 +87,14 @@ def posterior() -> None:
                     def call():
                         return fn(logits, x_t, coefs, noise, trunc_k=trunc_k)
                     equal = (call() == plain(logits, x_t, coefs, noise, trunc_k)).float().mean()
-                    ms = cuda_graph_ms(call)
-                    issued_ms = cuda_ms(call, 50)
+                    ms = cuda_ms(call, 50)
+                    graph_ms = cuda_graph_ms(call)
                     plain_ms = cuda_ms(lambda: plain(logits, x_t, coefs, noise, trunc_k), 3)
                     by_bytes, by_ops = posterior_bound(B, N, km1, dtype, label == "B7", trunc_k,
                                                        card)
                     print(f"{prior} {label} logits [{B}, {N}, {km1}] {dtype} trunc_k {trunc_k}: "
-                          f"kernel {ms:.4f} ms (CUDA graph), {issued_ms:.4f} ms issued one by "
-                          f"one, {100 * equal.item():.3f}% rows equal to plain, plain "
+                          f"kernel {ms:.4f} ms issued one by one, {graph_ms:.4f} ms in a CUDA "
+                          f"graph, {100 * equal.item():.3f}% rows equal to plain, plain "
                           f"{plain_ms:.4f} ms, bound {max(by_bytes, by_ops):.4f} ms by "
                           f"{'bytes' if by_bytes >= by_ops else 'operations'}; {card}")
             del logits
