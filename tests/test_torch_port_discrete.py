@@ -419,3 +419,48 @@ def test_wrapper_rejects_bad_arguments():
         tp.fused_posterior_sample(meta, x_t, coefs, gumbel)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         tp.fused_posterior_sample_prng(meta, x_t, coefs, torch.zeros(b, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("method", ["sample", "fast_sample"])
+def test_wide_prior_routes_past_the_kernel(monkeypatch, method):
+    """A transformer prior on a 2048-code VQVAE has K = 2049, one class past
+    the kernel's widest row. Under fused_posterior on and prng it samples
+    with both wrappers raising, as the JAX package routes past fits_vmem:
+    'on' gives the plain route's indices on the same generator; 'prng' gives
+    the plain route's indices with its Philox noise injected (recorded from
+    the run's seeds)."""
+    from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
+        TransformerVQDiffusion as TorchTVQ)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a posterior wrapper was called for K = 2049")
+    monkeypatch.setattr(td, "fused_posterior_sample", refuse)
+    monkeypatch.setattr(td, "fused_posterior_sample_prng", refuse)
+    tm = TorchTVQ(codebook_size=2048, seq_len=16, diffusion_steps=5, embedding_dim=16,
+                  num_layers=1, num_heads=2)
+    assert tm.num_classes == tp.MAX_CLASSES + 1
+    tm.predictor.init_weights(torch.Generator().manual_seed(0))
+    run = getattr(tm, method)
+
+    def sample(fused, **kwargs):
+        tm.diffusion.fused_posterior = fused
+        return run(2, **kwargs)
+
+    plain = sample(False, generator=torch.Generator().manual_seed(1))
+    on = sample(True, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(on, plain)
+
+    noise = []
+    draw = td.DiscreteDiffusion._noise
+
+    def record(self, *args, **kwargs):
+        noise.append(draw(self, *args, **kwargs))
+        return noise[-1]
+    monkeypatch.setattr(td.DiscreteDiffusion, "_noise", record)
+    prng = sample("prng", generator=torch.Generator().manual_seed(1))
+    monkeypatch.setattr(td.DiscreteDiffusion, "_noise", draw)
+    assert noise[0].dtype == torch.float32 and all(s.dtype == torch.int32 for s in noise[1:])
+    gumbel = [noise[0]] + [tp.gumbel_from_bits(tp.philox_bits(s, 16, tm.num_classes))
+                           for s in noise[1:]]
+    assert 0 <= int(prng.min()) and int(prng.max()) <= 2047
+    assert torch.equal(prng, sample(False, step_gumbel=gumbel))
