@@ -1,8 +1,13 @@
 """VQ-VAE: encoder -> quant conv -> codebook -> post-quant conv -> decoder
 (PyTorch counterpart of the JAX ``models/vqvae.py``).
 
-The public functions (``encode``, ``decode``, ``decode_indices``) take and
-return NHWC tensors, as the JAX package's do; the convolutions run in NCHW.
+The public functions (``forward``, ``encode``, ``decode``, ``decode_indices``)
+take and return NHWC tensors, as the JAX package's do; the convolutions run
+in NCHW. ``adopt_weight`` is the discriminator's warm-up gate.
+
+Dropout follows ``module.training`` here; the JAX package applies none
+while it trains (its step calls the VQVAE with ``deterministic=True``), so
+the port's training step keeps the VQVAE in eval mode.
 """
 
 from __future__ import annotations
@@ -86,6 +91,11 @@ class VQVAE(nn.Module):
         nn.init.uniform_(self.codebook.codebook.weight, -1.0 / k, 1.0 / k,
                          generator=generator)
 
+    def forward(self, x: torch.Tensor):
+        """x [B, H, W, C] -> (decoded [B, H, W, C], indices [B, h, w], vq loss)."""
+        z_q, indices, q_loss = self.encode(x)
+        return self.decode(z_q), indices, q_loss
+
     def encode(self, x: torch.Tensor):
         """x [B, H, W, C] -> (z_q [B, h, w, D], indices [B, h, w], vq loss)."""
         h = self.quant_conv(self.encoder(_nchw(x)))
@@ -99,3 +109,9 @@ class VQVAE(nn.Module):
         """Token indices [B, h, w] or [B, h*w] -> images [B, H, W, C]."""
         b, grid = indices.shape[0], self.latent_size
         return self.decode(self.codebook.lookup(indices.reshape(b, grid, grid)))
+
+
+def adopt_weight(disc_factor: float, step: int, threshold: int, value: float = 0.0) -> float:
+    """The discriminator's warm-up gate: ``value`` before step ``threshold``,
+    ``disc_factor`` from it on."""
+    return value if step < threshold else disc_factor

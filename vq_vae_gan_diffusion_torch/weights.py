@@ -231,3 +231,28 @@ def transformer_predictor_state_from_jax(params: Dict[str, Any]) -> State:
         i += 1
     _dense(out, "fc", params["fc"])
     return out
+
+
+def discriminator_state_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> State:
+    """The JAX Discriminator's params and batch statistics -> the port
+    Discriminator's ``state_dict`` (``model.0``, ``model.2/3``, ``model.5/6``,
+    ``model.8/9``, ``model.11``)."""
+    out: State = {}
+    _conv(out, "model.0", params["conv0"])
+    for i, base in enumerate((2, 5, 8), start=1):
+        _conv(out, f"model.{base}", params[f"conv{i}"])
+        _bn(out, f"model.{base + 1}", params[f"bn{i}"], batch_stats[f"bn{i}"])
+    _conv(out, "model.11", params["conv_out"])
+    return out
+
+
+def lpips_state_from_jax(params: Dict[str, Any]) -> State:
+    """The JAX LPIPS params (``vgg/conv{s}_{i}/kernel|bias`` HWIO, ``lin{i}``)
+    -> the port LPIPS's ``state_dict``."""
+    out: State = {}
+    for name, sub in params["vgg"].items():
+        _conv(out, f"vgg.{name}", sub)
+    for key, value in params.items():
+        if key != "vgg":
+            out[key] = _t(np.asarray(value).reshape(-1))
+    return out
