@@ -1,9 +1,12 @@
 """The checkpoints the port's serving workers read.
 
-Two forms, both files written by ``torch.save``:
+Three forms, all files written by ``torch.save``:
 
 - the port's own bundle, ``{"vqvae": state_dict, "gpt" | "unet": state_dict}``
   (either part may be left out);
+- a stage-1 training checkpoint of the port, ``{"state": {"vqvae": ...,
+  "disc": ..., "opt_g": ..., ...}, "step", "epoch"}``, of which the serving
+  workers read the VQVAE;
 - a bare ``state_dict`` of one module, as ``tools/export_torch_checkpoint.py``
   writes it from an Orbax checkpoint of the JAX package: the VQVAE
   (``vqvae``/``vqgan``), the minGPT prior (``*_transformer``) or the
@@ -37,8 +40,8 @@ State = Dict[str, torch.Tensor]
 def _refuse(path: str, why: str) -> ValueError:
     return ValueError(
         f"checkpoint {path} {why}. The port reads a torch.save file: its own bundle "
-        "{'vqvae': ..., 'gpt' | 'unet': ...}, or a bare VQVAE, minGPT or ShuffleNet "
-        f"denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
+        "{'vqvae': ..., 'gpt' | 'unet': ...}, its stage-1 training checkpoint, or a bare "
+        f"VQVAE, minGPT or ShuffleNet denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
         "--config <yml> --ckpt <dir> --out <file>.pth (add --ema for a diffusion prior)")
 
 
@@ -61,6 +64,9 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
         if len(kinds) != 1:
             raise _refuse(path, "is a state_dict of no module the port serves")
         return {kinds[0]: state}
+    if {"state", "step", "epoch"} <= set(state) and isinstance(state["state"], dict) \
+            and isinstance(state["state"].get("vqvae"), dict):
+        return {"vqvae": state["state"]["vqvae"]}
     if set(state) <= set(_MARKERS) and all(isinstance(v, dict) for v in state.values()):
         return dict(state)
     raise _refuse(path, f"has keys {sorted(map(str, state))[:6]} of no known form")

@@ -138,6 +138,17 @@ def resolve_img_channels(cfg: Config) -> int:
     return int(cfg.dataset.img_channels[ds])
 
 
+def resolve_batch_size(cfg: Config, model_name: str | None = None) -> int:
+    """batch_size[model][dataset] (reference build_dataloader.py:30-35);
+    models the table does not name read the ``vqvae`` row."""
+    ds = cfg.dataset.dataset_name
+    model = model_name or cfg.architecture.model_name
+    table = cfg.dataset.batch_size
+    if model not in table:
+        model = "vqgan_transformer" if model in TRANSFORMER_MODELS else "vqvae"
+    return int(table[model][ds])
+
+
 def seq_len(cfg: Config) -> int:
     """Token sequence length of the stage-1 latent grid: latent_size².
 

@@ -1,0 +1,127 @@
+"""Host data pipeline (the port's own copy of the JAX package's
+``data/pipeline.py``): ``load_dataloader(name, split, logger, config)``
+returns a :class:`DataLoader` of float32 NHWC numpy batches.
+
+As the JAX package's:
+
+- the batch size from the ``batch_size[model][dataset]`` table;
+- MNIST: 4000 train / 1000 val samples, the train split shuffled with its
+  last short batch dropped;
+- where the dataset is not on disk, a warning and :class:`SyntheticDataset`
+  of 64 (train) or 16 (val) x max(1, batch // 8) images, or the config's
+  ``max_{train,val}_samples``.
+
+There is no device prefetch and no device-resident dataset cache: the
+training loop copies each batch to the device as it takes it.
+"""
+
+from __future__ import annotations
+
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional
+
+import numpy as np
+
+from ..config import Config, resolve_batch_size, resolve_img_channels, resolve_img_size
+from .datasets import ArrayDataset, MNISTDataset, SyntheticDataset
+from .transforms import Preprocessor
+
+log = logging.getLogger(__name__)
+
+# the ROADMAP item that ports each reader still missing
+_LATER_READERS = {"cifar10": "A5", "Oxford102Flower": "A5", "InterHand26M": "A5"}
+
+
+class DataLoader:
+    """Epoch iterator over an ArrayDataset: each pass shuffles with a fresh
+    per-epoch seed (when ``shuffle``), decodes samples on a thread pool and
+    yields float32 NHWC batches."""
+
+    def __init__(self, dataset: ArrayDataset, batch_size: int, preprocess: Preprocessor,
+                 shuffle: bool = True, drop_last: bool = True, seed: int = 0,
+                 num_threads: int = 4, max_samples: Optional[int] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.preprocess = preprocess
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.num_threads = max(1, num_threads)
+        n = len(dataset)
+        self.n = min(n, max_samples) if max_samples else n
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        if self.drop_last:
+            return self.n // self.batch_size
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        self._epoch += 1
+
+        def fetch(i: int) -> np.ndarray:
+            return self.preprocess(self.dataset.get_image(int(i)))
+
+        with ThreadPoolExecutor(self.num_threads) as pool:
+            for start in range(0, self.n, self.batch_size):
+                idxs = order[start:start + self.batch_size]
+                if len(idxs) < self.batch_size and self.drop_last:
+                    break
+                yield np.stack(list(pool.map(fetch, idxs)))
+
+
+def load_dataloader(name: Optional[str] = None, split: str = "train",
+                    logger: Optional[logging.Logger] = None,
+                    config: Optional[Config] = None, seed: int = 0):
+    """(DataLoader, dataset) for ``split`` of dataset ``name`` (default: the
+    config's)."""
+    if config is None:
+        raise ValueError("load_dataloader needs a config")
+    logger = logger or log
+    name = name or config.dataset.dataset_name
+    if name in _LATER_READERS:
+        raise NotImplementedError(f"the {name} reader is not ported yet: see ROADMAP.md, "
+                                  f"{_LATER_READERS[name]}")
+    img_size = resolve_img_size(config)
+    channels = resolve_img_channels(config)
+    batch_size = resolve_batch_size(config)
+    num_threads = int(config.trainer.get("num_workers", 4) or 1)
+    mean, std = list(config.dataset.mean), list(config.dataset.std)
+    train = split == "train"
+    root = config.dataset.get("data_root", "data")
+
+    max_samples = None
+    try:
+        if name == "mnist":
+            dataset = MNISTDataset(root, train=train)
+            prep = Preprocessor(img_size, (0.5,), (0.5,), grayscale=True)
+            max_samples = 4000 if train else 1000
+        elif name == "synthetic":
+            raise FileNotFoundError("synthetic requested explicitly")
+        else:
+            raise ValueError(f"unknown dataset {name!r}")
+    except FileNotFoundError as e:
+        if name != "synthetic":
+            logger.warning("dataset %s unavailable (%s); using synthetic fallback", name, e)
+        n = 64 * max(1, batch_size // 8) if train else 16 * max(1, batch_size // 8)
+        ms = config.dataset.get("max_train_samples" if train else "max_val_samples")
+        if isinstance(ms, (int, float)) and np.isfinite(ms):
+            n = int(ms)
+        dataset = SyntheticDataset(num_samples=max(n, batch_size), img_size=img_size,
+                                   channels=channels, seed=seed)
+        prep = Preprocessor(img_size, mean[:channels] or [0.5], std[:channels] or [0.5],
+                            grayscale=channels == 1)
+
+    cfg_max = config.dataset.get("max_train_samples" if train else "max_val_samples")
+    if isinstance(cfg_max, (int, float)) and np.isfinite(cfg_max):
+        max_samples = min(int(cfg_max), max_samples or int(cfg_max))
+    shuffle = bool(config.dataset.get("train_shuffle", True)) if train else False
+    loader = DataLoader(dataset, batch_size, prep, shuffle=shuffle, drop_last=train, seed=seed,
+                        num_threads=num_threads, max_samples=max_samples)
+    logger.info("Number of %s samples: %d (batch %d, %d batches)",
+                split, loader.n, batch_size, len(loader))
+    return loader, dataset

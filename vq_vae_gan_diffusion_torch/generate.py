@@ -1,5 +1,6 @@
 """Generation entry point of the port (mirrors the root ``generate.py`` for the
-``*_transformer`` models and the gaussian3d ``vqdiffusion`` prior).
+stage-1 ``vqvae`` / ``vqgan`` models, the ``*_transformer`` models and the
+``vqdiffusion`` priors).
 
 Usage::
 
@@ -8,7 +9,11 @@ Usage::
         [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off] \\
         [--fused-posterior on|off|prng]
 
-Samples ``--n-samples`` index grids with the config's prior (the GPT prior
+For ``vqvae`` / ``vqgan`` it writes ``val_recon_epoch0.jpg``: the first
+``--n-samples`` images of the val split over the VQVAE's reconstructions
+(the VQVAE from ``architecture.vqvae.resume_path`` or ``--ckpt``, a
+training checkpoint of ``python -m vq_vae_gan_diffusion_torch.train``
+included). Otherwise it samples ``--n-samples`` index grids with the config's prior (the GPT prior
 for ``vqvae_transformer`` / ``vqgan_transformer``; for ``vqdiffusion`` the
 gaussian3d diffusion prior, as in ``configs/inference_config_vqdiffusion.yml``,
 or the discrete ``VQ_Official`` prior, as in
@@ -41,11 +46,10 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from .config import TRANSFORMER_MODELS, load_config, validate
+from .config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
 
 # the ROADMAP slice that ports each family's generation path
 _LATER_SLICES = {
-    "vqvae": "slice 2 (stage-1 VQGAN)", "vqgan": "slice 2 (stage-1 VQGAN)",
     "gaussiandiffusion3d": "slice 4 (pixel-space gaussian3d worker)",
     "c_vqdiffusion": "slice 7 (other families)",
     "v_vqdiffusion": "slice 7 (other families)",
@@ -80,7 +84,7 @@ def run(argv: Optional[Sequence[str]] = None,
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in TRANSFORMER_MODELS + ("vqdiffusion",):
+    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion",):
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
@@ -99,7 +103,7 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
-    from .train import VQDiffusionWorker, VQTransformerWorker
+    from .train import VQDiffusionWorker, VQGANVQVAEWorker, VQTransformerWorker
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -107,6 +111,8 @@ def run(argv: Optional[Sequence[str]] = None,
     run_dir = create_run_dir(str(config.trainer.log_dir), dataset_name,
                              f"{model_name}_generate", args.config)
     logger = setup_logging(run_dir)
+    if model_name in VQ_STAGE1_MODELS:
+        return dict(_reconstruct(config, run_dir, logger, args, str(device)), run_dir=run_dir)
     worker_cls = VQDiffusionWorker if model_name == "vqdiffusion" else VQTransformerWorker
     worker = worker_cls(config, run_dir, logger, seed=args.seed, device=str(device))
     worker.init_state()
@@ -119,6 +125,24 @@ def run(argv: Optional[Sequence[str]] = None,
     result = worker.generate_images(None, n_samples=args.n_samples, epoch=0)
     logger.info("artifacts written to %s", run_dir)
     return dict(result, run_dir=run_dir)
+
+
+def _reconstruct(config, run_dir: str, logger, args, device: str) -> Dict[str, object]:
+    """The stage-1 models' artifact: the val split's reconstruction grid."""
+    from .checkpoint import restore
+    from .data import load_dataloader
+    from .train import VQGANVQVAEWorker
+
+    worker = VQGANVQVAEWorker(config, run_dir, logger, seed=args.seed, device=device)
+    worker.state = worker.init_state()
+    if args.ckpt:
+        restore(args.ckpt, {"vqvae": worker.state.vqvae}, logger, "stage-1")
+    val_loader, _ = load_dataloader(config.dataset.dataset_name, "val", logger, config,
+                                    seed=args.seed)
+    result = worker.generate_images(val_loader, n_samples=args.n_samples, epoch=0)
+    worker.metrics.close()
+    logger.info("artifacts written to %s", run_dir)
+    return result
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -1,4 +1,5 @@
 from .vq_diffusion_worker import VQDiffusionWorker
 from .vq_transformer_worker import VQTransformerWorker
+from .vqgan_worker import VQGANVQVAEWorker
 
-__all__ = ["VQDiffusionWorker", "VQTransformerWorker"]
+__all__ = ["VQDiffusionWorker", "VQTransformerWorker", "VQGANVQVAEWorker"]

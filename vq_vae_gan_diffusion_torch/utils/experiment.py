@@ -1,12 +1,14 @@
-"""Run directories and logging (counterpart of the JAX ``utils/experiment.py``)."""
+"""Run directories, logging, the artifact cadence and the metric writer
+(counterpart of the JAX ``utils/experiment.py``)."""
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 
 def create_run_dir(log_dir: str, dataset_name: str, model_name: str,
@@ -33,3 +35,35 @@ def setup_logging(run_dir: str, name: str = "vqgd_torch") -> logging.Logger:
     logger.addHandler(fh)
     logger.addHandler(sh)
     return logger
+
+
+def adaptive_save_step(num_batches: int) -> int:
+    """Steps between artifacts, scaled with the epoch's length (reference
+    vqganVqvaeWorker.py:121-136)."""
+    if num_batches > 1000:
+        return 500
+    if num_batches > 500:
+        return 250
+    if num_batches > 100:
+        return 50
+    if num_batches > 10:
+        return 5
+    return 2
+
+
+class MetricWriter:
+    """``metrics.jsonl`` in the run dir, one ``{"step": ..., **metrics}``
+    line a call, written and flushed before the call returns."""
+
+    def __init__(self, run_dir: str):
+        os.makedirs(run_dir, exist_ok=True)
+        self.path = os.path.join(run_dir, "metrics.jsonl")
+        self._f = open(self.path, "a")
+
+    def write(self, step: int, metrics: Dict[str, float]) -> None:
+        self._f.write(json.dumps({"step": int(step), **{k: float(v) for k, v in
+                                                        metrics.items()}}) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()

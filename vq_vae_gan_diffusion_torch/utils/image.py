@@ -44,3 +44,16 @@ def save_image(img: np.ndarray, path: str) -> None:
     if img.shape[-1] == 1:
         img = img[..., 0]
     Image.fromarray(img).save(path)
+
+
+def save_gif(frames: Sequence[np.ndarray], path: str, fps: int = 2,
+             max_frames: int = 50) -> None:
+    """Write the last ``max_frames`` HWC uint8 frames as a looping GIF (the
+    reference's rolling reconstruction GIF)."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    imgs = [Image.fromarray(f[..., 0] if f.shape[-1] == 1 else f)
+            for f in list(frames)[-max_frames:]]
+    imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=1000 // fps,
+                 loop=0)
