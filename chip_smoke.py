@@ -87,7 +87,24 @@ Phases, each printed as it runs; any failure exits non-zero:
   (n) the int8kv kernel route against the plain route (the model on the
       CPU), 32 tokens at temperature 1e-4 after the same prefix with the
       same noise, both routes stepping through the plain route's sequence:
-      at least 99% of tokens equal.
+      at least 99% of tokens equal;
+  (o) stage-1 training on configs/training_config_mnist.yml at full width
+      (VQVAE latent 64 at 7x7, channels [64, 128, 128], 1024 codes; PatchGAN
+      64-128-256-512; LPIPS VGG16; synthetic data, as the card's machine
+      holds no data/): ``python -m vq_vae_gan_diffusion_torch.train
+      --debug`` writes metrics.jsonl and a checkpoint; ``train_step`` at
+      batch 200 @ 28x28x1, f32, warm, before disc_start (disc_factor 0) and
+      after it (disc_factor 1, lambda > 0 and finite): ms a step, images/s,
+      peak device memory, and through torch.profiler the device's busy share
+      and the top kernels, printed as one JSON line; one step from the same
+      weights and batch on the card and on the CPU: at least 99.9% of
+      codebook indices equal, every metric within 1e-3 relative, every
+      parameter within 2 lr of the CPU's and 99% within lr / 10, running
+      statistics within 1e-4; then a K = 2049 transformer prior (2048
+      codes, width 64) samples under fused_posterior on and prng with no
+      posterior-kernel launch, its indices in [0, 2047]. Stage 1 runs no
+      hand-written kernel: its convolutions are cuDNN's, its products
+      cuBLAS's.
 
 Each path, (d), (g), (j), (m) and each run of (k), runs with every kernel's
 launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
@@ -124,6 +141,8 @@ GAUSSIAN_DIM, STEPS = 96, 1000
 # (chain cut to 20), the transformer's K = 1025 over 100 steps
 VQO_K, VQO_T, VQO_STEPS = 1024, 1000, 20
 TVQ_K, TVQ_T, TRUNC_K = 1025, 100, int(1025 * 0.86)
+# stage-1 training: the benchmark workload of the root bench.py
+TRAIN_CONFIG, TRAIN_B, TRAIN_STEPS = "configs/training_config_mnist.yml", 200, 10
 
 
 def phase_device() -> str:
@@ -1129,6 +1148,164 @@ def phase_int8kv_routes() -> None:
         raise AssertionError(f"int8kv kernel and plain routes agree on only {100 * agree:.2f}%")
 
 
+def train_cli_run(log_dir: str) -> None:
+    """(o) the train CLI in debug mode: two full-width steps on the card."""
+    import glob
+    import os
+
+    from vq_vae_gan_diffusion_torch.train import cli
+
+    out = cli.run(["--config", TRAIN_CONFIG, "--debug"], overrides={"trainer.log_dir": log_dir})
+    with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ckpts = glob.glob(os.path.join(out["run_dir"], "ckpt", "step_*.pth"))
+    if [r["step"] for r in rows[:2]] != [1, 2] or not all(
+            math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"(o) metrics.jsonl rows {rows}")
+    if len(ckpts) != 1 or torch.load(ckpts[0], weights_only=True)["step"] != 2:
+        raise AssertionError(f"(o) checkpoints {ckpts}")
+    print(f"(o) train CLI --debug on the card: {len(rows)} metrics.jsonl rows, last step "
+          f"{rows[1]}; checkpoint {os.path.basename(ckpts[0])}")
+
+
+def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
+    """(o) warm ms a train_step at full width before and after disc_start,
+    peak device memory, and a torch.profiler window of three steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = worker.state
+
+    def steps(n: int) -> dict:
+        for _ in range(n):
+            _, metrics = worker.train_step(state, batch)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in metrics.items()}
+
+    def timed(n: int) -> tuple:
+        steps(2)
+        t0 = time.perf_counter()
+        metrics = steps(n)
+        return 1e3 * (time.perf_counter() - t0) / n, metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    ms_before, m_before = timed(TRAIN_STEPS)
+    state.step = worker.disc_start
+    ms_after, m_after = timed(TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if m_before["disc_factor"] != 0.0 or m_after["disc_factor"] != 1.0:
+        raise AssertionError(f"(o) disc_factor {m_before['disc_factor']}, {m_after['disc_factor']}")
+    if not (m_after["lambda"] > 0 and all(math.isfinite(v) for v in m_after.values())):
+        raise AssertionError(f"(o) metrics after disc_start {m_after}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(3)
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"(o) train_step [{TRAIN_B}, 28, 28, 1] f32 warm: {ms_before:.3f} ms before disc_start, "
+          f"{ms_after:.3f} ms after ({1e3 * TRAIN_B / ms_after:.1f} images/s), peak "
+          f"{peak:.3f} GiB; profiled 3 steps: device {dev_ms / 3:.3f} ms a step, busy "
+          f"{100 * dev_ms / window_ms:.1f}% of {window_ms / 3:.3f} ms; {card}")
+    print(f"(o) metrics after disc_start: {m_after}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"(o)   {e.self_device_time_total / 3e3:9.3f} ms a step "
+              f"{e.count / 3:6.1f} launches  {e.key[:90]}")
+    return {"config": TRAIN_CONFIG, "batch": TRAIN_B, "dtype": "float32",
+            "ms_before_disc_start": ms_before, "ms_after_disc_start": ms_after,
+            "images_per_s": 1e3 * TRAIN_B / ms_after, "peak_gib": peak,
+            "device_ms_per_step": dev_ms / 3, "device_busy_share": dev_ms / window_ms,
+            "card": card}
+
+
+def card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(o) one step at full width from the same seeded weights and batch on
+    the card and on the CPU, both at disc_start."""
+    from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        w = VQGANVQVAEWorker(cfg, log_dir, device=device)
+        state = w.init_state()
+        state.step = w.disc_start
+        x = torch.from_numpy(batch).to(device)
+        with torch.no_grad():
+            idx = state.vqvae.encode(x)[1].cpu()
+        t0 = time.perf_counter()
+        _, metrics = w.train_step(state, x)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        params = {f"vqvae.{k}": v.cpu() for k, v in state.vqvae.state_dict().items()}
+        params.update({f"disc.{k}": v.cpu() for k, v in state.disc.state_dict().items()})
+        runs[device] = (idx, metrics, params, sec)
+    (gi, gm, gp, gsec), (ci, cm, cp, csec) = runs["cuda"], runs["cpu"]
+    same = (gi == ci).double().mean().item()
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
+    lr = float(cfg.trainer.vqvae.learning_rate)
+    diffs = {k: (gp[k].double() - cp[k].double()).abs() for k in cp if "num_batches" not in k}
+    stats = max(float(d.max()) for k, d in diffs.items() if "running" in k)
+    weights = torch.cat([d.flatten() for k, d in diffs.items() if "running" not in k])
+    near = (weights <= lr / 10).double().mean().item()
+    print(f"(o) one step on the card against the CPU ({csec:.1f} s on the CPU): {100 * same:.3f}% "
+          f"of {gi.numel()} indices equal; worst metric {max(rel, key=rel.get)} "
+          f"{max(rel.values()):.3e} relative; parameters max diff {float(weights.max()):.3e} "
+          f"(2 lr = {2 * lr:.3e}), {100 * near:.3f}% within lr / 10; running statistics "
+          f"max diff {stats:.3e}")
+    if same < 0.999 or max(rel.values()) > 1e-3 or float(weights.max()) > 2 * lr + 1e-6 \
+            or near < 0.99 or stats > 1e-4:
+        raise AssertionError("(o) the card's step departs from the CPU's")
+
+
+def wide_prior_routes() -> None:
+    """(o) C3: a K = 2049 transformer prior samples on the card under
+    fused_posterior on and prng with no posterior-kernel launch."""
+    from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
+        TransformerVQDiffusion)
+
+    tvq = TransformerVQDiffusion(codebook_size=2048, seq_len=N, diffusion_steps=8,
+                                 embedding_dim=64, num_layers=2, num_heads=4)
+    tvq.predictor.init_weights(torch.Generator().manual_seed(13))
+    tvq = tvq.cuda().eval()
+    for mode in (True, "prng"):
+        for method in ("sample", "fast_sample"):
+            tvq.diffusion.fused_posterior = mode
+            reset_counts()
+            idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(14))
+            torch.cuda.synchronize()
+            launches = read_counts()
+            if any(launches.values()) or tuple(idx.shape) != (B, 16, 16) or \
+                    int(idx.min()) < 0 or int(idx.max()) > 2047:
+                raise AssertionError(f"(o) K = 2049 {method} under {mode}: launches {launches}, "
+                                     f"indices {tuple(idx.shape)} in [{int(idx.min())}, "
+                                     f"{int(idx.max())}]")
+            print(f"(o) K = 2049 prior, {method}, fused_posterior {mode}: plain route, "
+                  f"0 kernel launches, indices in [{int(idx.min())}, {int(idx.max())}]")
+
+
+def phase_train(card: str) -> dict:
+    """(o): stage-1 training at full width; returns the step's numbers."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+    from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    train_cli_run(log_dir)
+    cfg = load_config(TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = next(iter(loader))
+    if batch.shape != (TRAIN_B, 28, 28, 1):
+        raise AssertionError(f"(o) batch {batch.shape}")
+    worker = VQGANVQVAEWorker(cfg, log_dir, device="cuda")
+    worker.state = worker.init_state()
+    numbers = train_step_times(worker, torch.from_numpy(batch).cuda(), card)
+    del worker
+    torch.cuda.empty_cache()
+    card_against_cpu(cfg, log_dir, batch, card)
+    wide_prior_routes()
+    return numbers
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1147,6 +1324,7 @@ def main() -> int:
     quant = phase_quant_kernels(card)
     quant_launches = phase_int8kv_path()
     phase_int8kv_routes()
+    print(json.dumps({"vqgan_train_step": phase_train(card)}))
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",
