@@ -95,8 +95,10 @@ Phases, each printed as it runs; any failure exits non-zero:
       --debug`` writes metrics.jsonl and a checkpoint; ``train_step`` at
       batch 200 @ 28x28x1, f32, warm, before disc_start (disc_factor 0) and
       after it (disc_factor 1, lambda > 0 and finite): ms a step, images/s,
-      peak device memory, and through torch.profiler the device's busy share
-      and the top kernels, printed as one JSON line; one step from the same
+      peak device memory, through torch.profiler the device's busy share
+      and the top kernels, and the step's layers timed alone (VQVAE, LPIPS,
+      one discriminator call, each forward and backward; both Adam steps),
+      printed as one JSON line; one step from the same
       weights and batch on the card and on the CPU: at least 99.9% of
       codebook indices equal, every metric within 1e-3 relative, every
       parameter within 2 lr of the CPU's and 99% within lr / 10, running
@@ -1217,6 +1219,33 @@ def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
             "card": card}
 
 
+def train_layer_times(worker, batch: torch.Tensor, card: str) -> dict:
+    """(o) ms of the step's layers alone at its shapes, by CUDA events: the
+    VQVAE forward and backward, LPIPS forward and backward to the decoded
+    image, one discriminator call forward and backward, both Adam steps."""
+    state = worker.state
+    decoded = state.vqvae(batch)[0].detach()
+
+    def vqvae():
+        out, _, q_loss = state.vqvae(batch)
+        (out.square().mean() + q_loss).backward()
+
+    def lpips():
+        worker.lpips(batch, decoded.clone().requires_grad_(True)).mean().backward()
+
+    def disc():
+        state.disc(decoded.clone().requires_grad_(True)).mean().backward()
+
+    def adam():
+        state.opt_g.step()
+        state.opt_d.step()
+    times = {name: cuda_ms(fn, reps=5) for name, fn in
+             (("vqvae", vqvae), ("lpips", lpips), ("discriminator", disc), ("adam", adam))}
+    print(f"(o) the step's layers alone at batch {TRAIN_B}: " + ", ".join(
+        f"{name} {ms:.3f} ms" for name, ms in times.items()) + f"; {card}")
+    return times
+
+
 def card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
     """(o) one step at full width from the same seeded weights and batch on
     the card and on the CPU, both at disc_start."""
@@ -1299,6 +1328,7 @@ def phase_train(card: str) -> dict:
     worker = VQGANVQVAEWorker(cfg, log_dir, device="cuda")
     worker.state = worker.init_state()
     numbers = train_step_times(worker, torch.from_numpy(batch).cuda(), card)
+    numbers["layer_ms"] = train_layer_times(worker, torch.from_numpy(batch).cuda(), card)
     del worker
     torch.cuda.empty_cache()
     card_against_cpu(cfg, log_dir, batch, card)
