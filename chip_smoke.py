@@ -1202,7 +1202,10 @@ def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
         t0 = time.perf_counter()
         steps(3)
         window_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # CUDA-side events less the ranges the optimizer annotates (they
+    # overlap its kernels)
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"(o) train_step [{TRAIN_B}, 28, 28, 1] f32 warm: {ms_before:.3f} ms before disc_start, "
           f"{ms_after:.3f} ms after ({1e3 * TRAIN_B / ms_after:.1f} images/s), peak "
