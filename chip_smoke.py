@@ -96,7 +96,8 @@ Phases, each printed as it runs; any failure exits non-zero:
       batch 200 @ 28x28x1, f32, warm, before disc_start (disc_factor 0) and
       after it (disc_factor 1, lambda > 0 and finite): ms a step, images/s,
       peak device memory, through torch.profiler the device's busy share
-      and the top kernels, and the step's layers timed alone (VQVAE, LPIPS,
+      and the top kernels, the step's operations (torch.utils.flop_counter)
+      and its bound at the f32 peak, and the step's layers timed alone (VQVAE, LPIPS,
       one discriminator call, each forward and backward; both Adam steps),
       printed as one JSON line; one step from the same
       weights and batch on the card and on the CPU: at least 99.9% of
@@ -1174,6 +1175,7 @@ def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
     """(o) warm ms a train_step at full width before and after disc_start,
     peak device memory, and a torch.profiler window of three steps."""
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
 
     state = worker.state
 
@@ -1207,10 +1209,15 @@ def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
                and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    with FlopCounterMode(display=False) as flops:
+        steps(1)
+    bound_ms = 1e3 * flops.get_total_flops() / F32_PEAK_FLOPS
     print(f"(o) train_step [{TRAIN_B}, 28, 28, 1] f32 warm: {ms_before:.3f} ms before disc_start, "
           f"{ms_after:.3f} ms after ({1e3 * TRAIN_B / ms_after:.1f} images/s), peak "
           f"{peak:.3f} GiB; profiled 3 steps: device {dev_ms / 3:.3f} ms a step, busy "
-          f"{100 * dev_ms / window_ms:.1f}% of {window_ms / 3:.3f} ms; {card}")
+          f"{100 * dev_ms / window_ms:.1f}% of {window_ms / 3:.3f} ms; "
+          f"{flops.get_total_flops() / 1e12:.4f} TFLOP a step, bound {bound_ms:.3f} ms at the "
+          f"f32 peak; {card}")
     print(f"(o) metrics after disc_start: {m_after}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"(o)   {e.self_device_time_total / 3e3:9.3f} ms a step "
@@ -1219,6 +1226,7 @@ def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
             "ms_before_disc_start": ms_before, "ms_after_disc_start": ms_after,
             "images_per_s": 1e3 * TRAIN_B / ms_after, "peak_gib": peak,
             "device_ms_per_step": dev_ms / 3, "device_busy_share": dev_ms / window_ms,
+            "tflop_per_step": flops.get_total_flops() / 1e12, "bound_ms": bound_ms,
             "card": card}
 
 

@@ -1,6 +1,6 @@
 """The port's stage-1 training around the step: gradient accumulation and
 the InterHand26M hand mask against the JAX worker, remat against no remat,
-``lambda_mode: off``, the MNIST IDX reader and the synthetic dataset
+``lambda_mode: off``, ``train_multi_step``, the MNIST IDX reader and the synthetic dataset
 against the JAX package's readers and pipeline, and the ``train`` CLI on
 the CPU (debug run, checkpoint, resume, then ``generate``'s reconstruction
 grid from the checkpoint).
@@ -111,6 +111,24 @@ def test_remat_equals_no_remat_and_lambda_off(tiny_config):
         torch.testing.assert_close(p1[k], p0[k], rtol=0, atol=1e-6, msg=k)
     assert float(m2["lambda"]) == 1.0 and float(m0["lambda"]) != 1.0
     assert float(m2["gan_loss"]) > 0 and float(m2["disc_factor"]) == 1.0
+
+
+def test_train_multi_step_is_a_loop_of_steps(tiny_config):
+    """train_multi_step over [K, B, ...] batches: the state and last metrics
+    of K train_step calls (vqvae mode; the same seeded weights)."""
+    cfg = t_config_from_dict(tiny_config.to_dict())
+    batches = torch.from_numpy(np.random.RandomState(7).uniform(-1, 1, (2, 4, 32, 32, 3))
+                               .astype(np.float32))
+    a = TorchWorker(cfg, tempfile.mkdtemp(), device="cpu")
+    b = TorchWorker(cfg, tempfile.mkdtemp(), device="cpu")
+    sa, ma = a.train_multi_step(a.init_state(), batches)
+    sb = b.init_state()
+    for batch in batches:
+        sb, mb = b.train_step(sb, batch)
+    assert sa.step == sb.step == 2
+    assert all(torch.equal(ma[k], mb[k]) for k in METRICS)
+    pa, pb = sa.vqvae.state_dict(), sb.vqvae.state_dict()
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)
 
 
 def _write_idx(path, arr: np.ndarray, gz: bool) -> None:
