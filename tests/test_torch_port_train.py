@@ -1,8 +1,8 @@
 """The port's stage-1 training around the step: gradient accumulation and
 the InterHand26M hand mask against the JAX worker, remat against no remat,
-``lambda_mode: off``, ``train_multi_step``, the MNIST IDX reader and the synthetic dataset
-against the JAX package's readers and pipeline, and the ``train`` CLI on
-the CPU (debug run, checkpoint, resume, then ``generate``'s reconstruction
+``lambda_mode: off``, ``train_multi_step``, the MNIST IDX reader and the
+synthetic dataset against the JAX package's readers and pipeline, and the
+``train`` CLI on the CPU (debug run, checkpoint, resume, then ``generate``'s reconstruction
 grid from the checkpoint).
 
 Tolerances: metrics within 1e-4 relative and parameters as in

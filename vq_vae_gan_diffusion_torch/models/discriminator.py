@@ -11,14 +11,15 @@ indices (``model.0``, ``model.2/3``, ``model.5/6``, ``model.8/9``,
 ``model.11``), the names ``utils/torch_export.export_discriminator`` of the
 JAX package writes.
 
-BatchNorm as flax runs it, not as ``nn.BatchNorm2d.forward`` does:
+BatchNorm as the JAX step runs it (flax ``train=True``), not as
+``nn.BatchNorm2d.forward`` does:
 
-- ``train=True`` normalises with the batch statistics (eps 1e-5), and
-  ``train=False`` with the running ones;
+- it normalises with the batch statistics (eps 1e-5); the running ones are
+  kept for the checkpoint's sake, as the JAX package keeps them;
 - the running statistics move only when the caller asks
   (``update_stats=True``): the JAX step also runs the discriminator on
   batch statistics in calls that leave them as they are (the generator's
-  ``D(G(x))`` and the adaptive-lambda tails);
+  ``D(G(x))``, from which the adaptive lambda's gradient is taken too);
 - the update is flax's ``momentum=0.9`` (torch's 0.1) with the *biased*
   batch variance, where ``nn.BatchNorm2d`` would take the unbiased one.
 """
@@ -63,23 +64,15 @@ class Discriminator(nn.Module):
                 nn.init.zeros_(m.bias)
                 m.reset_running_stats()
 
-    def forward(self, x: torch.Tensor, *, train: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
-        """x [B, H, W, C] -> logits [B, h, w, 1]."""
+    def forward(self, x: torch.Tensor, *, update_stats: bool = False) -> torch.Tensor:
+        """x [B, H, W, C] -> logits [B, h, w, 1], on batch statistics."""
         h = x.permute(0, 3, 1, 2)
         for m in self.model:
-            if isinstance(m, nn.BatchNorm2d):
-                h = _batch_norm(m, h, train, update_stats)
-            else:
-                h = m(h)
+            h = _batch_norm(m, h, update_stats) if isinstance(m, nn.BatchNorm2d) else m(h)
         return h.permute(0, 2, 3, 1)
 
 
-def _batch_norm(bn: nn.BatchNorm2d, h: torch.Tensor, train: bool,
-                update_stats: bool) -> torch.Tensor:
-    if not train:
-        return F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                            training=False, eps=bn.eps)
+def _batch_norm(bn: nn.BatchNorm2d, h: torch.Tensor, update_stats: bool) -> torch.Tensor:
     if update_stats:
         with torch.no_grad():
             var, mean = torch.var_mean(h, dim=(0, 2, 3), correction=0)

@@ -111,7 +111,7 @@ class VQVAE(nn.Module):
         return self.decode(self.codebook.lookup(indices.reshape(b, grid, grid)))
 
 
-def adopt_weight(disc_factor: float, step: int, threshold: int, value: float = 0.0) -> float:
-    """The discriminator's warm-up gate: ``value`` before step ``threshold``,
+def adopt_weight(disc_factor: float, step: int, threshold: int) -> float:
+    """The discriminator's warm-up gate: 0 before step ``threshold``,
     ``disc_factor`` from it on."""
-    return value if step < threshold else disc_factor
+    return 0.0 if step < threshold else disc_factor

@@ -164,7 +164,6 @@ class TrainingWorker(Worker):
         self.metrics = MetricWriter(run_dir)
         self.global_step = 0
         self.state: Any = None
-        self.steps_per_dispatch = int(config.trainer.get("steps_per_dispatch", 1) or 1)
 
     def batch_to_device(self, batch) -> torch.Tensor:
         return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device, non_blocking=True)
@@ -234,12 +233,6 @@ class TrainingWorker(Worker):
             os.remove(old)
         self.logger.info("checkpoint %s", path)
         return path
-
-    def load(self, path: str) -> None:
-        """Restore a checkpoint :meth:`save` wrote."""
-        tree = torch.load(path, map_location="cpu", weights_only=True)
-        self.load_checkpoint_tree(tree)
-        self.logger.info("restored %s at step %d", path, self.global_step)
 
     def checkpoint_tree(self) -> Dict[str, Any]:
         raise NotImplementedError
