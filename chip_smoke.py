@@ -92,7 +92,8 @@ Phases, each printed as it runs; any failure exits non-zero:
       (VQVAE latent 64 at 7x7, channels [64, 128, 128], 1024 codes; PatchGAN
       64-128-256-512; LPIPS VGG16; synthetic data, as the card's machine
       holds no data/): ``python -m vq_vae_gan_diffusion_torch.train
-      --debug`` writes metrics.jsonl and a checkpoint; ``train_step`` at
+      --debug`` writes metrics.jsonl and a checkpoint, then one epoch at
+      batch 200 gives the loop's images/s; ``train_step`` at
       batch 200 @ 28x28x1, f32, warm, before disc_start (disc_factor 0) and
       after it (disc_factor 1, lambda > 0 and finite): ms a step, images/s,
       peak device memory, through torch.profiler the device's busy share
@@ -1169,6 +1170,13 @@ def train_cli_run(log_dir: str) -> None:
         raise AssertionError(f"(o) checkpoints {ckpts}")
     print(f"(o) train CLI --debug on the card: {len(rows)} metrics.jsonl rows, last step "
           f"{rows[1]}; checkpoint {os.path.basename(ckpts[0])}")
+    out = cli.run(["--config", TRAIN_CONFIG, "--epochs", "1"],
+                  overrides={"trainer.log_dir": log_dir})
+    with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    print(f"(o) train CLI, one epoch of {out['worker'].global_step} steps at batch {TRAIN_B} "
+          f"(synthetic images decoded on the host as it goes, the first step's setup "
+          f"included): {epoch['epoch_time_s']:.3f} s, {epoch['images_per_sec']:.1f} images/s")
 
 
 def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
