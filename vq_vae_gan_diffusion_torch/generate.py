@@ -140,7 +140,6 @@ def _reconstruct(config, run_dir: str, logger, args, device: str) -> Dict[str, o
     val_loader, _ = load_dataloader(config.dataset.dataset_name, "val", logger, config,
                                     seed=args.seed)
     result = worker.generate_images(val_loader, n_samples=args.n_samples, epoch=0)
-    worker.metrics.close()
     logger.info("artifacts written to %s", run_dir)
     return result
 

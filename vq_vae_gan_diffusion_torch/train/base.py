@@ -161,7 +161,7 @@ class TrainingWorker(Worker):
         super().__init__(config, run_dir, logger, seed, device)
         self.debug = debug
         self.save_ckpt_dir = save_ckpt_dir or os.path.join(run_dir, "ckpt")
-        self.metrics = MetricWriter(run_dir)
+        self.metrics: Optional[MetricWriter] = None
         self.global_step = 0
         self.state: Any = None
 
@@ -186,6 +186,11 @@ class TrainingWorker(Worker):
         validation grid. Returns the last metrics written."""
         if self.state is None:
             self.state = self.init_state()
+        with MetricWriter(self.run_dir) as self.metrics:
+            return self._epochs(dataloader, epochs, val_loader)
+
+    def _epochs(self, dataloader: Iterable, epochs: int,
+                val_loader: Optional[Iterable]) -> Dict[str, float]:
         save_step = adaptive_save_step(len(dataloader))
         metric_every, artifact_every = max(1, save_step // 5), save_step
         next_metric = next_artifact = self.global_step

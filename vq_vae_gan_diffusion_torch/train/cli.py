@@ -85,7 +85,6 @@ def run(argv: Optional[Sequence[str]] = None,
                               device=str(device))
     epochs = args.epochs or int(config.trainer.num_epochs)
     metrics = worker.train(train_loader, epochs, val_loader)
-    worker.metrics.close()
     logger.info("training done: %s", metrics)
     return {"worker": worker, "run_dir": run_dir, "metrics": metrics}
 

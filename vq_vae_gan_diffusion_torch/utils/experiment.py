@@ -67,3 +67,9 @@ class MetricWriter:
 
     def close(self) -> None:
         self._f.close()
+
+    def __enter__(self) -> "MetricWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
