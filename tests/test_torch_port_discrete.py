@@ -400,9 +400,10 @@ def test_wrapper_rejects_bad_arguments():
     assert check(x_t=x_t.int()).dtype == torch.int64
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         check(logits=logits.double())
-    with pytest.raises(ValueError, match="at most 2048"):
-        tp._check(torch.zeros(1, 1, 2048), torch.zeros(1, 1, dtype=torch.long),
-                  torch.zeros(1, 10), torch.zeros(1, 1, 2049), "gumbel", (1, 1, 2049),
+    wide = tp.MAX_CLASSES + 1
+    with pytest.raises(ValueError, match=f"at most {tp.MAX_CLASSES}"):
+        tp._check(torch.zeros(1, 1, wide - 1), torch.zeros(1, 1, dtype=torch.long),
+                  torch.zeros(1, 10), torch.zeros(1, 1, wide), "gumbel", (1, 1, wide),
                   torch.float32, 0)
     with pytest.raises(ValueError, match="trunc_k"):
         check(trunc_k=k + 1)
@@ -421,24 +422,71 @@ def test_wrapper_rejects_bad_arguments():
         tp.fused_posterior_sample_prng(meta, x_t, coefs, torch.zeros(b, 2, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("n,k", [(1, 2 ** 20), (1, 2 ** 20 + 1), (256, 2049), (256, 4096),
+                                 (256, 4097), (512, 2048), (512, 2049), (1024, 1024),
+                                 (1024, 1025), (16, 1024)])
+def test_kernel_route_is_fits_vmem(n, k):
+    """The port's sampler takes its kernel at exactly the shapes where the
+    JAX sampler takes its Pallas kernel."""
+    assert tp.fits_kernel_route(n, k) == jp.fits_vmem(n, k)
+
+
+def _counting(monkeypatch, calls: dict) -> None:
+    """Count each posterior wrapper's calls from the sampler, each still
+    running its plain version on the CPU."""
+    for name in ("fused_posterior_sample", "fused_posterior_sample_prng"):
+        def spy(*args, _fn=getattr(td, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        calls[name] = 0
+        monkeypatch.setattr(td, name, spy)
+
+
+@pytest.mark.parametrize("method,kwargs,steps", [
+    ("sample", {}, 3), ("sample_fast", {"skip_step": 2}, 6)])
+def test_wide_rows_take_the_kernel_as_jax_does(monkeypatch, method, kwargs, steps):
+    """K = 2049 (a transformer prior on a 2048-code VQVAE) over 256
+    positions fits the JAX kernel's budget, so both samplers take their
+    kernel: the JAX one the Pallas kernel (interpreted on the CPU), the port
+    its wrapper (the plain version on the CPU), one call a structured step,
+    with the same indices from the same noise."""
+    k, n, b, T = 2049, 256, 2, 6
+    assert jp.fits_vmem(n, k) and tp.fits_kernel_route(n, k)
+    jdd = jd.DiscreteDiffusion(num_classes=k, seq_len=n, timesteps=T, sampling_timesteps=steps)
+    tdd = td.DiscreteDiffusion(num_classes=k, seq_len=n, timesteps=T, sampling_timesteps=steps)
+    jdd.model_fn, tdd.model_fn = _model_fns(k)
+    jdd.fused_posterior = tdd.fused_posterior = True
+    rng = jax.random.PRNGKey(6)
+    want = np.asarray(jax.jit(lambda r: getattr(jdd, method)(r, batch_size=b, **kwargs))(rng))
+    u, gumbel = _jax_noise(rng, (b, n, k), 3)
+    calls = {}
+    _counting(monkeypatch, calls)
+    got = getattr(tdd, method)(b, init_uniform=u, step_gumbel=gumbel, **kwargs)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert calls == {"fused_posterior_sample": 2, "fused_posterior_sample_prng": 0}
+
+
 @pytest.mark.parametrize("method", ["sample", "fast_sample"])
 def test_wide_prior_routes_past_the_kernel(monkeypatch, method):
-    """A transformer prior on a 2048-code VQVAE has K = 2049, one class past
-    the kernel's widest row. Under fused_posterior on and prng it samples
-    with both wrappers raising, as the JAX package routes past fits_vmem:
-    'on' gives the plain route's indices on the same generator; 'prng' gives
-    the plain route's indices with its Philox noise injected (recorded from
-    the run's seeds)."""
+    """A transformer prior on a 2048-code VQVAE (K = 2049) over a 32x32
+    grid, 1024 positions, is past the JAX kernel's budget (fits_vmem), so
+    under fused_posterior on and prng it samples with both wrappers
+    raising, as the JAX sampler takes XLA ops there: 'on' gives the plain
+    route's indices on the same generator; 'prng' gives the plain route's
+    indices with its Philox noise injected (recorded from the run's
+    seeds)."""
     from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
         TransformerVQDiffusion as TorchTVQ)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a posterior wrapper was called for K = 2049")
+        raise AssertionError("a posterior wrapper was called past fits_vmem")
     monkeypatch.setattr(td, "fused_posterior_sample", refuse)
     monkeypatch.setattr(td, "fused_posterior_sample_prng", refuse)
-    tm = TorchTVQ(codebook_size=2048, seq_len=16, diffusion_steps=5, embedding_dim=16,
+    n = 1024
+    tm = TorchTVQ(codebook_size=2048, seq_len=n, diffusion_steps=5, embedding_dim=16,
                   num_layers=1, num_heads=2)
-    assert tm.num_classes == tp.MAX_CLASSES + 1
+    assert tm.num_classes == 2049
+    assert not jp.fits_vmem(n, tm.num_classes) and not tp.fits_kernel_route(n, tm.num_classes)
     tm.predictor.init_weights(torch.Generator().manual_seed(0))
     run = getattr(tm, method)
 
@@ -460,7 +508,8 @@ def test_wide_prior_routes_past_the_kernel(monkeypatch, method):
     prng = sample("prng", generator=torch.Generator().manual_seed(1))
     monkeypatch.setattr(td.DiscreteDiffusion, "_noise", draw)
     assert noise[0].dtype == torch.float32 and all(s.dtype == torch.int32 for s in noise[1:])
-    gumbel = [noise[0]] + [tp.gumbel_from_bits(tp.philox_bits(s, 16, tm.num_classes))
+    gumbel = [noise[0]] + [tp.gumbel_from_bits(tp.philox_bits(s, n, tm.num_classes))
                            for s in noise[1:]]
+    assert tuple(prng.shape) == (2, 32, 32)
     assert 0 <= int(prng.min()) and int(prng.max()) <= 2047
     assert torch.equal(prng, sample(False, step_gumbel=gumbel))

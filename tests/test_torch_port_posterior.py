@@ -8,14 +8,15 @@ checked on the CPU where the kernel cannot run:
   included;
 - Philox4x32-10 computed once a block, its four words spread over columns
   4j..4j+3 by the kernel's lane layout, equals ``philox_bits`` bit for bit;
-- the widest row the wrappers pass is the widest the kernel takes, which
-  the .cu holds to a block's shared memory by a ``static_assert`` (the
-  launch itself, 4 rows a block and the span copy, is the kernel's alone
-  and is checked on the card at unaligned and partial-block shapes);
+- the widest row the wrappers pass is the widest the kernel takes, and the
+  .cu holds a block of its widest staged rows to a block's shared memory by
+  a ``static_assert`` (the launch itself, 4 rows a block, the span copy and
+  the unstaged wide rows, is the kernel's alone and is checked on the card
+  at unaligned, partial-block and wide shapes);
 - ``utils.profiling.posterior_bound`` at the paths' shapes.
 
-One ``jax.jit`` per JAX reference, at the shapes below (at most 1025
-classes and a few dozen rows).
+One ``jax.jit`` per JAX reference, at the shapes below (a few dozen rows of
+at most 1025 classes, and six rows of the widest, 2^20).
 """
 
 import re
@@ -91,8 +92,8 @@ def jax_kth():
 
 
 # (K, trunc_k): k in {1, 2, 881, K-1, K} where it is a top-r of K classes, up
-# to the widest row the kernel takes
-SELECT_CASES = sorted({(kc, k) for kc in (2, 17, 1024, 1025, tp.MAX_CLASSES)
+# to the widest staged row (2048) and the widest row the kernel takes
+SELECT_CASES = sorted({(kc, k) for kc in (2, 17, 1024, 1025, 2048, tp.MAX_CLASSES)
                        for k in (1, 2, 881, kc - 1, kc) if 1 <= k <= kc})
 
 
@@ -151,12 +152,15 @@ def test_philox_once_a_block_matches_the_stream(k):
 
 
 def test_cuda_source_takes_the_widest_row_the_wrappers_pass():
-    """The wrappers refuse rows wider than ``MAX_CLASSES``; the kernel takes
-    every row up to its ``kMaxClasses`` and asserts at compile time that a
-    block of those rows fits its shared memory."""
+    """The wrappers refuse rows wider than ``MAX_CLASSES``, the widest row
+    the JAX package's ``fits_vmem`` admits; the kernel takes every row up to
+    its ``kMaxClasses``, stages rows up to ``kMaxStaged`` and asserts at
+    compile time that a block of those fits its shared memory."""
     src = SRC.read_text()
-    assert int(re.search(r"constexpr int kMaxClasses = (\d+);", src).group(1)) == tp.MAX_CLASSES
-    assert "static_assert(posterior_smem(kMaxClasses, 4, false, true) <= kSmemLimit" in src
+    assert int(re.search(r"constexpr int kMaxClasses = 1 << (\d+);", src).group(1)) == 20
+    assert tp.MAX_CLASSES == 2 ** 20
+    assert jp.fits_vmem(1, tp.MAX_CLASSES) and not jp.fits_vmem(1, tp.MAX_CLASSES + 1)
+    assert "static_assert(posterior_smem(kMaxStaged, 4, false, true, true) <= kSmemLimit" in src
 
 
 @pytest.mark.parametrize("km1,dtype,prng,trunc_k,by_bytes,by_ops", [

@@ -62,6 +62,15 @@
 // sums and the last bit of the math library, which moves an index only at
 // a near tie.
 //
+// Rows wider than kMaxStaged classes, which the JAX package's kernel also
+// takes (its fits_vmem: n * K <= 2^20), are not staged: each pass reads
+// the row from device memory (through L1, where a block's rows of a few
+// thousand classes stay), q is computed again from the logit in every
+// type, and under top-r the keys of ev are computed again in each pass of
+// the select instead of being kept. A block still holds kRows rows, one a
+// warp, and only the histograms take shared memory, so any K up to
+// kMaxClasses is taken.
+//
 // B7's stream is Philox4x32-10 written out here (the plain version repeats
 // it in int64 arithmetic): word c % 4 at counter (c / 4, n, 0, 0) with key
 // (seeds[b][0], seeds[b][1]). In the argmax a lane computes each of its
@@ -76,7 +85,8 @@
 namespace {
 
 constexpr int kRows = 4;             // rows a block, one warp each
-constexpr int kMaxClasses = 2048;    // the widest row (K) the kernel takes
+constexpr int kMaxStaged = 2048;     // the widest row (K) staged in shared memory
+constexpr int kMaxClasses = 1 << 20; // the widest row (K) the kernel takes
 constexpr int kSmemLimit = 232448;   // shared memory a block may use
 constexpr int kSmemDefault = 49152;  // what a block may use without opting in
 constexpr int kBins = 256;           // the top-r select's 8-bit digits
@@ -159,18 +169,24 @@ __device__ __forceinline__ void cp_async_wait0() {
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
-// Shared memory of one block: the logits span (kRows rows of K - 1 values
-// and up to 15 bytes of lead), the Gumbel span (B6); when trunc_k > 0 the
-// keys of bf16 rows (f32 rows keep them over their logits) and a 256-bin
-// histogram a warp.
-__host__ __device__ constexpr int posterior_smem(int K, int es, bool prng, bool trunc) {
-  return align16(kRows * (K - 1) * es + 16) + (prng ? 0 : align16(kRows * K * 4 + 16)) +
-         (trunc && es != 4 ? kRows * (K - 1) * 4 : 0) + (trunc ? kRows * kBins * 4 : 0);
+// Shared memory of one block. Staged rows: the logits span (kRows rows of
+// K - 1 values and up to 15 bytes of lead), the Gumbel span (B6); when
+// trunc_k > 0 the keys of bf16 rows (f32 rows keep them over their logits)
+// and a 256-bin histogram a warp. Rows read from device memory: the
+// histograms alone.
+__host__ __device__ constexpr int posterior_smem(int K, int es, bool prng, bool trunc,
+                                                 bool staged) {
+  return (staged ? align16(kRows * (K - 1) * es + 16) +
+                       (prng ? 0 : align16(kRows * K * 4 + 16)) +
+                       (trunc && es != 4 ? kRows * (K - 1) * 4 : 0)
+                 : 0) +
+         (trunc ? kRows * kBins * 4 : 0);
 }
-// the widest row fits in either type, so no K the kernel takes is refused
-static_assert(posterior_smem(kMaxClasses, 4, false, true) <= kSmemLimit &&
-                  posterior_smem(kMaxClasses, 2, false, true) <= kSmemLimit,
-              "a block of the widest rows exceeds the shared memory of a block");
+// the widest staged row fits in either type, so no K is refused for its
+// shared memory
+static_assert(posterior_smem(kMaxStaged, 4, false, true, true) <= kSmemLimit &&
+                  posterior_smem(kMaxStaged, 2, false, true, true) <= kSmemLimit,
+              "a block of the widest staged rows exceeds the shared memory of a block");
 
 // Copy the n elements at src into dst + (src % 16), dst 16-byte aligned:
 // 16-byte cp.async pieces between the first and the last 16-byte boundary
@@ -212,23 +228,26 @@ __device__ __forceinline__ float key_float(uint32_t k) {
   return __uint_as_float((k >> 31) ? (k & 0x7fffffffu) : ~k);
 }
 
-// The exact k-th largest of the row's keys (keys[0, km1) and key_last) by
+// The exact k-th largest of the row's keys (key_at(c) for c in [0, km1), and key_last) by
 // 8-bit digits, most significant first: per digit a histogram of the keys
 // that match the digits chosen so far (shared-memory atomics; aggregating
 // equal digits first with __match_any_sync made the select 5x slower),
 // then a warp scan from the top digit down to the one that holds the k-th
 // key. hist comes in with the top digit counted. The same key as 32
 // one-bit passes, ties included.
-__device__ uint32_t kth_largest_key(const uint32_t* keys, int km1, uint32_t key_last, int k,
-                                    int* hist, int lane) {
+template <class KeyAt>
+__device__ uint32_t kth_largest_key(KeyAt key_at, int km1, uint32_t key_last, int k, int* hist,
+                                    int lane) {
   uint32_t prefix = 0;
   for (int shift = 24; shift >= 0; shift -= 8) {
     if (shift < 24) {   // the top digit's histogram comes with the keys
       const uint32_t above = 0xFFFFFFFFu << (shift + 8);
       for (int i = lane; i < kBins; i += 32) hist[i] = 0;
       __syncwarp();
-      for (int c = lane; c < km1; c += 32)
-        if (((keys[c] ^ prefix) & above) == 0) atomicAdd(&hist[(keys[c] >> shift) & 255u], 1);
+      for (int c = lane; c < km1; c += 32) {
+        const uint32_t key = key_at(c);
+        if (((key ^ prefix) & above) == 0) atomicAdd(&hist[(key >> shift) & 255u], 1);
+      }
       if (lane == 0 && ((key_last ^ prefix) & above) == 0)
         atomicAdd(&hist[(key_last >> shift) & 255u], 1);
     }
@@ -323,29 +342,32 @@ __device__ __forceinline__ int sample(Score score, Last last, int km1, const flo
   return best.reduce();
 }
 
-template <class T, bool kPrng>
+template <class T, bool kPrng, bool kStaged>
 __global__ void __launch_bounds__(kRows * 32, 32 / kRows)
 posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t,
                  const float* __restrict__ coefs, const float* __restrict__ gumbel,
                  const int* __restrict__ seeds, long long* __restrict__ out, int B, int N, int K,
                  int trunc_k) {
   constexpr bool kF32 = sizeof(T) == 4;
+  constexpr bool kQInPlace = kStaged && kF32;   // q, then the keys, over the staged logits
   extern __shared__ __align__(16) char smem[];
   const int km1 = K - 1;
   const long long rows = (long long)B * N, row0 = (long long)blockIdx.x * kRows;
   const int nrows = (int)(rows - row0 < kRows ? rows - row0 : kRows);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // every global read of the block first: the logits span, then (B6) the
-  // Gumbel span as a second group
+  // staged rows: every global read of the block first, the logits span,
+  // then (B6) the Gumbel span as a second group
   const T* lspan = logits + row0 * km1;
-  const int lbytes = align16(kRows * km1 * (int)sizeof(T) + 16);
-  const int gbytes = kPrng ? 0 : align16(kRows * K * 4 + 16);
-  stage_span(smem, lspan, (long long)nrows * km1);
-  cp_async_commit();
   const float* gspan = kPrng ? nullptr : gumbel + row0 * K;
-  if (!kPrng) stage_span(smem + lbytes, gspan, (long long)nrows * K);
-  cp_async_commit();
+  const int lbytes = kStaged ? align16(kRows * km1 * (int)sizeof(T) + 16) : 0;
+  const int gbytes = kStaged && !kPrng ? align16(kRows * K * 4 + 16) : 0;
+  if constexpr (kStaged) {
+    stage_span(smem, lspan, (long long)nrows * km1);
+    cp_async_commit();
+    if (!kPrng) stage_span(smem + lbytes, gspan, (long long)nrows * K);
+    cp_async_commit();
+  }
 
   const bool live = warp < nrows;
   const long long row = row0 + warp;
@@ -368,17 +390,22 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
   const uint32_t k0 = kPrng && live ? (uint32_t)seeds[2 * b] : 0u;
   const uint32_t k1 = kPrng && live ? (uint32_t)seeds[2 * b + 1] : 0u;
 
-  cp_async_wait1();
-  __syncthreads();
-  T* lrow = (T*)(smem + ((uintptr_t)lspan & 15)) + (size_t)warp * km1;
-  // f32 rows keep q, then the keys of ev, over their logits; bf16 rows
-  // compute q again from the logit and keep the keys in a region of their own
-  float* qrow = (float*)lrow;
-  uint32_t* keys = kF32 ? (uint32_t*)lrow
-                        : (uint32_t*)(smem + lbytes + gbytes) + (size_t)warp * km1;
-  int* hist = (int*)(smem + lbytes + gbytes + (kF32 ? 0 : kRows * km1 * 4)) + warp * kBins;
+  if constexpr (kStaged) {
+    cp_async_wait1();
+    __syncthreads();
+  }
+  T* srow = (T*)(smem + ((uintptr_t)lspan & 15)) + (size_t)warp * km1;
+  const T* lrow = kStaged ? srow : lspan + (size_t)warp * km1;
+  // f32 staged rows keep q, then the keys of ev, over their logits; other
+  // rows compute q again from the logit, and staged bf16 rows keep the keys
+  // in a region of their own
+  float* qrow = (float*)srow;
+  uint32_t* keys = kQInPlace ? (uint32_t*)srow
+                             : (uint32_t*)(smem + lbytes + gbytes) + (size_t)warp * km1;
+  int* hist = (int*)(smem + lbytes + gbytes + (kStaged && !kF32 ? kRows * km1 * 4 : 0)) +
+              warp * kBins;
   auto q_at = [&](int c) -> float {
-    if constexpr (kF32) return qrow[c];
+    if constexpr (kQInPlace) return qrow[c];
     else return r.q(to_f32(lrow[c]), c);
   };
   float ev_last = 0.0f;
@@ -394,7 +421,7 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
     float m2 = -INFINITY;
     for (int c = lane; c < km1; c += 32) {
       const float qc = r.q(to_f32(lrow[c]), c);
-      if constexpr (kF32) qrow[c] = qc;
+      if constexpr (kQInPlace) qrow[c] = qc;
       m2 = fmaxf(m2, qc);
     }
     m2 = fmaxf(warp_max(m2), lz);
@@ -404,12 +431,16 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
     const float qp = logaddexp((lz - r.q_lse) + log_1mctt_m1, log_ctt_m1);
     ev_last = clamp_log(qp + (is_mask ? 0.0f : lz) + r.q_lse);
   }
-  cp_async_wait0();
-  __syncthreads();
+  if constexpr (kStaged) {
+    cp_async_wait0();
+    __syncthreads();
+  }
   if (!live) return;
 
   const float* grow =
-      kPrng ? nullptr : (const float*)(smem + lbytes + ((uintptr_t)gspan & 15)) + (size_t)warp * K;
+      kPrng ? nullptr
+            : (kStaged ? (const float*)(smem + lbytes + ((uintptr_t)gspan & 15)) : gspan) +
+                  (size_t)warp * K;
   int pick;
   if (trunc_k == 0) {
     // the sample: first maximum of ev + gumbel
@@ -417,46 +448,65 @@ posterior_kernel(const T* __restrict__ logits, const long long* __restrict__ x_t
                          [&](float g) { return ev_last + g; }, km1, grow, (uint32_t)n, k0, k1,
                          lane);
   } else {
-    // top-r: the keys of ev once (counting their top digits), the
-    // trunc_k-th largest, then the sample among the classes at or above it
+    // top-r: the keys of ev (counting their top digits), the trunc_k-th
+    // largest, then the sample among the classes at or above it
+    auto key_at = [&](int c) -> uint32_t {
+      if constexpr (kStaged) return keys[c];
+      else return monotone_key(r.ev(q_at(c), c));
+    };
     for (int i = lane; i < kBins; i += 32) hist[i] = 0;
     __syncwarp();
     const uint32_t key_last = monotone_key(ev_last);
     if (lane == 0) atomicAdd(&hist[key_last >> 24], 1);
     for (int c = lane; c < km1; c += 32) {
       const uint32_t key = monotone_key(r.ev(q_at(c), c));
-      keys[c] = key;
+      if constexpr (kStaged) keys[c] = key;
       atomicAdd(&hist[key >> 24], 1);
     }
     __syncwarp();
-    const uint32_t kth = kth_largest_key(keys, km1, key_last, trunc_k, hist, lane);
+    const uint32_t kth = kth_largest_key(key_at, km1, key_last, trunc_k, hist, lane);
     pick = sample<kPrng>(
-        [&](int c, float g) { return keys[c] < kth ? kMasked : key_float(keys[c]) + g; },
+        [&](int c, float g) {
+          const uint32_t key = key_at(c);
+          return key < kth ? kMasked : key_float(key) + g;
+        },
         [&](float g) { return key_last < kth ? kMasked : ev_last + g; }, km1, grow, (uint32_t)n,
         k0, k1, lane);
   }
   if (lane == 0) out[row] = pick;
 }
 
+template <class T, bool kPrng, bool kStaged>
+int launch_rows(const void* logits, const void* x_t, const void* coefs, const void* noise,
+                void* out, int B, int N, int K, int trunc_k, void* stream) {
+  const long long rows = (long long)B * N;
+  const int smem = posterior_smem(K, (int)sizeof(T), kPrng, trunc_k > 0, kStaged);
+  if (smem > kSmemDefault) {   // the opt-in is the current device's: set it at every launch
+    const cudaError_t err = cudaFuncSetAttribute(
+        posterior_kernel<T, kPrng, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((rows + kRows - 1) / kRows);
+  posterior_kernel<T, kPrng, kStaged><<<blocks, kRows * 32, smem, (cudaStream_t)stream>>>(
+      (const T*)logits, (const long long*)x_t, (const float*)coefs,
+      kPrng ? nullptr : (const float*)noise, kPrng ? (const int*)noise : nullptr,
+      (long long*)out, B, N, K, trunc_k);
+  return (int)cudaGetLastError();
+}
+
+// rows of up to kMaxStaged classes are staged in shared memory, wider rows
+// read from device memory
 template <class T, bool kPrng>
 int launch(const void* logits, const void* x_t, const void* coefs, const void* noise, void* out,
            int B, int N, int K, int trunc_k, void* stream) {
   if (K < 2 || K > kMaxClasses || trunc_k < 0 || trunc_k > K || B < 0 || N < 0)
     return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * N;
-  if (rows == 0) return 0;
-  const int smem = posterior_smem(K, (int)sizeof(T), kPrng, trunc_k > 0);
-  if (smem > kSmemDefault) {   // the opt-in is the current device's: set it at every launch
-    const cudaError_t err = cudaFuncSetAttribute(
-        posterior_kernel<T, kPrng>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const unsigned blocks = (unsigned)((rows + kRows - 1) / kRows);
-  posterior_kernel<T, kPrng><<<blocks, kRows * 32, smem, (cudaStream_t)stream>>>(
-      (const T*)logits, (const long long*)x_t, (const float*)coefs,
-      kPrng ? nullptr : (const float*)noise, kPrng ? (const int*)noise : nullptr,
-      (long long*)out, B, N, K, trunc_k);
-  return (int)cudaGetLastError();
+  if ((long long)B * N == 0) return 0;
+  return K <= kMaxStaged
+             ? launch_rows<T, kPrng, true>(logits, x_t, coefs, noise, out, B, N, K, trunc_k,
+                                           stream)
+             : launch_rows<T, kPrng, false>(logits, x_t, coefs, noise, out, B, N, K, trunc_k,
+                                            stream);
 }
 
 }  // namespace

@@ -40,7 +40,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.discrete_posterior import (LOG_ZERO, MAX_CLASSES, fused_posterior_sample,
+from ..ops.discrete_posterior import (LOG_ZERO, fits_kernel_route, fused_posterior_sample,
                                       fused_posterior_sample_prng, gather_posterior_coefs,
                                       gumbel_from_uniform, logaddexp,
                                       reference_posterior_sample_prng)
@@ -259,20 +259,21 @@ class DiscreteDiffusion:
         categorical sample (top-r when ``truncated``). ``noise`` is Gumbel
         [B, N, K], or seeds [B, 2] int32 under ``fused_posterior: prng``.
 
-        Rows wider than the kernel's ``MAX_CLASSES`` take plain ops, chosen
-        here on the static K as the JAX package routes past ``fits_vmem``:
-        under ``prng`` the plain version of the kernel on the seeds (the
-        same Philox stream), else the plain posterior on the Gumbel noise."""
+        Shapes past :func:`fits_kernel_route` (the JAX package's
+        ``fits_vmem``) take plain ops, chosen here on the static N and K as
+        the JAX sampler chooses: under ``prng`` the plain version of the
+        kernel on the seeds (the same Philox stream), else the plain
+        posterior on the Gumbel noise."""
         mode = self.posterior_route()
-        wide = self.num_classes > MAX_CLASSES
-        if mode and wide and mode != "prng":
+        fits = fits_kernel_route(z_idx.shape[1], self.num_classes)
+        if mode and not fits and mode != "prng":
             mode = False
         if mode:
             trunc_k = self._trunc_k() if truncated else 0
             logits = self._raw_logits_idx(z_idx, t)
             coefs = gather_posterior_coefs(self._s(logits.device), t_post, self.num_timesteps)
             if mode == "prng":
-                fn = reference_posterior_sample_prng if wide else fused_posterior_sample_prng
+                fn = fused_posterior_sample_prng if fits else reference_posterior_sample_prng
             else:
                 fn = fused_posterior_sample
             return fn(logits, z_idx, coefs, noise, trunc_k=trunc_k)

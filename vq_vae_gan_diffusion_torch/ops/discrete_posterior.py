@@ -26,9 +26,13 @@ are word ``c % 4`` of Philox4x32-10 with counter (c // 4, n, 0, 0) and key
 2**-24``. The JAX package draws its ``prng`` noise from the TPU's own
 generator, so the two agree in distribution only.
 
-Not ported, by design: ``fits_vmem`` and the 16-column coefficient padding.
-They budget the TPU's VMEM and SMEM; the CUDA kernel gives each (b, n) row
-to one warp and takes any N, and any K up to 2048.
+:func:`fits_kernel_route` is the JAX package's ``fits_vmem``: the sampler
+takes the kernel at the shapes where the JAX sampler takes its Pallas
+kernel, and plain ops elsewhere. The CUDA kernel itself gives each (b, n)
+row to one warp and takes any N, and any K up to ``MAX_CLASSES``, the
+widest row ``fits_vmem`` admits (at N = 1); rows of up to 2048 classes are
+staged in shared memory, wider ones read from device memory. Not ported,
+by design: the 16-column coefficient padding, which suits the TPU's SMEM.
 """
 
 from __future__ import annotations
@@ -44,11 +48,22 @@ from ._build import library
 LOG_EPS = -70.0
 LOG_ZERO = float(np.log(1e-30))     # _LZ of the kernel: log(1e-30) rounded to f32 when used
 MASKED = -3e38                      # the score of a class cut by the top-r threshold
-MAX_CLASSES = 2048                  # the widest row (K) the CUDA kernel takes
+MAX_CLASSES = 2 ** 20               # the widest row (K) the CUDA kernel takes
+# the JAX kernel's budget of one batch row's tile: 16 live [N, K] f32 arrays
+# in 64 MiB of VMEM
+_ROW_TILE_BYTES, _LIVE_ARRAYS = 64 * 2 ** 20, 16
 
 _U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def fits_kernel_route(n: int, k: int) -> bool:
+    """True where the sampler takes the kernel for rows of ``k`` classes at
+    ``n`` positions: the JAX package's ``fits_vmem(n, k)``, ``n * k * 4 *
+    16`` bytes within 64 MiB, so both packages take plain ops at the same
+    static shapes."""
+    return n * k * 4 * _LIVE_ARRAYS <= _ROW_TILE_BYTES
 
 
 def gather_posterior_coefs(sched: NamedTuple, t_post: torch.Tensor,
