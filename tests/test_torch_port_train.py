@@ -23,7 +23,8 @@ import pytest
 import torch
 import yaml
 
-from test_torch_port_vqgan import METRICS, assert_params_close, port_worker
+from test_torch_port_vqgan import (METRICS, assert_params_close, jax_gradients, live_leaves,
+                                   port_worker)
 from vq_vae_gan_diffusion_torch import generate
 from vq_vae_gan_diffusion_torch import weights as W
 from vq_vae_gan_diffusion_torch.config import config_from_dict as t_config_from_dict
@@ -72,6 +73,8 @@ def test_accumulation_and_hand_mask_match_jax(tiny_config):
     start = {k: v.clone() for k, v in ts.vqvae.state_dict().items()}
     rs = np.random.RandomState(1)
     batches = [rs.uniform(-2.5, 2.5, (4, 32, 32, 3)).astype(np.float32) for _ in range(2)]
+    live = {k[len("vqvae."):] for k in live_leaves(jax_gradients(
+        jw, cfg, js.replace(step=jnp.ones((), jnp.int32)), batches[0])) if k.startswith("vqvae.")}
     mask = tw._hand_mask(torch.from_numpy(batches[0]))
     assert 0.05 < float(mask.mean()) < 0.95
     for i, b in enumerate(batches):
@@ -86,7 +89,8 @@ def test_accumulation_and_hand_mask_match_jax(tiny_config):
     assert ts.opt_g.mini_step == 0 and ts.step == 2
     js = jax.device_get(js)
     tc = t_config_from_dict(cfg.to_dict())
-    assert_params_close(ts.vqvae.state_dict(), W.vqvae_state_from_jax(js.vqvae_params, tc), 1)
+    assert_params_close(ts.vqvae.state_dict(), W.vqvae_state_from_jax(js.vqvae_params, tc), 1,
+                        live)
     moved = sum(float((v - start[k]).abs().max()) > 0 for k, v in ts.vqvae.state_dict().items())
     assert moved > len(start) // 2
 
