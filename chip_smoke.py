@@ -50,9 +50,12 @@ Phases, each printed as it runs; any failure exits non-zero:
       within 1e-4; each shape's kernel time (device time from a CUDA
       graph of 20 calls, and issued one call at a time), plain time and
       bound; each kernel instance's registers from ptxas (no stack frame,
-      no spill); the same checks off the paths: K in {2, 129, 1025, 2048},
-      row counts no multiple of the rows a block, trunc_k in {0, 1, K-1,
-      K}, rows of all-equal logits, f32 and bf16; then B7's samples at
+      no spill); the same checks off the paths: K in {2, 129, 1025, 2048}
+      (rows staged in shared memory) and {2049, 4097, 2^20} (rows read
+      from device memory), row counts no multiple of the rows a block,
+      trunc_k in {0, 1, K-1, K}, rows of all-equal logits, f32 and bf16;
+      both kernels' time at the wide prior's [16, 256, 2048] logits (K =
+      2049) beside the plain version's and the bound; then B7's samples at
       fixed logits over 4096 seeds (1,048,576 draws) against softmax(ev),
       total variation below 0.02;
   (j) the third path: ``vq_vae_gan_diffusion_torch.generate`` on
@@ -92,8 +95,10 @@ Phases, each printed as it runs; any failure exits non-zero:
       (VQVAE latent 64 at 7x7, channels [64, 128, 128], 1024 codes; PatchGAN
       64-128-256-512; LPIPS VGG16; synthetic data, as the card's machine
       holds no data/): ``python -m vq_vae_gan_diffusion_torch.train
-      --debug`` writes metrics.jsonl and a checkpoint, then one epoch at
-      batch 200 gives the loop's images/s; ``train_step`` at
+      --debug`` writes metrics.jsonl and a checkpoint, then four epochs at
+      batch 200, each split into the host's time in the loader, in the
+      artifacts and the steps, give the loop's images/s (the first epoch
+      with its setup, the other three warm); ``train_step`` at
       batch 200 @ 28x28x1, f32, warm, before disc_start (disc_factor 0) and
       after it (disc_factor 1, lambda > 0 and finite): ms a step, images/s,
       peak device memory, through torch.profiler the device's busy share
@@ -102,11 +107,15 @@ Phases, each printed as it runs; any failure exits non-zero:
       one discriminator call, each forward and backward; both Adam steps),
       printed as one JSON line; one step from the same
       weights and batch on the card and on the CPU: at least 99.9% of
-      codebook indices equal, every metric within 1e-3 relative, every
-      parameter within 2 lr of the CPU's and 99% within lr / 10, running
-      statistics within 1e-4; then a K = 2049 transformer prior (2048
-      codes, width 64) samples under fused_posterior on and prng with no
-      posterior-kernel launch, its indices in [0, 2047]. Stage 1 runs no
+      codebook indices equal, every metric within 1e-3 relative, each
+      leaf's gradient within 1e-3 of its largest entry where it is above
+      rounding, every parameter within 2 lr of the CPU's and in each such
+      leaf 99% within lr / 10, running statistics within 1e-4; then a
+      K = 2049 transformer prior (2048 codes, width 64) over 256 positions
+      samples through B6 under fused_posterior on and B7 under prng (rows
+      read from device memory, as the JAX sampler takes its kernel at
+      this fits_vmem shape), and over 1024 positions, past fits_vmem, with
+      no posterior launch; indices in [0, 2047]. Stage 1 runs no
       hand-written kernel: its convolutions are cuDNN's, its products
       cuBLAS's.
 
@@ -120,6 +129,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 import time
 
@@ -145,8 +155,11 @@ GAUSSIAN_DIM, STEPS = 96, 1000
 # (chain cut to 20), the transformer's K = 1025 over 100 steps
 VQO_K, VQO_T, VQO_STEPS = 1024, 1000, 20
 TVQ_K, TVQ_T, TRUNC_K = 1025, 100, int(1025 * 0.86)
+# a transformer prior on a 2048-code VQVAE: K = 2049, wider than a staged row
+WIDE_K = 2049
 # stage-1 training: the benchmark workload of the root bench.py
 TRAIN_CONFIG, TRAIN_B, TRAIN_STEPS = "configs/training_config_mnist.yml", 200, 10
+TRAIN_EPOCHS = 4
 
 
 def phase_device() -> str:
@@ -674,12 +687,14 @@ def posterior_ptxas() -> None:
     from vq_vae_gan_diffusion_torch.ops._build import library_path
     usage = ptxas_usage(library_path("discrete_posterior").with_suffix(".log").read_text())
     kernels = {k: v for k, v in usage.items() if "posterior_kernel" in k}
-    if len(kernels) != 4:
-        raise AssertionError(f"expected 4 posterior_kernel instances in the build log, got "
+    if len(kernels) != 8:
+        raise AssertionError(f"expected 8 posterior_kernel instances in the build log, got "
                              f"{sorted(kernels)}")
     for mangled, (regs, stack, spill) in sorted(kernels.items()):
+        prng, staged = re.search(r"Lb([01])ELb([01])E", mangled).groups()
         label = (f"posterior_kernel<{'bf16' if 'bfloat16' in mangled else 'float'}, "
-                 f"{'prng' if 'Lb1' in mangled else 'gumbel'}>")
+                 f"{'prng' if prng == '1' else 'gumbel'}, "
+                 f"{'staged' if staged == '1' else 'wide'}>")
         print(f"(i) ptxas {label}: {regs} registers, {stack} bytes stack frame, {spill} bytes "
               f"spill stores")
         if stack or spill:
@@ -688,15 +703,18 @@ def posterior_ptxas() -> None:
 
 def posterior_edges(gen: torch.Generator) -> None:
     """(i), off the paths: B6 and B7 against their plain versions at K in
-    {2, 129, 1025, 2048}, row counts that are no multiple of the rows a
-    block, trunc_k in {0, 1, K-1, K}, f32 and bf16 logits, with three rows
-    of all-equal logits and masked positions, by ``check_indices``."""
+    {2, 129, 1025, 2048} (rows staged in shared memory) and {2049, 4097,
+    2^20} (rows read from device memory), row counts that are no multiple of
+    the rows a block, trunc_k in {0, 1, K-1, K}, f32 and bf16 logits, with
+    three rows of all-equal logits and masked positions, by
+    ``check_indices``."""
     from vq_vae_gan_diffusion_torch.diffusion.discrete import make_discrete_schedule
     from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
         fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
         gumbel_from_bits, gumbel_from_uniform, philox_bits, posterior_scores)
     steps = 100
-    for k, b, n in ((2, 5, 201), (129, 3, 343), (1025, 2, 513), (2048, 1, 1023)):
+    for k, b, n in ((2, 5, 201), (129, 3, 343), (1025, 2, 513), (2048, 1, 1023),
+                    (2049, 2, 255), (4097, 1, 129), (2 ** 20, 1, 2)):
         km1 = k - 1
         sched = make_discrete_schedule(steps, k, 0.9).to("cuda")
         gumbel = gumbel_from_uniform(torch.rand(b, n, k, generator=gen, device="cuda"))
@@ -707,7 +725,7 @@ def posterior_edges(gen: torch.Generator) -> None:
         x_t[:, ::5] = km1
         for dtype in (torch.float32, torch.bfloat16):
             logits = 3 * torch.randn(b, n, km1, generator=gen, device="cuda")
-            logits[0, :3] = 1.25                                     # all-equal rows
+            logits[0, :min(3, n)] = 1.25                             # all-equal rows
             logits = logits.to(dtype)
             gap = 0.0
             for t in (1, steps - 1):
@@ -725,6 +743,36 @@ def posterior_edges(gen: torch.Generator) -> None:
             print(f"(i) off the paths, logits [{b}, {n}, {km1}] {dtype}, B6 and B7, t in "
                   f"{{1, {steps - 1}}}, trunc_k in {sorted({0, 1, km1, k})}: checks pass, max "
                   f"score gap {gap:.3e}")
+
+
+def posterior_wide_times(gen: torch.Generator, card: str) -> None:
+    """(i) B6 and B7 at the wide prior's shape of (o), logits [16, 256, 2048]
+    f32 (K = 2049, rows read from device memory), trunc_k 0 and 1762: ms a
+    call issued one by one, the plain version's ms and the bound."""
+    from vq_vae_gan_diffusion_torch.diffusion.discrete import make_discrete_schedule
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
+        gumbel_from_uniform, reference_posterior_sample, reference_posterior_sample_prng)
+    k, km1 = WIDE_K, WIDE_K - 1
+    sched = make_discrete_schedule(TVQ_T, k, 0.9).to("cuda")
+    logits = 3 * torch.randn(B, N, km1, generator=gen, device="cuda")
+    gumbel = gumbel_from_uniform(torch.rand(B, N, k, generator=gen, device="cuda"))
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), dtype=torch.int32, generator=gen,
+                          device="cuda")
+    x_t = torch.randint(0, k, (B, N), generator=gen, device="cuda")
+    coefs = gather_posterior_coefs(sched, torch.full((B,), TVQ_T // 2, device="cuda"), TVQ_T)
+    for name, fn, plain, noise in (
+            ("discrete_posterior", fused_posterior_sample, reference_posterior_sample, gumbel),
+            ("discrete_posterior_prng", fused_posterior_sample_prng,
+             reference_posterior_sample_prng, seeds)):
+        for trunc_k in (0, int(k * 0.86)):
+            ms = cuda_ms(lambda: fn(logits, x_t, coefs, noise, trunc_k=trunc_k), reps=50)
+            plain_ms = cuda_ms(lambda: plain(logits, x_t, coefs, noise, trunc_k=trunc_k), reps=5)
+            bound = max(posterior_bound(B, N, km1, torch.float32, name.endswith("prng"),
+                                        trunc_k, card))
+            print(f"(i) {name} logits [{B}, {N}, {km1}] float32 trunc_k {trunc_k} (rows read "
+                  f"from device memory): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms; {card}")
 
 
 def phase_posterior(card: str) -> dict:
@@ -792,6 +840,7 @@ def phase_posterior(card: str) -> dict:
             del logits
 
     posterior_edges(gen)
+    posterior_wide_times(gen, card)
 
     # B7's distribution: one row's logits everywhere, 256 calls of 16 seed pairs
     k, km1 = TVQ_K, TVQ_K - 1
@@ -1152,8 +1201,10 @@ def phase_int8kv_routes() -> None:
         raise AssertionError(f"int8kv kernel and plain routes agree on only {100 * agree:.2f}%")
 
 
-def train_cli_run(log_dir: str) -> None:
-    """(o) the train CLI in debug mode: two full-width steps on the card."""
+def train_cli_run(log_dir: str) -> dict:
+    """(o) the train CLI in debug mode, two full-width steps on the card;
+    then TRAIN_EPOCHS epochs, each epoch's time split as the loop records
+    it. Returns the epochs' rows and the warm epochs' images/s."""
     import glob
     import os
 
@@ -1170,13 +1221,22 @@ def train_cli_run(log_dir: str) -> None:
         raise AssertionError(f"(o) checkpoints {ckpts}")
     print(f"(o) train CLI --debug on the card: {len(rows)} metrics.jsonl rows, last step "
           f"{rows[1]}; checkpoint {os.path.basename(ckpts[0])}")
-    out = cli.run(["--config", TRAIN_CONFIG, "--epochs", "1"],
+    out = cli.run(["--config", TRAIN_CONFIG, "--epochs", str(TRAIN_EPOCHS)],
                   overrides={"trainer.log_dir": log_dir})
     with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
-        epoch = [json.loads(line) for line in f][-1]
-    print(f"(o) train CLI, one epoch of {out['worker'].global_step} steps at batch {TRAIN_B} "
-          f"(synthetic images decoded on the host as it goes, the first step's setup "
-          f"included): {epoch['epoch_time_s']:.3f} s, {epoch['images_per_sec']:.1f} images/s")
+        epochs = [r for r in map(json.loads, f) if "epoch_time_s" in r]
+    if len(epochs) != TRAIN_EPOCHS:
+        raise AssertionError(f"(o) {len(epochs)} epoch rows in metrics.jsonl")
+    for i, e in enumerate(epochs):
+        print(f"(o) train CLI epoch {i} ({'setup included' if i == 0 else 'warm'}): "
+              f"{e['steps']} steps at batch {TRAIN_B} of synthetic images decoded on the host "
+              f"as it goes, {e['epoch_time_s']:.3f} s, {e['images_per_sec']:.1f} images/s; "
+              f"host in the loader {e['loader_s']:.3f} s, in the artifacts "
+              f"{e['artifact_s']:.3f} s, steps and the device's tail {e['step_s']:.3f} s")
+    warm = epochs[1:]
+    rate = sum(e["steps"] for e in warm) * TRAIN_B / sum(e["epoch_time_s"] for e in warm)
+    print(f"(o) train CLI, epochs 1-{TRAIN_EPOCHS - 1}: {rate:.1f} images/s")
+    return {"epochs": epochs, "warm_images_per_s": rate}
 
 
 def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
@@ -1267,7 +1327,11 @@ def train_layer_times(worker, batch: torch.Tensor, card: str) -> dict:
 
 def card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
     """(o) one step at full width from the same seeded weights and batch on
-    the card and on the CPU, both at disc_start."""
+    the card and on the CPU, both at disc_start. Leaf by leaf: a leaf whose
+    CPU gradient is below 1e-5 of the step's largest is rounding; every
+    other leaf's gradient within 1e-3 of its largest entry and at least 99%
+    of its parameters within lr / 10 after the step; every parameter within
+    2 lr; running statistics within 1e-4."""
     from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
 
     runs = {}
@@ -1282,51 +1346,87 @@ def card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
         _, metrics = w.train_step(state, x)
         metrics = {k: float(v) for k, v in metrics.items()}
         sec = time.perf_counter() - t0
-        params = {f"vqvae.{k}": v.cpu() for k, v in state.vqvae.state_dict().items()}
-        params.update({f"disc.{k}": v.cpu() for k, v in state.disc.state_dict().items()})
-        runs[device] = (idx, metrics, params, sec)
-    (gi, gm, gp, gsec), (ci, cm, cp, csec) = runs["cuda"], runs["cpu"]
+        params, grads = {}, {}
+        for part, module in (("vqvae", state.vqvae), ("disc", state.disc)):
+            params.update({f"{part}.{k}": v.cpu() for k, v in module.state_dict().items()})
+            grads.update({f"{part}.{k}": p.grad.cpu() for k, p in module.named_parameters()})
+        runs[device] = (idx, metrics, params, grads, sec)
+    (gi, gm, gp, gg, gsec), (ci, cm, cp, cg, csec) = runs["cuda"], runs["cpu"]
     same = (gi == ci).double().mean().item()
     rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
     lr = float(cfg.trainer.vqvae.learning_rate)
+    top = max(float(g.abs().max()) for g in cg.values())
+    live = {k for k, g in cg.items() if float(g.abs().max()) > 1e-5 * top}
+    grad_err = {k: float((gg[k].double() - g.double()).abs().max()) /
+                (float(g.abs().max()) if k in live else top) for k, g in cg.items()}
     diffs = {k: (gp[k].double() - cp[k].double()).abs() for k in cp if "num_batches" not in k}
     stats = max(float(d.max()) for k, d in diffs.items() if "running" in k)
-    weights = torch.cat([d.flatten() for k, d in diffs.items() if "running" not in k])
-    near = (weights <= lr / 10).double().mean().item()
+    worst = max(float(d.max()) for k, d in diffs.items() if "running" not in k)
+    near = {k: (diffs[k] <= lr / 10).double().mean().item() for k in live}
+    g_worst, p_worst = max(grad_err, key=grad_err.get), min(near, key=near.get)
     print(f"(o) one step on the card against the CPU ({csec:.1f} s on the CPU): {100 * same:.3f}% "
           f"of {gi.numel()} indices equal; worst metric {max(rel, key=rel.get)} "
-          f"{max(rel.values()):.3e} relative; parameters max diff {float(weights.max()):.3e} "
-          f"(2 lr = {2 * lr:.3e}), {100 * near:.3f}% within lr / 10; running statistics "
-          f"max diff {stats:.3e}")
-    if same < 0.999 or max(rel.values()) > 1e-3 or float(weights.max()) > 2 * lr + 1e-6 \
-            or near < 0.99 or stats > 1e-4:
+          f"{max(rel.values()):.3e} relative; {len(live)} of {len(cg)} leaves' gradients above "
+          f"rounding, worst gradient {g_worst} {grad_err[g_worst]:.3e} of its largest entry; "
+          f"parameters max diff {worst:.3e} (2 lr = {2 * lr:.3e}), fewest within lr / 10 "
+          f"{p_worst} {100 * near[p_worst]:.3f}%; running statistics max diff {stats:.3e}")
+    if same < 0.999 or max(rel.values()) > 1e-3 or grad_err[g_worst] > 1e-3 \
+            or worst > 2 * lr + 1e-6 or near[p_worst] < 0.99 or stats > 1e-4:
         raise AssertionError("(o) the card's step departs from the CPU's")
 
 
 def wide_prior_routes() -> None:
-    """(o) C3: a K = 2049 transformer prior samples on the card under
-    fused_posterior on and prng with no posterior-kernel launch."""
+    """(o) a transformer prior on a 2048-code VQVAE (K = 2049, width 64, 8
+    steps, 16 samples) over 256 positions fits the JAX kernel's budget
+    (fits_vmem), so it samples through the posterior kernels on their rows
+    read from device memory: under fused_posterior on B6 alone and under
+    prng B7 alone is launched, indices in [0, 2047], and 'on' gives at least
+    99% of the plain route's indices on the same generator. Over 1024
+    positions (a 32x32 grid) it is past fits_vmem and takes plain ops with
+    no launch, as the JAX sampler takes XLA ops there."""
     from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
         TransformerVQDiffusion)
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import fits_kernel_route
 
-    tvq = TransformerVQDiffusion(codebook_size=2048, seq_len=N, diffusion_steps=8,
-                                 embedding_dim=64, num_layers=2, num_heads=4)
-    tvq.predictor.init_weights(torch.Generator().manual_seed(13))
-    tvq = tvq.cuda().eval()
-    for mode in (True, "prng"):
+    for n in (N, 1024):
+        tvq = TransformerVQDiffusion(codebook_size=WIDE_K - 1, seq_len=n, diffusion_steps=8,
+                                     embedding_dim=64, num_layers=2, num_heads=4)
+        tvq.predictor.init_weights(torch.Generator().manual_seed(13))
+        tvq = tvq.cuda().eval()
+        fits = fits_kernel_route(n, WIDE_K)
+        g = int(n ** 0.5)
         for method in ("sample", "fast_sample"):
-            tvq.diffusion.fused_posterior = mode
-            reset_counts()
-            idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(14))
-            torch.cuda.synchronize()
-            launches = read_counts()
-            if any(launches.values()) or tuple(idx.shape) != (B, 16, 16) or \
-                    int(idx.min()) < 0 or int(idx.max()) > 2047:
-                raise AssertionError(f"(o) K = 2049 {method} under {mode}: launches {launches}, "
-                                     f"indices {tuple(idx.shape)} in [{int(idx.min())}, "
-                                     f"{int(idx.max())}]")
-            print(f"(o) K = 2049 prior, {method}, fused_posterior {mode}: plain route, "
-                  f"0 kernel launches, indices in [{int(idx.min())}, {int(idx.max())}]")
+            plain = None
+            for mode, kernel in ((False, None), (True, "discrete_posterior"),
+                                 ("prng", "discrete_posterior_prng")):
+                tvq.diffusion.fused_posterior = mode
+                reset_counts()
+                idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda")
+                                           .manual_seed(14))
+                torch.cuda.synchronize()
+                launches = read_counts()
+                used = {name: v for name, v in launches.items() if v}
+                if list(used) != ([kernel] if fits and kernel else []) or \
+                        tuple(idx.shape) != (B, g, g) or int(idx.min()) < 0 or \
+                        int(idx.max()) > WIDE_K - 2:
+                    raise AssertionError(f"(o) K = {WIDE_K} over {n} positions, {method} under "
+                                         f"{mode}: launches {launches}, indices "
+                                         f"{tuple(idx.shape)} in [{int(idx.min())}, "
+                                         f"{int(idx.max())}]")
+                agree = ""
+                if mode is False:
+                    plain = idx
+                elif mode is True:
+                    same = (idx == plain).double().mean().item()
+                    agree = f", {100 * same:.2f}% of indices equal to plain ops'"
+                    if same < 0.99:
+                        raise AssertionError(f"(o) K = {WIDE_K} {method}: kernel and plain "
+                                             f"routes agree on only {100 * same:.2f}%")
+                print(f"(o) K = {WIDE_K} prior over {n} positions "
+                      f"({'fits' if fits else 'past'} fits_vmem), {method}, fused_posterior "
+                      f"{mode}: launches {used or 0}, indices in [{int(idx.min())}, "
+                      f"{int(idx.max())}]{agree}")
+        del tvq
 
 
 def phase_train(card: str) -> dict:
@@ -1338,7 +1438,7 @@ def phase_train(card: str) -> dict:
     from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    train_cli_run(log_dir)
+    cli_numbers = train_cli_run(log_dir)
     cfg = load_config(TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
     loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
     batch = next(iter(loader))
@@ -1348,6 +1448,10 @@ def phase_train(card: str) -> dict:
     worker.state = worker.init_state()
     numbers = train_step_times(worker, torch.from_numpy(batch).cuda(), card)
     numbers["layer_ms"] = train_layer_times(worker, torch.from_numpy(batch).cuda(), card)
+    numbers["cli_warm_images_per_s"] = cli_numbers["warm_images_per_s"]
+    numbers["cli_epochs"] = [{k: e[k] for k in ("steps", "epoch_time_s", "loader_s",
+                                                "artifact_s", "step_s")}
+                             for e in cli_numbers["epochs"]]
     del worker
     torch.cuda.empty_cache()
     card_against_cpu(cfg, log_dir, batch, card)

@@ -233,7 +233,10 @@ def test_train_cli_debug_checkpoint_resume_and_generate(tmp_path, tiny_config):
     rows = _metric_rows(first["run_dir"])
     assert [r["step"] for r in rows] == [1, 2, 2]
     assert all(set(METRICS) <= set(r) for r in rows[:2])
-    assert {"epoch_time_s", "images_per_sec"} <= set(rows[2])
+    assert {"epoch_time_s", "images_per_sec", "loader_s", "artifact_s", "step_s"} <= set(rows[2])
+    assert rows[2]["steps"] == 2 and rows[2]["loader_s"] > 0 and rows[2]["artifact_s"] > 0
+    assert rows[2]["loader_s"] + rows[2]["artifact_s"] + rows[2]["step_s"] == pytest.approx(
+        rows[2]["epoch_time_s"])
     ckpt = os.path.join(first["run_dir"], "ckpt", "step_00000002.pth")
     for name in ("val_recon_epoch0.jpg", "reconstruction.gif", "info.log"):
         assert os.path.exists(os.path.join(first["run_dir"], name)), name

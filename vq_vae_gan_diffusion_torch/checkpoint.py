@@ -45,6 +45,22 @@ def _refuse(path: str, why: str) -> ValueError:
         "--config <yml> --ckpt <dir> --out <file>.pth (add --ema for a diffusion prior)")
 
 
+def _is_training(tree) -> bool:
+    """True for the port's stage-1 training checkpoint."""
+    return (isinstance(tree, dict) and {"state", "step", "epoch"} <= set(tree)
+            and isinstance(tree["state"], dict) and isinstance(tree["state"].get("vqvae"), dict))
+
+
+def read_training_checkpoint(path: str) -> Optional[dict]:
+    """The port's stage-1 training checkpoint at ``path`` whole (its
+    optimizers, discriminator and step too), or None where ``path`` holds
+    nothing or another form."""
+    if not os.path.isfile(path):
+        return None
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    return tree if _is_training(tree) else None
+
+
 def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
     """The module ``state_dict``s of the checkpoint at ``path`` by kind
     (``vqvae``, ``gpt``, ``unet``), or None when nothing exists at ``path``.
@@ -64,8 +80,7 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
         if len(kinds) != 1:
             raise _refuse(path, "is a state_dict of no module the port serves")
         return {kinds[0]: state}
-    if {"state", "step", "epoch"} <= set(state) and isinstance(state["state"], dict) \
-            and isinstance(state["state"].get("vqvae"), dict):
+    if _is_training(state):
         return {"vqvae": state["state"]["vqvae"]}
     if set(state) <= set(_MARKERS) and all(isinstance(v, dict) for v in state.values()):
         return dict(state)

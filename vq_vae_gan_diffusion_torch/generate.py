@@ -103,7 +103,7 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
-    from .train import VQDiffusionWorker, VQGANVQVAEWorker, VQTransformerWorker
+    from .train import VQDiffusionWorker, VQTransformerWorker
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -128,18 +128,27 @@ def run(argv: Optional[Sequence[str]] = None,
 
 
 def _reconstruct(config, run_dir: str, logger, args, device: str) -> Dict[str, object]:
-    """The stage-1 models' artifact: the val split's reconstruction grid."""
+    """The stage-1 models' artifact: the val split's reconstruction grid by
+    the VQVAE alone, seeded, then restored as the serving workers restore
+    it, then from ``--ckpt``."""
+    import torch
+
     from .checkpoint import restore
     from .data import load_dataloader
-    from .train import VQGANVQVAEWorker
+    from .models.vqvae import VQVAE
+    from .train.base import ServingWorker
+    from .train.vqgan_worker import write_reconstructions
 
-    worker = VQGANVQVAEWorker(config, run_dir, logger, seed=args.seed, device=device)
-    worker.state = worker.init_state()
+    worker = ServingWorker(config, run_dir, logger, seed=args.seed, device=device)
+    vqvae = VQVAE.from_config(config)
+    vqvae.init_weights(torch.Generator().manual_seed(args.seed))
+    worker._restore_vqvae(vqvae)
     if args.ckpt:
-        restore(args.ckpt, {"vqvae": worker.state.vqvae}, logger, "stage-1")
+        restore(args.ckpt, {"vqvae": vqvae}, logger, "stage-1")
     val_loader, _ = load_dataloader(config.dataset.dataset_name, "val", logger, config,
                                     seed=args.seed)
-    result = worker.generate_images(val_loader, n_samples=args.n_samples, epoch=0)
+    result = write_reconstructions(worker, vqvae.to(worker.device), val_loader,
+                                   n_samples=args.n_samples, epoch=0)
     logger.info("artifacts written to %s", run_dir)
     return result
 

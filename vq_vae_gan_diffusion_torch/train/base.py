@@ -183,7 +183,11 @@ class TrainingWorker(Worker):
         every ``save_step // 5`` steps after, artifacts every ``save_step``
         steps (:func:`..utils.adaptive_save_step` of the epoch's batches);
         each epoch ends with its time and images/s, a checkpoint and the
-        validation grid. Returns the last metrics written."""
+        validation grid. An epoch's time is split into the host's time in
+        the loader (reading, decoding, the copy to the device: ``loader_s``),
+        in the artifacts (``artifact_s``) and the rest, the steps and the
+        wait for the device at the epoch's end (``step_s``). Returns the last
+        metrics written."""
         if self.state is None:
             self.state = self.init_state()
         with MetricWriter(self.run_dir) as self.metrics:
@@ -196,10 +200,11 @@ class TrainingWorker(Worker):
         next_metric = next_artifact = self.global_step
         last: Dict[str, float] = {}
         for epoch in range(epochs):
-            t0 = time.perf_counter()
-            images = 0
+            t0 = t = time.perf_counter()
+            images, loader_s, artifact_s = 0, 0.0, 0.0
             for index, batch in enumerate(dataloader):
                 batch = self.batch_to_device(batch)
+                loader_s += time.perf_counter() - t
                 self.state, metrics = self.train_step(self.state, batch, self.generator)
                 self.global_step += 1
                 images += batch.shape[0]
@@ -209,15 +214,21 @@ class TrainingWorker(Worker):
                     self.metrics.write(self.global_step, last)
                 if self.global_step >= next_artifact:
                     next_artifact = self.global_step + artifact_every
+                    ta = time.perf_counter()
                     self.log_artifacts(batch, epoch, index)
+                    artifact_s += time.perf_counter() - ta
                 if self.debug and index >= 1:
                     break
+                t = time.perf_counter()
             self._sync()
             dt = time.perf_counter() - t0
-            self.logger.info("epoch %d done in %.1fs (%.1f images/s) %s", epoch, dt,
-                             images / max(dt, 1e-9), last)
-            self.metrics.write(self.global_step, {"epoch_time_s": dt,
-                                                  "images_per_sec": images / max(dt, 1e-9)})
+            self.logger.info("epoch %d done in %.1fs (%.1f images/s; loader %.2fs, artifacts "
+                             "%.2fs) %s", epoch, dt, images / max(dt, 1e-9), loader_s,
+                             artifact_s, last)
+            self.metrics.write(self.global_step, {
+                "epoch_time_s": dt, "images_per_sec": images / max(dt, 1e-9),
+                "loader_s": loader_s, "artifact_s": artifact_s,
+                "step_s": dt - loader_s - artifact_s, "steps": index + 1})
             self.save(epoch)
             if val_loader is not None:
                 self.generate_images(val_loader, epoch=epoch)

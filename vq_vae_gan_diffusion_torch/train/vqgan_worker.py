@@ -46,13 +46,13 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..checkpoint import restore
+from ..checkpoint import read_training_checkpoint, restore
 from ..config import Config, resolve_img_channels
 from ..models.discriminator import Discriminator
 from ..models.lpips import load_lpips
 from ..models.vqvae import VQVAE, adopt_weight
 from ..utils import make_grid, save_gif, save_image
-from .base import TrainingWorker, maybe_accumulate
+from .base import TrainingWorker, Worker, maybe_accumulate
 
 LAMBDA_MODES = ("grad2", "shared", "off")
 
@@ -127,9 +127,8 @@ class VQGANVQVAEWorker(TrainingWorker):
         self.logger.info("VQVAE params: %.1fM (gan=%s)", n / 1e6, self.is_gan)
         resume = self.config.architecture.vqvae.get("resume_path")
         if resume:
-            tree = (torch.load(str(resume), map_location="cpu", weights_only=True)
-                    if os.path.isfile(str(resume)) else None)
-            if isinstance(tree, dict) and {"state", "step", "epoch"} <= set(tree):
+            tree = read_training_checkpoint(str(resume))
+            if tree is not None:
                 self.state = state
                 self.load_checkpoint_tree(tree)
                 self.logger.info("VQGAN state resumed from %s at step %d", resume, state.step)
@@ -239,14 +238,23 @@ class VQGANVQVAEWorker(TrainingWorker):
 
     def generate_images(self, val_loader=None, n_samples: int = 16,
                         epoch: int = 0) -> Optional[Dict[str, object]]:
-        """The first ``n_samples`` images of ``val_loader``'s first batch over
-        their reconstructions, as ``val_recon_epoch{epoch}.jpg``."""
+        """:func:`write_reconstructions` of the trained VQVAE."""
         if val_loader is None:
             return None
-        imgs = next(iter(val_loader))[:n_samples]
-        decoded = self.reconstruct(imgs)
-        both = np.concatenate([self.to_uint8(np.asarray(imgs)), self.to_uint8(decoded)])
-        path = os.path.join(self.run_dir, f"val_recon_epoch{epoch}.jpg")
-        save_image(make_grid(both, nrow=len(imgs)), path)
-        self.logger.info("reconstructions of %d validation images -> %s", len(imgs), path)
-        return {"images": decoded, "path": path}
+        return write_reconstructions(self, self.state.vqvae, val_loader, n_samples, epoch)
+
+
+@torch.no_grad()
+def write_reconstructions(worker: Worker, vqvae: VQVAE, val_loader, n_samples: int = 16,
+                          epoch: int = 0) -> Dict[str, object]:
+    """The first ``n_samples`` images of ``val_loader``'s first batch over
+    ``vqvae``'s reconstructions, as ``val_recon_epoch{epoch}.jpg`` in the
+    worker's run dir."""
+    imgs = next(iter(val_loader))[:n_samples]
+    x = torch.as_tensor(np.asarray(imgs, np.float32)).to(worker.device)
+    decoded = vqvae.eval()(x)[0]
+    both = np.concatenate([worker.to_uint8(np.asarray(imgs)), worker.to_uint8(decoded)])
+    path = os.path.join(worker.run_dir, f"val_recon_epoch{epoch}.jpg")
+    save_image(make_grid(both, nrow=len(imgs)), path)
+    worker.logger.info("reconstructions of %d validation images -> %s", len(imgs), path)
+    return {"images": decoded, "path": path}
