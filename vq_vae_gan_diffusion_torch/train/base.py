@@ -201,12 +201,13 @@ class TrainingWorker(Worker):
         last: Dict[str, float] = {}
         for epoch in range(epochs):
             t0 = t = time.perf_counter()
-            images, loader_s, artifact_s = 0, 0.0, 0.0
+            images, steps, loader_s, artifact_s = 0, 0, 0.0, 0.0
             for index, batch in enumerate(dataloader):
                 batch = self.batch_to_device(batch)
                 loader_s += time.perf_counter() - t
                 self.state, metrics = self.train_step(self.state, batch, self.generator)
                 self.global_step += 1
+                steps += 1
                 images += batch.shape[0]
                 if self.global_step >= next_metric:
                     next_metric = self.global_step + metric_every
@@ -228,7 +229,7 @@ class TrainingWorker(Worker):
             self.metrics.write(self.global_step, {
                 "epoch_time_s": dt, "images_per_sec": images / max(dt, 1e-9),
                 "loader_s": loader_s, "artifact_s": artifact_s,
-                "step_s": dt - loader_s - artifact_s, "steps": index + 1})
+                "step_s": dt - loader_s - artifact_s, "steps": steps})
             self.save(epoch)
             if val_loader is not None:
                 self.generate_images(val_loader, epoch=epoch)
