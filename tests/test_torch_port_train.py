@@ -265,11 +265,15 @@ def test_train_cli_refusals(tmp_path, tiny_config, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.run(["--config", config, "--debug"])
-    path = tmp_path / "gpt.yml"
-    path.write_text(yaml.safe_dump(tiny_config.replace_path(
-        "architecture.model_name", "vqvae_transformer").to_dict()))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        cli.run(["--config", str(path), "--device", "cpu"])
+    for name, model, diffusion_type, item in (
+            ("pixel.yml", "gaussiandiffusion3d", "gaussiandiffusion3d", "A3"),
+            ("vqofficial.yml", "vqdiffusion", "VQ_Official", "A4")):
+        path = tmp_path / name
+        path.write_text(yaml.safe_dump(
+            tiny_config.replace_path("architecture.model_name", model)
+            .replace_path("architecture.vqdiffusion.diffusion_type", diffusion_type).to_dict()))
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+            cli.run(["--config", str(path), "--device", "cpu"])
     _, tcfg = _configs(tiny_config, dataset__dataset_name="cifar10")
     with pytest.raises(NotImplementedError, match="cifar10 reader"):
         t_load_dataloader(None, "train", config=tcfg)

@@ -4,9 +4,12 @@ Three forms, all files written by ``torch.save``:
 
 - the port's own bundle, ``{"vqvae": state_dict, "gpt" | "unet": state_dict}``
   (either part may be left out);
-- a stage-1 training checkpoint of the port, ``{"state": {"vqvae": ...,
-  "disc": ..., "opt_g": ..., ...}, "step", "epoch"}``, of which the serving
-  workers read the VQVAE;
+- a training checkpoint of the port, ``{"state": {"vqvae": ..., ...},
+  "step", "epoch"}``: stage 1's (``"disc"``, ``"opt_g"``, ...), the GPT
+  prior's (``"gpt"``, ``"opt"``) or the diffusion prior's (``"unet"``,
+  ``"ema"``, ``"opt"``), of which the serving workers read the VQVAE and the
+  prior: the GPT, or the U-Net's EMA copy with its statistics, the weights
+  the JAX worker samples with;
 - a bare ``state_dict`` of one module, as ``tools/export_torch_checkpoint.py``
   writes it from an Orbax checkpoint of the JAX package: the VQVAE
   (``vqvae``/``vqgan``), the minGPT prior (``*_transformer``) or the
@@ -46,19 +49,24 @@ def _refuse(path: str, why: str) -> ValueError:
 
 
 def _is_training(tree) -> bool:
-    """True for the port's stage-1 training checkpoint."""
+    """True for a training checkpoint of the port (stage 1's or a prior's)."""
     return (isinstance(tree, dict) and {"state", "step", "epoch"} <= set(tree)
             and isinstance(tree["state"], dict) and isinstance(tree["state"].get("vqvae"), dict))
 
 
-def read_training_checkpoint(path: str) -> Optional[dict]:
-    """The port's stage-1 training checkpoint at ``path`` whole (its
-    optimizers, discriminator and step too), or None where ``path`` holds
-    nothing or another form."""
+def _prior_of(tree: dict) -> Optional[str]:
+    """The prior a training checkpoint trains (``gpt``, ``unet``), None for stage 1."""
+    return next((kind for kind in ("gpt", "unet") if kind in tree["state"]), None)
+
+
+def read_training_checkpoint(path: str, prior: Optional[str] = None) -> Optional[dict]:
+    """The port's training checkpoint at ``path`` whole (optimizers, step,
+    EMA too) when it trains ``prior`` (``gpt``, ``unet``; None: stage 1),
+    or None where ``path`` holds nothing or another form."""
     if not os.path.isfile(path):
         return None
     tree = torch.load(path, map_location="cpu", weights_only=True)
-    return tree if _is_training(tree) else None
+    return tree if _is_training(tree) and _prior_of(tree) == prior else None
 
 
 def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
@@ -81,7 +89,13 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
             raise _refuse(path, "is a state_dict of no module the port serves")
         return {kinds[0]: state}
     if _is_training(state):
-        return {"vqvae": state["state"]["vqvae"]}
+        trained = state["state"]
+        found = {"vqvae": trained["vqvae"]}
+        if "gpt" in trained:
+            found["gpt"] = trained["gpt"]
+        if "ema" in trained:
+            found["unet"] = trained["ema"]
+        return found
     if set(state) <= set(_MARKERS) and all(isinstance(v, dict) for v in state.values()):
         return dict(state)
     raise _refuse(path, f"has keys {sorted(map(str, state))[:6]} of no known form")

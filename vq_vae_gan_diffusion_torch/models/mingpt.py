@@ -4,7 +4,11 @@ Learned positional embedding [1, block_size, n_embd], pre-LN blocks (LN eps
 1e-5) with separate q/k/v projections and an exact-erf GELU MLP, a bias-free
 vocab head, N(0, 0.02) init. Module names reproduce the reference
 ``state_dict`` keys (``blocks.{i}.attn.query``, ``blocks.{i}.mlp.0``,
-``blocks.{i}.attn.mask``, ...).
+``blocks.{i}.attn.mask``, ...). No dropout: the JAX package builds its GPT
+with every rate at 0.0. The training forward is :meth:`GPT.forward` over the
+whole sequence, its causal attention plain products as in the JAX package;
+``remat`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint``), as the JAX module's ``nn.remat``.
 
 Sampling (:func:`sample_tokens`) is a host loop over positions with a Python
 int ``t``; it reads nothing back from the device per token. Its default route
@@ -22,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.gpt_decode import (QUANT_MODES, fused_decode_stack, fused_decode_stack_q,
                               fused_decode_stack_qkv, pack_decode_params)
@@ -88,9 +93,9 @@ class Block(nn.Module):
 
 class GPT(nn.Module):
     def __init__(self, vocab_size: int = 1024, block_size: int = 512,
-                 n_layer: int = 12, n_head: int = 8, n_embd: int = 256):
+                 n_layer: int = 12, n_head: int = 8, n_embd: int = 256, remat: bool = False):
         super().__init__()
-        self.vocab_size, self.block_size = vocab_size, block_size
+        self.vocab_size, self.block_size, self.remat = vocab_size, block_size, remat
         self.n_layer, self.n_head, self.n_embd = n_layer, n_head, n_embd
         self.tok_emb = nn.Embedding(vocab_size, n_embd)
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embd))
@@ -119,8 +124,9 @@ class GPT(nn.Module):
         if t > self.block_size:
             raise ValueError(f"sequence length {t} exceeds block size {self.block_size}")
         x = self.tok_emb(idx) + self.pos_emb[:, :t]
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.head(self.ln_f(x))
 
     # -- KV-cache decoding -------------------------------------------------

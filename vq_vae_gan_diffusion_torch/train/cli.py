@@ -10,14 +10,25 @@ Usage::
 Builds ``<trainer.log_dir>/<dataset>/<model>/run_<time>/`` with a copy of
 the config and ``info.log``, loads the train and val splits (a synthetic
 dataset where the data is not on disk, with a warning), trains the
-``vqvae`` / ``vqgan`` worker and writes ``metrics.jsonl``, the
-reconstruction GIF, ``val_recon_epoch<e>.jpg`` and one checkpoint an
-epoch (``ckpt/step_<step>.pth``). ``architecture.vqvae.resume_path``
-resumes from such a checkpoint. ``--debug`` trains one epoch of two
-batches of 2 images from the val split, as the root ``train.py`` does.
-It runs on CUDA unless ``--device cpu``; with no GPU it raises. The other
-families raise ``NotImplementedError`` naming the ROADMAP slice that ports
-them.
+config's worker and writes ``metrics.jsonl``, its images and one
+checkpoint an epoch (``ckpt/step_<step>.pth``):
+
+- ``vqvae`` / ``vqgan``: stage 1; the reconstruction GIF and
+  ``val_recon_epoch<e>.jpg``; ``architecture.vqvae.resume_path`` resumes
+  from such a checkpoint;
+- ``vqvae_transformer`` / ``vqgan_transformer``: the GPT prior over the codes
+  of the frozen VQVAE at ``architecture.vqvae.resume_path`` (a stage-1
+  checkpoint); ``transformer_epoch<e>_<i>.jpg`` and ``samples_epoch<e>.jpg``;
+- ``vqdiffusion`` with ``diffusion_type: gaussiandiffusion3d``: the
+  diffusion prior over those codes, with its OneCycle schedule over
+  ``num_epochs`` x the loader's batches and its EMA copy;
+  ``recon_epoch<e>_<i>.jpg`` and the EMA's ``samples_epoch<e>.jpg``.
+
+A prior's training checkpoint at ``architecture.<model>.resume_path``
+resumes it at its step. ``--debug`` trains one epoch of two batches of 2
+images from the val split, as the root ``train.py`` does. It runs on CUDA
+unless ``--device cpu``; with no GPU it raises. The other families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,13 +37,12 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from ..config import VQ_STAGE1_MODELS, load_config, validate
+from ..config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
 
-# the ROADMAP slice that ports each family's training
+TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion",)
+# the ROADMAP item that ports each family's training
 _LATER_SLICES = {
-    "vqvae_transformer": "slice 3 (GPT training)", "vqgan_transformer": "slice 3 (GPT training)",
-    "vqdiffusion": "slices 4-5, training halves",
-    "gaussiandiffusion3d": "slice 4 (pixel-space gaussian3d worker)",
+    "gaussiandiffusion3d": "A3, slice 4 (pixel-space gaussian3d worker)",
     "c_vqdiffusion": "slice 7 (other families)", "v_vqdiffusion": "slice 7 (other families)",
     "gaussiandiffusion2d": "slice 7 (other families)", "vae": "slice 7 (other families)",
 }
@@ -57,10 +67,16 @@ def run(argv: Optional[Sequence[str]] = None,
     validate(config)
     model_name = config.architecture.model_name
     dataset_name = config.dataset.dataset_name
-    if model_name not in VQ_STAGE1_MODELS:
+    if model_name not in TRAINED:
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"training {model_name!r} is not ported yet: see ROADMAP.md, {where}")
+    if model_name == "vqdiffusion":
+        diffusion_type = config.architecture.vqdiffusion.diffusion_type
+        if diffusion_type != "gaussiandiffusion3d":
+            raise NotImplementedError(
+                f"training the {diffusion_type!r} prior is not ported yet: see ROADMAP.md, "
+                "A4 (slice 5, discrete prior training)")
     train_split = str(config.dataset.get("train_split", "train"))
     if args.debug:
         config = config.replace_path("trainer.num_epochs", 1)
@@ -72,6 +88,8 @@ def run(argv: Optional[Sequence[str]] = None,
 
     from ..data import load_dataloader
     from ..utils import create_run_dir, resolve_device, setup_logging
+    from .vq_diffusion_worker import VQDiffusionWorker
+    from .vq_transformer_worker import VQTransformerWorker
     from .vqgan_worker import VQGANVQVAEWorker
 
     device = resolve_device(args.device)
@@ -81,8 +99,16 @@ def run(argv: Optional[Sequence[str]] = None,
                 device, run_dir)
     train_loader, _ = load_dataloader(dataset_name, train_split, logger, config, seed=args.seed)
     val_loader, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
-    worker = VQGANVQVAEWorker(config, run_dir, logger, debug=args.debug, seed=args.seed,
-                              device=str(device))
+    kwargs = dict(debug=args.debug, seed=args.seed, device=str(device))
+    if model_name in VQ_STAGE1_MODELS:
+        worker_cls = VQGANVQVAEWorker
+    elif model_name in TRANSFORMER_MODELS:
+        worker_cls = VQTransformerWorker
+    else:
+        # OneCycle's total steps: epochs x batches an epoch, as the root train.py
+        worker_cls = VQDiffusionWorker
+        kwargs["num_iters_per_epoch"] = max(len(train_loader), 1)
+    worker = worker_cls(config, run_dir, logger, **kwargs)
     epochs = args.epochs or int(config.trainer.num_epochs)
     metrics = worker.train(train_loader, epochs, val_loader)
     logger.info("training done: %s", metrics)

@@ -13,9 +13,15 @@ from typing import Dict, Optional
 
 def create_run_dir(log_dir: str, dataset_name: str, model_name: str,
                    config_path: Optional[str] = None) -> str:
+    """A new ``<log_dir>/<dataset>/<model>/run_<time>`` (``_1``, ``_2``, ...
+    added when a run of the same second has it), with a copy of the config."""
     ts = time.strftime("%Y-%m-%d-%H-%M-%S")
-    run_dir = os.path.join(log_dir, dataset_name, model_name, f"run_{ts}")
-    os.makedirs(run_dir, exist_ok=True)
+    base = run_dir = os.path.join(log_dir, dataset_name, model_name, f"run_{ts}")
+    n = 0
+    while os.path.exists(run_dir):
+        n += 1
+        run_dir = f"{base}_{n}"
+    os.makedirs(run_dir)
     if config_path and os.path.exists(config_path):
         shutil.copy(config_path, os.path.join(run_dir, os.path.basename(config_path)))
     return run_dir
