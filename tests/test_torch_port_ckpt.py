@@ -144,7 +144,8 @@ def test_exported_shuffle_unet_serves_like_transplant(tmp_path, tiny_config, jax
                         "--device", "cpu", "--seed", "4", "--ckpt", str(exported["unet"])])
     want = VQDiffusionWorker(t_config_from_dict(data), str(tmp_path), seed=4, device="cpu")
     want.init_state()
-    want.composite.unet.load_state_dict(
+    # the worker samples its EMA copy, as the JAX worker does
+    want.state.ema.load_state_dict(
         shuffle_unet_state_from_jax(unet["params"], unet["batch_stats"]), strict=True)
     ref = want.generate_images(n_samples=2)
     assert torch.equal(out["indices"], ref["indices"])

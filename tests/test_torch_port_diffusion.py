@@ -137,11 +137,3 @@ def test_gaussian_to_indices_matches_jax():
     np.testing.assert_array_equal(emb.numpy(),
                                   np.asarray(jax_p.indices_to_gaussian(jnp.asarray(idx))))
     np.testing.assert_array_equal(port.gaussian_to_indices(emb[..., None]).numpy(), idx)
-
-
-def test_filmstrip_not_ported():
-    port = tg3.VQGaussianDiffusion3D(seq_length=4, timesteps=2, sampling_timesteps=2,
-                                     vocab_size=8, gaussian_dim=4, sample_method="ddpm",
-                                     return_all_timestamps=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.sample(1)

@@ -43,7 +43,7 @@ State = Dict[str, torch.Tensor]
 def _refuse(path: str, why: str) -> ValueError:
     return ValueError(
         f"checkpoint {path} {why}. The port reads a torch.save file: its own bundle "
-        "{'vqvae': ..., 'gpt' | 'unet': ...}, its stage-1 training checkpoint, or a bare "
+        "{'vqvae': ..., 'gpt' | 'unet': ...}, its training checkpoint, or a bare "
         f"VQVAE, minGPT or ShuffleNet denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
         "--config <yml> --ckpt <dir> --out <file>.pth (add --ema for a diffusion prior)")
 
@@ -65,8 +65,15 @@ def read_training_checkpoint(path: str, prior: Optional[str] = None) -> Optional
     or None where ``path`` holds nothing or another form."""
     if not os.path.isfile(path):
         return None
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    tree = _load(path)
     return tree if _is_training(tree) and _prior_of(tree) == prior else None
+
+
+def _load(path: str):
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, EOFError, RuntimeError) as e:
+        raise _refuse(path, f"is not a torch.save file of tensors ({type(e).__name__}: {e})") from e
 
 
 def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
@@ -77,10 +84,7 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
         return None
     if os.path.isdir(path):
         raise _refuse(path, "is a directory (an Orbax checkpoint?), not a file")
-    try:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-    except (pickle.UnpicklingError, EOFError, RuntimeError) as e:
-        raise _refuse(path, f"is not a torch.save file of tensors ({type(e).__name__}: {e})") from e
+    state = _load(path)
     if not isinstance(state, dict) or not state:
         raise _refuse(path, "holds no dict")
     if all(isinstance(v, torch.Tensor) for v in state.values()):

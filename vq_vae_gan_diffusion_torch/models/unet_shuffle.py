@@ -1,16 +1,22 @@
 """ShuffleNet-v2 style U-Net, the gaussian3d prior's denoiser (PyTorch
-counterpart of the JAX ``models/unet_shuffle.py``), in eval mode.
+counterpart of the JAX ``models/unet_shuffle.py``).
 
 Modules and ``state_dict`` keys follow the reference layout that the JAX
 package's ``utils/torch_export.py::export_shuffle_unet`` emits:
 ``init_conv.module.{0,1}``, ``time_embedding``,
 ``encoder_blocks.i.conv0.k.branch{1,2}.*``, ``.time_mlp.mlp.{0,2}``,
 ``.conv1``, ``mid_block.i``, ``decoder_blocks.i.*``, ``final_conv``.
-BatchNorm uses eps 1e-5 and momentum 0.1 (flax's momentum 0.9).
+BatchNorm (:class:`BatchNorm2d`) uses eps 1e-5. In eval mode it normalises
+with the running statistics. In train mode it runs as flax's
+``train=True`` call with ``mutable=["batch_stats"]``: it normalises with the
+batch statistics, and the running ones move with flax's momentum 0.9
+(torch's 0.1) by the *biased* batch variance, where ``nn.BatchNorm2d``
+would take the unbiased one.
 
 ``ShuffleUNet.forward`` takes and returns NHWC, as the JAX module does, and
-runs NCHW inside. It is the sampler's ``fused_sampler: False`` route; the
-BN-folded kernel route is ``models/shuffle_infer.py``.
+runs NCHW inside. In eval mode it is the sampler's ``fused_sampler: False``
+route; the BN-folded kernel route is ``models/shuffle_infer.py``. Training
+runs it in train mode.
 """
 
 from __future__ import annotations
@@ -31,13 +37,28 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2, dim: int = -1) -> torch.Te
     return x.unflatten(dim, (groups, c // groups)).transpose(dim, dim + 1).flatten(dim, dim + 1)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is flax's: batch statistics, and
+    the running ones moved by ``momentum`` (0.1 here, flax's 0.9) with the
+    biased batch variance. ``num_batches_tracked`` stays as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+
+
 class ConvBnSiLu(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
                  padding: int = 0):
         super().__init__()
         self.module = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, kernel, stride, padding),
-            nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
+            BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
             nn.SiLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,10 +76,10 @@ class ResidualBottleneck(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         ch, co2 = in_channels // 2, out_channels // 2
-        self.branch1 = nn.Sequential(_depthwise(ch, 1), nn.BatchNorm2d(ch),
+        self.branch1 = nn.Sequential(_depthwise(ch, 1), BatchNorm2d(ch),
                                      ConvBnSiLu(ch, co2, 1))
         self.branch2 = nn.Sequential(ConvBnSiLu(ch, ch, 1), _depthwise(ch, 1),
-                                     nn.BatchNorm2d(ch), ConvBnSiLu(ch, co2, 1))
+                                     BatchNorm2d(ch), ConvBnSiLu(ch, co2, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = x.chunk(2, dim=1)
@@ -71,10 +92,10 @@ class ResidualDownsample(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         co2 = out_channels // 2
-        self.branch1 = nn.Sequential(_depthwise(in_channels, 2), nn.BatchNorm2d(in_channels),
+        self.branch1 = nn.Sequential(_depthwise(in_channels, 2), BatchNorm2d(in_channels),
                                      ConvBnSiLu(in_channels, co2, 1))
         self.branch2 = nn.Sequential(ConvBnSiLu(in_channels, co2, 1), _depthwise(co2, 2),
-                                     nn.BatchNorm2d(co2), ConvBnSiLu(co2, co2, 1))
+                                     BatchNorm2d(co2), ConvBnSiLu(co2, co2, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return channel_shuffle(torch.cat([self.branch1(x), self.branch2(x)], 1), dim=1)

@@ -1,6 +1,6 @@
 """VQ-Diffusion composite: a frozen VQVAE and a diffusion prior over its
 codebook indices (PyTorch counterpart of the JAX
-``models/vq_diffusion_composite.py``, sampling side).
+``models/vq_diffusion_composite.py``).
 
 Two priors are ported:
 
@@ -21,13 +21,19 @@ Two priors are ported:
 
 ``fused_sampler`` selects the BN-folded CUDA-kernel forward of the U-Net
 (``models/shuffle_infer.py``, any truthy value) or the unfused module
-(falsy). The ``VQ_Official`` Unet1D branch (``unet_dim: 2``), the
-``gaussiandiffusion2d`` prior and the training loss come with later slices.
+(falsy) for sampling. ``sample`` takes the U-Net to sample with (the
+trainer's EMA copy) or samples with ``unet``.
+
+Training (``loss``, gaussian3d only): the frozen VQVAE's indices, then the
+prior's loss through the U-Net module in train mode (batch statistics,
+running statistics moved). The ``VQ_Official`` training loss, its Unet1D
+branch (``unet_dim: 2``) and the ``gaussiandiffusion2d`` prior come with
+later ROADMAP items.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -84,23 +90,27 @@ class VQDiffusionComposite(nn.Module):
             seq_length=self.seq_len, timesteps=self.timesteps,
             sampling_timesteps=sampling_steps, vocab_size=self.codebook_size,
             gaussian_dim=self.gaussian_dim, sample_method=str(dcfg.get("sample_method", "ddpm")),
+            loss_fn=str(dcfg.get("loss_fn", "noise_mse")),
             return_all_timestamps=bool(dcfg.get("return_all_timestamps", False)),
-            clipped_reverse_diffusion=bool(dcfg.get("clipped_reverse_diffusion", True)))
+            clipped_reverse_diffusion=bool(dcfg.get("clipped_reverse_diffusion", True)),
+            compute_indices_recon_loss=bool(dcfg.get("compute_indices_recon_loss", False)))
 
-    def _unet_fwd(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-        """The U-Net's NHWC forward ``fn(x, t)`` for one chain. The kernel
+    def _unet_fwd(self, unet: ShuffleUNet) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """``unet``'s NHWC eval forward ``fn(x, t)`` for one chain. The kernel
         route folds the BatchNorms here, once."""
         if resolve_sampler_mode(self.fused_sampler):
-            folded = fold_unet(self.unet, self.dtype)
+            folded = fold_unet(unet, self.dtype)
             return lambda x, t: apply_folded(folded, x, t).to(x.dtype)
-        return lambda x, t: self.unet(x, None, t)
+        unet.eval()
+        return lambda x, t: unet(x, None, t)
 
-    def bind(self):
-        """The prior with this chain's denoiser bound: ``fn(x, self_cond, t)``
-        for gaussian3d; for VQ_Official ``fn(log_x_t [B, N, K], t)`` -> logits
-        [B, N, K-1] through the U-Net on [B, K, N, 1], and ``fused_posterior``
-        resolved for the U-Net's device."""
-        fwd = self._unet_fwd()
+    def bind(self, unet: Optional[ShuffleUNet] = None):
+        """The prior with this chain's denoiser bound (``unet``, default the
+        composite's own): ``fn(x, self_cond, t)`` for gaussian3d; for
+        VQ_Official ``fn(log_x_t [B, N, K], t)`` -> logits [B, N, K-1]
+        through the U-Net on [B, K, N, 1], and ``fused_posterior`` resolved
+        for the U-Net's device."""
+        fwd = self._unet_fwd(self.unet if unet is None else unet)
         if self.diffusion_type != "VQ_Official":
             self.prior.diffusion.model_fn = lambda x, self_cond, t: fwd(x, t)
             return self.prior
@@ -118,13 +128,41 @@ class VQDiffusionComposite(nn.Module):
 
     @torch.no_grad()
     def sample(self, batch_size: int = 1, generator: Optional[torch.Generator] = None,
-               **noise) -> torch.Tensor:
-        """Indices [batch_size, seq_len] from the reverse chain. Noise comes from
+               unet: Optional[ShuffleUNet] = None, **noise) -> torch.Tensor:
+        """Indices [batch_size, seq_len] from the reverse chain of ``unet``
+        (default the composite's own), or the filmstrip's [B, F, N] under
+        gaussian3d's ``return_all_timestamps``. Noise comes from
         ``generator`` (on the U-Net's device) or is injected: ``x_T`` and
         ``step_noise`` for gaussian3d, ``init_uniform`` and ``step_gumbel``
         for VQ_Official."""
-        prior = self.bind()
+        prior = self.bind(unet)
         return prior.sample(batch_size, generator=generator, device=self._device(), **noise)
+
+    @torch.no_grad()
+    def encode_to_z(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, C] -> the frozen VQVAE's indices [B, h*w]."""
+        return self.vqvae.encode(x)[1].reshape(x.shape[0], -1)
+
+    def loss(self, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        """The gaussian3d prior's training loss on images x [B, H, W, C] ->
+        (loss, metrics), the U-Net in train mode: its BatchNorms run on batch
+        statistics and move their running ones. ``t`` and ``noise`` come
+        from ``generator`` unless given."""
+        if self.diffusion_type == "VQ_Official":
+            raise NotImplementedError(
+                "training the VQ_Official prior is not ported yet: see ROADMAP.md, A4 "
+                "(slice 5, discrete prior training)")
+        indices = self.encode_to_z(x)
+        unet = self.unet.train()
+        self.prior.diffusion.model_fn = lambda x_t, self_cond, tt: unet(x_t, None, tt)
+        return self.prior.loss(indices, generator, t=t, noise=noise)
+
+    @torch.no_grad()
+    def log_images(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The first 4 images of x and the frozen VQVAE's reconstructions."""
+        x = x[:4]
+        return {"input": x, "rec": self.z_to_image(self.encode_to_z(x))}
 
     @torch.no_grad()
     def z_to_image(self, indices: torch.Tensor) -> torch.Tensor:

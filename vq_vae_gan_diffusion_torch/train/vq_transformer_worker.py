@@ -94,8 +94,9 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         ``seed`` on the worker's device, the VQVAE frozen (eval mode, no
         gradients) and replaced by the checkpoint at
         ``architecture.vqvae.resume_path`` (a stage-1 training checkpoint
-        included), and a fresh optimizer. A GPT training checkpoint at
-        ``architecture.<model>.resume_path`` replaces the whole state."""
+        included), and a fresh optimizer; also set as the worker's state. A
+        GPT training checkpoint at ``architecture.<model>.resume_path``
+        replaces the whole state."""
         composite = VQTransformer(self.config)
         gen = torch.Generator().manual_seed(self.seed)
         composite.vqvae.init_weights(gen)
@@ -110,9 +111,9 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         self.logger.info("GPT params: %.1fM", n / 1e6)
         mkey = self.model_name if self.model_name in self.config.architecture else "vqvae"
         resume = self.config.architecture[mkey].get("resume_path")
+        self.state = state
         tree = read_training_checkpoint(str(resume), "gpt") if resume else None
         if tree is not None:
-            self.state = state
             self.load_checkpoint_tree(tree)
             self.logger.info("GPT state resumed from %s at step %d", resume, state.step)
         return state
