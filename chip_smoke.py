@@ -119,10 +119,35 @@ Phases, each printed as it runs; any failure exits non-zero:
       this fits_vmem shape), and over 1024 positions, past fits_vmem, with
       no posterior launch; indices in [0, 2047]. Stage 1 runs no
       hand-written kernel: its convolutions are cuDNN's, its products
-      cuBLAS's.
+      cuBLAS's;
+  (p) stage-2 GPT prior training on configs/training_config_gpt.yml at full
+      width (C 1024, 12 layers of 16 heads, 256 tokens over the frozen
+      VQVAE of training_config_small.yml, 256x256x3 synthetic images, f32,
+      seeded weights): the decode stack against its plain version at batch
+      4, the batch the training grid samples at, teacher-forced over the 129
+      given positions and then free-running (1e-4 of max(1, max |plain|));
+      ``python -m vq_vae_gan_diffusion_torch.train --debug`` (metrics.jsonl,
+      a checkpoint, the four-row grid and the epoch's samples, 768
+      decode-stack launches), then one ``log_artifacts`` call at batch 4 with
+      exactly 512 launches (two samples of 256 positions); a warm
+      ``train_step`` at batch 20: ms a step, images/s and tokens/s, peak
+      memory, the profiler's busy share and top kernels, the step's
+      operations and its bound at the f32 peak, as the ``{"gpt_train_step":
+      ...}`` JSON line with two CLI epochs' images/s; one step at batch 2 on
+      the card against the CPU and a float64 step, (o)'s rule;
+  (q) stage-2 gaussian3d prior training on
+      configs/training_config_vqdiffusion.yml at full width (U-Net base 64,
+      mults (1, 2, 4, 8) on [B, 256, 96, 1], 1000 steps, indices recon on,
+      batch 20): the train CLI in --debug (metrics, a checkpoint, the recon
+      grid, and the EMA copy's samples with 39000 K1 and 4000 K2 launches);
+      the trained EMA U-Net through the kernel route against its module
+      (h's 1e-3); a warm ``train_step`` at batch 20, as ``{"vqd_train_step":
+      ...}`` with two CLI epochs; one step at batch 2 on the card against the
+      CPU and float64: gradients, running statistics and the EMA's leaves.
 
-Each path, (d), (g), (j), (m) and each run of (k), runs with every kernel's
-launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
+Each path, (d), (g), (j), (m), each run of (k) and the training hooks of
+(p) and (q), runs with every kernel's launch count set to 0 just before it
+and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -132,6 +157,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import sys
 import time
 
@@ -162,6 +188,14 @@ WIDE_K = 2049
 # stage-1 training: the benchmark workload of the root bench.py
 TRAIN_CONFIG, TRAIN_B, TRAIN_STEPS = "configs/training_config_mnist.yml", 200, 10
 TRAIN_EPOCHS = 4
+# stage-2 training at full width: the GPT prior and the gaussian3d prior of
+# training_config_small.yml on synthetic data, batch 20 @ 256x256x3; the
+# GPT's training grid samples LOG_B images, half given (PREFIX positions
+# with SOS)
+GPT_TRAIN_CONFIG = "configs/training_config_gpt.yml"
+VQD_TRAIN_CONFIG = "configs/training_config_vqdiffusion.yml"
+STAGE2_B, STAGE2_STEPS, LOG_B, PREFIX = 20, 5, 4, N // 2 + 1
+STAGE2_EPOCHS = 2
 
 
 def phase_device() -> str:
@@ -1223,28 +1257,74 @@ def train_cli_run(log_dir: str) -> dict:
         raise AssertionError(f"(o) checkpoints {ckpts}")
     print(f"(o) train CLI --debug on the card: {len(rows)} metrics.jsonl rows, last step "
           f"{rows[1]}; checkpoint {os.path.basename(ckpts[0])}")
-    out = cli.run(["--config", TRAIN_CONFIG, "--epochs", str(TRAIN_EPOCHS)],
+    return cli_epochs("o", TRAIN_CONFIG, log_dir, TRAIN_EPOCHS, TRAIN_B)
+
+
+def cli_epochs(label: str, config: str, log_dir: str, epochs: int, batch: int) -> dict:
+    """The train CLI for ``epochs`` epochs on ``config``, each epoch's time
+    split as the loop records it (the host's time in the loader, in the
+    artifacts, and the steps with the device's tail). Returns the epochs'
+    rows and the images/s of the epochs after the first."""
+    import os
+
+    from vq_vae_gan_diffusion_torch.train import cli
+
+    out = cli.run(["--config", config, "--epochs", str(epochs)],
                   overrides={"trainer.log_dir": log_dir})
     with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
-        epochs = [r for r in map(json.loads, f) if "epoch_time_s" in r]
-    if len(epochs) != TRAIN_EPOCHS:
-        raise AssertionError(f"(o) {len(epochs)} epoch rows in metrics.jsonl")
-    for i, e in enumerate(epochs):
-        print(f"(o) train CLI epoch {i} ({'setup included' if i == 0 else 'warm'}): "
-              f"{e['steps']} steps at batch {TRAIN_B} of synthetic images decoded on the host "
-              f"as it goes, {e['epoch_time_s']:.3f} s, {e['images_per_sec']:.1f} images/s; "
+        rows = [r for r in map(json.loads, f) if "epoch_time_s" in r]
+    if len(rows) != epochs:
+        raise AssertionError(f"({label}) {len(rows)} epoch rows in metrics.jsonl")
+    for i, e in enumerate(rows):
+        print(f"({label}) train CLI epoch {i} ({'setup included' if i == 0 else 'warm'}): "
+              f"{e['steps']} steps at batch {batch} of synthetic images decoded on the host "
+              f"as it goes, {e['epoch_time_s']:.3f} s, {e['images_per_sec']:.2f} images/s; "
               f"host in the loader {e['loader_s']:.3f} s, in the artifacts "
               f"{e['artifact_s']:.3f} s, steps and the device's tail {e['step_s']:.3f} s")
-    warm = epochs[1:]
-    rate = sum(e["steps"] for e in warm) * TRAIN_B / sum(e["epoch_time_s"] for e in warm)
-    print(f"(o) train CLI, epochs 1-{TRAIN_EPOCHS - 1}: {rate:.1f} images/s")
-    return {"epochs": epochs, "warm_images_per_s": rate}
+    warm = rows[1:]
+    rate = sum(e["steps"] for e in warm) * batch / sum(e["epoch_time_s"] for e in warm)
+    print(f"({label}) train CLI, epochs 1-{epochs - 1}: {rate:.2f} images/s")
+    return {"epochs": rows, "warm_images_per_s": rate}
+
+
+def cli_numbers(run: dict) -> dict:
+    """The JSON line's share of :func:`cli_epochs`' result."""
+    return {"cli_warm_images_per_s": run["warm_images_per_s"],
+            "cli_epochs": [{k: e[k] for k in ("steps", "epoch_time_s", "loader_s", "artifact_s",
+                                              "step_s")} for e in run["epochs"]]}
+
+
+def profile_steps(step, n: int = 3) -> tuple:
+    """torch.profiler over ``n`` calls of ``step``: the device ms a call
+    (CUDA-side events less the ranges the optimizer annotates, which overlap
+    its kernels), the device's busy share of the window's wall time, the
+    window's ms a call, and the kernel events, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return (dev_ms / n, dev_ms / window_ms, window_ms / n,
+            sorted(kernels, key=lambda e: -e.self_device_time_total))
+
+
+def print_kernels(label: str, kernels: list, top: int, n: int = 3) -> None:
+    """The ``top`` kernels of a profiled window of ``n`` steps, ms and
+    launches a step."""
+    for e in kernels[:top]:
+        print(f"({label})   {e.self_device_time_total / n / 1e3:9.3f} ms a step "
+              f"{e.count / n:6.1f} launches  {e.key[:90]}")
 
 
 def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
     """(o) warm ms a train_step at full width before and after disc_start,
     peak device memory, and a torch.profiler window of three steps."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
     state = worker.state
@@ -1270,32 +1350,22 @@ def train_step_times(worker, batch: torch.Tensor, card: str) -> dict:
         raise AssertionError(f"(o) disc_factor {m_before['disc_factor']}, {m_after['disc_factor']}")
     if not (m_after["lambda"] > 0 and all(math.isfinite(v) for v in m_after.values())):
         raise AssertionError(f"(o) metrics after disc_start {m_after}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        steps(3)
-        window_ms = 1e3 * (time.perf_counter() - t0)
-    # CUDA-side events less the ranges the optimizer annotates (they
-    # overlap its kernels)
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False)]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    dev_ms, busy, window_ms, kernels = profile_steps(lambda: steps(1))
     with FlopCounterMode(display=False) as flops:
         steps(1)
     bound_ms = 1e3 * flops.get_total_flops() / F32_PEAK_FLOPS
     print(f"(o) train_step [{TRAIN_B}, 28, 28, 1] f32 warm: {ms_before:.3f} ms before disc_start, "
           f"{ms_after:.3f} ms after ({1e3 * TRAIN_B / ms_after:.1f} images/s), peak "
-          f"{peak:.3f} GiB; profiled 3 steps: device {dev_ms / 3:.3f} ms a step, busy "
-          f"{100 * dev_ms / window_ms:.1f}% of {window_ms / 3:.3f} ms; "
+          f"{peak:.3f} GiB; profiled 3 steps: device {dev_ms:.3f} ms a step, busy "
+          f"{100 * busy:.1f}% of {window_ms:.3f} ms; "
           f"{flops.get_total_flops() / 1e12:.4f} TFLOP a step, bound {bound_ms:.3f} ms at the "
           f"f32 peak; {card}")
     print(f"(o) metrics after disc_start: {m_after}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"(o)   {e.self_device_time_total / 3e3:9.3f} ms a step "
-              f"{e.count / 3:6.1f} launches  {e.key[:90]}")
+    print_kernels("o", kernels, 15)
     return {"config": TRAIN_CONFIG, "batch": TRAIN_B, "dtype": "float32",
             "ms_before_disc_start": ms_before, "ms_after_disc_start": ms_after,
             "images_per_s": 1e3 * TRAIN_B / ms_after, "peak_gib": peak,
-            "device_ms_per_step": dev_ms / 3, "device_busy_share": dev_ms / window_ms,
+            "device_ms_per_step": dev_ms, "device_busy_share": busy,
             "tflop_per_step": flops.get_total_flops() / 1e12, "bound_ms": bound_ms,
             "card": card}
 
@@ -1325,6 +1395,42 @@ def train_layer_times(worker, batch: torch.Tensor, card: str) -> dict:
     print(f"(o) the step's layers alone at batch {TRAIN_B}: " + ", ".join(
         f"{name} {ms:.3f} ms" for name, ms in times.items()) + f"; {card}")
     return times
+
+
+def gradients_against_float64(label: str, card: dict, cpu: dict, ref: dict) -> set:
+    """Each leaf's gradient on the card and on the CPU in f32 against the
+    float64 step's (``ref``), as a share of the leaf's largest entry. A
+    leaf whose reference gradient is below 1e-5 of the step's largest is
+    rounding; each other (live) leaf of the card must lie no further from
+    the reference than the larger of twice the CPU's distance and 1e-4.
+    Returns the live leaves."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    live = {k for k, g in ref.items() if float(g.abs().max()) > 1e-5 * top}
+    err = {k: (float((card[k] - g).abs().max()) / float(g.abs().max()),
+               float((cpu[k] - g).abs().max()) / float(g.abs().max())) for k, g in ref.items()
+           if k in live}
+    off = {k: e for k, e in err.items() if e[0] > max(2 * e[1], 1e-4)}
+    print(f"({label}) gradients against the float64 step, as a share of each leaf's largest "
+          f"entry, {len(live)} of {len(ref)} leaves above rounding: card worst "
+          f"{max(e[0] for e in err.values()):.3e}, CPU worst {max(e[1] for e in err.values()):.3e}")
+    for k in sorted(err, key=lambda k: -err[k][0])[:5]:
+        print(f"({label})   {k}: card {err[k][0]:.3e}, CPU {err[k][1]:.3e}")
+    if off:
+        raise AssertionError(f"({label}) the card's gradients depart from float64's: {off}")
+    return live
+
+
+def params_card_against_cpu(card: dict, cpu: dict, live: set, lr: float) -> tuple:
+    """Parameters after one step on the card against the CPU's: the largest
+    difference, the live leaf with the fewest entries within lr / 10 and
+    each live leaf's share within it, and the largest difference of the
+    running statistics (0 where there are none)."""
+    diffs = {k: (card[k].double() - cpu[k].double()).abs() for k in cpu
+             if "num_batches" not in k}
+    stats = max([float(d.max()) for k, d in diffs.items() if "running" in k], default=0.0)
+    worst = max(float(d.max()) for k, d in diffs.items() if "running" not in k)
+    near = {k: (diffs[k] <= lr / 10).double().mean().item() for k in live}
+    return worst, min(near, key=near.get), near, stats
 
 
 def card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
@@ -1363,36 +1469,20 @@ def card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
         runs[device, dtype] = (idx, metrics, params, grads, sec)
     (gi, gm, gp, gg, _), (ci, cm, cp, cg, csec) = runs["cuda", torch.float32], \
         runs["cpu", torch.float32]
-    ref = runs["cpu", torch.float64][3]
     same = (gi == ci).double().mean().item()
     same64 = (gi == runs["cpu", torch.float64][0]).double().mean().item()
     rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
     lr = float(cfg.trainer.vqvae.learning_rate)
-    top = max(float(g.abs().max()) for g in ref.values())
-    live = {k for k, g in ref.items() if float(g.abs().max()) > 1e-5 * top}
-    err = {k: (float((gg[k] - g).abs().max()) / float(g.abs().max()),
-               float((cg[k] - g).abs().max()) / float(g.abs().max())) for k, g in ref.items()
-           if k in live}
-    off = {k: e for k, e in err.items() if e[0] > max(2 * e[1], 1e-4)}
-    diffs = {k: (gp[k].double() - cp[k].double()).abs() for k in cp if "num_batches" not in k}
-    stats = max(float(d.max()) for k, d in diffs.items() if "running" in k)
-    worst = max(float(d.max()) for k, d in diffs.items() if "running" not in k)
-    near = {k: (diffs[k] <= lr / 10).double().mean().item() for k in live}
-    p_worst = min(near, key=near.get)
+    live = gradients_against_float64("o", gg, cg, runs["cpu", torch.float64][3])
+    worst, p_worst, near, stats = params_card_against_cpu(gp, cp, live, lr)
     print(f"(o) one step on the card against the CPU ({csec:.1f} s on the CPU): {100 * same:.3f}% "
-          f"of {gi.numel()} indices equal; worst metric {max(rel, key=rel.get)} "
-          f"{max(rel.values()):.3e} relative; parameters max diff {worst:.3e} (2 lr = "
-          f"{2 * lr:.3e}), fewest within lr / 10 {p_worst} {100 * near[p_worst]:.3f}%; running "
-          f"statistics max diff {stats:.3e}")
-    print(f"(o) gradients against the float64 step, as a share of each leaf's largest entry, "
-          f"{len(live)} of {len(ref)} leaves above rounding: card worst "
-          f"{max(e[0] for e in err.values()):.3e}, CPU worst {max(e[1] for e in err.values()):.3e}"
-          f"; the float64 step's indices {100 * same64:.3f}% equal to the card's")
-    for k in sorted(err, key=lambda k: -err[k][0])[:5]:
-        print(f"(o)   {k}: card {err[k][0]:.3e}, CPU {err[k][1]:.3e}")
-    if same < 0.999 or max(rel.values()) > 1e-3 or off or worst > 2 * lr + 1e-6 \
+          f"of {gi.numel()} indices equal (the float64 step's {100 * same64:.3f}% equal to the "
+          f"card's); worst metric {max(rel, key=rel.get)} {max(rel.values()):.3e} relative; "
+          f"parameters max diff {worst:.3e} (2 lr = {2 * lr:.3e}), fewest within lr / 10 "
+          f"{p_worst} {100 * near[p_worst]:.3f}%; running statistics max diff {stats:.3e}")
+    if same < 0.999 or max(rel.values()) > 1e-3 or worst > 2 * lr + 1e-6 \
             or near[p_worst] < 0.99 or stats > 1e-4:
-        raise AssertionError(f"(o) the card's step departs from the CPU's; gradients off: {off}")
+        raise AssertionError("(o) the card's step departs from the CPU's")
 
 
 def wide_prior_routes() -> None:
@@ -1458,7 +1548,7 @@ def phase_train(card: str) -> dict:
     from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    cli_numbers = train_cli_run(log_dir)
+    cli_run = train_cli_run(log_dir)
     cfg = load_config(TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
     loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
     batch = next(iter(loader))
@@ -1468,14 +1558,329 @@ def phase_train(card: str) -> dict:
     worker.state = worker.init_state()
     numbers = train_step_times(worker, torch.from_numpy(batch).cuda(), card)
     numbers["layer_ms"] = train_layer_times(worker, torch.from_numpy(batch).cuda(), card)
-    numbers["cli_warm_images_per_s"] = cli_numbers["warm_images_per_s"]
-    numbers["cli_epochs"] = [{k: e[k] for k in ("steps", "epoch_time_s", "loader_s",
-                                                "artifact_s", "step_s")}
-                             for e in cli_numbers["epochs"]]
+    numbers.update(cli_numbers(cli_run))
     del worker
     torch.cuda.empty_cache()
     card_against_cpu(cfg, log_dir, batch, card)
     wide_prior_routes()
+    return numbers
+
+
+def stage2_step_times(label: str, key: str, worker, batch: torch.Tensor, card: str,
+                      tokens: int | None = None) -> dict:
+    """(p), (q): a stage-2 worker's warm ``train_step`` at full width, f32:
+    ms a step over STAGE2_STEPS after two, images/s (and tokens/s), peak
+    device memory, through torch.profiler over three steps the device's busy
+    share and the top kernels, the step's operations
+    (torch.utils.flop_counter) and its bound at the f32 peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def step() -> dict:
+        return worker.train_step(worker.state, batch, worker.generator)[1]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(STAGE2_STEPS):
+        metrics = step()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / STAGE2_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"({label}) metrics {metrics}")
+    dev_ms, busy, window_ms, kernels = profile_steps(step)
+    with FlopCounterMode(display=False) as flops:
+        step()
+    total = flops.get_total_flops()
+    b = batch.shape[0]
+    numbers = {"config": key, "batch": b, "dtype": "float32", "ms_per_step": ms,
+               "images_per_s": 1e3 * b / ms, "peak_gib": peak, "device_ms_per_step": dev_ms,
+               "device_busy_share": busy, "tflop_per_step": total / 1e12,
+               "bound_ms": 1e3 * total / F32_PEAK_FLOPS, "card": card}
+    rate = f"{numbers['images_per_s']:.2f} images/s"
+    if tokens:
+        numbers["tokens_per_s"] = 1e3 * b * tokens / ms
+        rate += f", {numbers['tokens_per_s']:.0f} tokens/s"
+    print(f"({label}) train_step {list(batch.shape)} f32 warm: {ms:.3f} ms a step ({rate}), peak "
+          f"{peak:.3f} GiB; profiled 3 steps: device {dev_ms:.3f} ms a step, busy "
+          f"{100 * busy:.1f}% of {window_ms:.3f} ms; {total / 1e12:.4f} TFLOP a step, bound "
+          f"{numbers['bound_ms']:.3f} ms at the f32 peak; metrics {metrics}; {card}")
+    print_kernels(label, kernels, 12)
+    return numbers
+
+
+def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
+                  files: tuple) -> dict:
+    """The train CLI in --debug on ``config`` on the card, every kernel's
+    launch count set to 0 just before it and read just after: two steps
+    in metrics.jsonl, one checkpoint, ``files`` in the run dir, and the
+    launches ``want_launches`` (every other kernel none). Returns the CLI's
+    result."""
+    import glob
+    import os
+
+    from vq_vae_gan_diffusion_torch.train import cli
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli.run(["--config", config, "--debug"], overrides={"trainer.log_dir": log_dir})
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    want = {name: want_launches.get(name, 0) for name in launches}
+    with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ckpts = glob.glob(os.path.join(out["run_dir"], "ckpt", "step_*.pth"))
+    missing = [name for name in files if not os.path.exists(os.path.join(out["run_dir"], name))]
+    if [r["step"] for r in rows[:2]] != [1, 2] or not all(
+            math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"({label}) metrics.jsonl rows {rows}")
+    if len(ckpts) != 1 or missing or launches != want:
+        raise AssertionError(f"({label}) checkpoints {ckpts}, missing {missing}, launches "
+                             f"{launches}, expected {want}")
+    print(f"({label}) train CLI --debug on {config}: {sec:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; metrics.jsonl step 2 {rows[1]}; "
+          f"checkpoint {os.path.basename(ckpts[0])}; {', '.join(files)}")
+    return out
+
+
+def gpt_decode_batch4(card: str) -> None:
+    """(p) the decode stack at the batch the GPT's training grid samples at
+    (LOG_B = 4, full width, seeded weights): every position of a 256-token
+    run, teacher-forced over the PREFIX given positions (SOS and half the
+    indices) and then free-running on the kernel's own samples, against
+    reference_decode_stack on the same cache, within (c)'s f32 tolerance
+    1e-4 of max(1, max |plain|)."""
+    import torch.nn.functional as F
+
+    from vq_vae_gan_diffusion_torch.models.mingpt import GPT, categorical, top_k_filter
+    from vq_vae_gan_diffusion_torch.ops.gpt_decode import (fused_decode_stack,
+                                                           pack_decode_params,
+                                                           reference_decode_stack)
+    gpt = GPT(vocab_size=1024, block_size=512, n_layer=L, n_head=H, n_embd=C)
+    gpt.init_weights(torch.Generator().manual_seed(21))
+    gpt = gpt.cuda().eval()
+    packed = pack_decode_params(gpt, torch.float32, None)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    prefix = torch.randint(0, 1024, (LOG_B, PREFIX), generator=gen, device="cuda")
+    kv = torch.zeros(L, LOG_B, N, 2 * C, device="cuda")
+    worst = {"teacher-forced": 0.0, "free-running": 0.0}
+    token = prefix[:, 0]
+    with torch.no_grad():
+        for t in range(N):
+            phase = "teacher-forced" if t < PREFIX else "free-running"
+            x = gpt.tok_emb.weight[prefix[:, t] if t < PREFIX else token] + gpt.pos_emb[0, t]
+            h_k, kv_k = fused_decode_stack(x, packed, kv, t, n_head=H)
+            h_r, kv_r = reference_decode_stack(x, packed, kv, t, n_head=H)
+            for what, got, want in (("x_out", h_k, h_r), ("kv_new", kv_k, kv_r)):
+                err = check_close(f"(p) batch {LOG_B} t={t} {what}", got, want, 1e-4)
+                worst[phase] = max(worst[phase], err / max(1.0, want.abs().max().item()))
+            kv[:, :, t] = kv_k
+            logits = F.layer_norm(h_k, (C,), gpt.ln_f.weight, gpt.ln_f.bias, eps=1e-5) \
+                @ gpt.head.weight.T
+            token = categorical(top_k_filter(logits, 100), gen)
+    print(f"(p) decode stack at batch {LOG_B}, {N} positions against plain: worst err / scale "
+          f"{worst['teacher-forced']:.3e} teacher-forced over {PREFIX}, "
+          f"{worst['free-running']:.3e} free-running after (tol 1e-4); {card}")
+
+
+def gpt_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(p) one GPT step at batch 2 from the same seeded weights, batch and
+    corruption draws on the card and on the CPU in f32, and on the CPU in
+    float64 as the reference of both: at least 99.9% of the frozen VQVAE's
+    indices equal, ce_loss within 1e-4 relative, token_accuracy within one
+    token, gradients by (o)'s rule (:func:`gradients_against_float64`),
+    every parameter within 2 lr of the CPU's and each live leaf 99% within
+    lr / 10."""
+    from vq_vae_gan_diffusion_torch.train.vq_transformer_worker import VQTransformerWorker
+
+    b = batch.shape[0]
+    gen = torch.Generator().manual_seed(23)
+    keep = torch.bernoulli(torch.full((b, N), 0.5), generator=gen).long()
+    rand = torch.randint(0, int(cfg.architecture.vqvae.num_codebook_vectors), (b, N),
+                         generator=gen)
+    runs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        w = VQTransformerWorker(cfg, log_dir, device=device)
+        state = w.init_state()
+        w.composite.to(dtype)
+        x = torch.from_numpy(batch).to(device, dtype)
+        idx = w.composite.encode_to_z(x)[1].cpu()
+        t0 = time.perf_counter()
+        _, metrics = w.train_step(state, x, keep=keep.to(device), random_indices=rand.to(device))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        runs[device, dtype] = (idx, metrics,
+                               {k: v.cpu() for k, v in state.gpt.state_dict().items()},
+                               {k: p.grad.cpu().double() for k, p in state.gpt.named_parameters()},
+                               sec)
+        del w, state
+    (gi, gm, gp, gg, _), (ci, cm, cp, cg, csec) = runs["cuda", torch.float32], \
+        runs["cpu", torch.float32]
+    same = (gi == ci).double().mean().item()
+    lr = float(cfg.trainer.vqvae_transformer.learning_rate)
+    live = gradients_against_float64("p", gg, cg, runs["cpu", torch.float64][3])
+    worst, p_worst, near, _ = params_card_against_cpu(gp, cp, live, lr)
+    loss_rel = abs(gm["ce_loss"] - cm["ce_loss"]) / cm["ce_loss"]
+    acc_gap = abs(gm["token_accuracy"] - cm["token_accuracy"])
+    print(f"(p) one step at batch {b} on the card against the CPU ({csec:.1f} s on the CPU): "
+          f"{100 * same:.3f}% of {gi.numel()} indices equal; ce_loss {gm['ce_loss']:.6f} vs "
+          f"{cm['ce_loss']:.6f} ({loss_rel:.3e} relative), token_accuracy "
+          f"{gm['token_accuracy']:.6f} vs {cm['token_accuracy']:.6f}; parameters max diff "
+          f"{worst:.3e} (2 lr = {2 * lr:.3e}), fewest within lr / 10 {p_worst} "
+          f"{100 * near[p_worst]:.3f}%; {card}")
+    if same < 0.999 or loss_rel > 1e-4 or acc_gap > 1.0 / (b * N) + 1e-9 \
+            or worst > 2 * lr + 1e-6 or near[p_worst] < 0.99:
+        raise AssertionError("(p) the card's GPT step departs from the CPU's")
+
+
+def phase_gpt_train(card: str) -> dict:
+    """(p): GPT prior training at full width; returns the step's numbers."""
+    import os
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+    from vq_vae_gan_diffusion_torch.train.vq_transformer_worker import VQTransformerWorker
+
+    gpt_decode_batch4(card)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_gpt_")
+    out = run_train_cli("p", GPT_TRAIN_CONFIG, log_dir, {"gpt_decode_stack": 3 * N},
+                        ("transformer_epoch0_0.jpg", "samples_epoch0.jpg"))
+    cfg = load_config(GPT_TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = next(iter(loader))
+    if batch.shape != (STAGE2_B, 256, 256, 3):
+        raise AssertionError(f"(p) batch {batch.shape}")
+    worker = out["worker"]
+    reset_counts()
+    t0 = time.perf_counter()
+    worker.log_artifacts(torch.from_numpy(batch[:LOG_B]).cuda(), 0, 1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    grid = os.path.join(worker.run_dir, "transformer_epoch0_1.jpg")
+    if {k: v for k, v in launches.items() if v} != {"gpt_decode_stack": 2 * N} \
+            or not os.path.exists(grid):
+        raise AssertionError(f"(p) log_artifacts at batch {LOG_B}: launches {launches}, "
+                             f"grid {os.path.exists(grid)}")
+    print(f"(p) log_artifacts at batch {LOG_B} (input, rec, half and full samples): "
+          f"{launches['gpt_decode_stack']} decode-stack launches, {sec:.3f} s; {card}")
+    del out, worker
+    torch.cuda.empty_cache()
+    worker = VQTransformerWorker(cfg, log_dir, device="cuda")
+    worker.init_state()
+    numbers = stage2_step_times("p", GPT_TRAIN_CONFIG, worker, torch.from_numpy(batch).cuda(),
+                                card, tokens=N)
+    del worker
+    torch.cuda.empty_cache()
+    numbers.update(cli_numbers(cli_epochs("p", GPT_TRAIN_CONFIG, log_dir, STAGE2_EPOCHS,
+                                          STAGE2_B)))
+    torch.cuda.empty_cache()
+    gpt_card_against_cpu(cfg, log_dir, batch[:2], card)
+    shutil.rmtree(log_dir)
+    return numbers
+
+
+def vqd_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(q) one gaussian3d prior step at batch 2 from the same seeded weights,
+    batch, t and noise on the card and on the CPU in f32, and on the CPU in
+    float64 as the reference of both: at least 99.9% of the frozen VQVAE's
+    indices equal; noise_mse within 1e-4 relative; indices_recon within 1e-2
+    relative (one argmax of 512 flipped at a near tie moves it by less);
+    gradients by (o)'s rule; the U-Net's and the EMA's parameters within 2 lr
+    of the CPU's and each live leaf 99% within lr / 10; the running
+    statistics and the EMA's (copied at this step 0) within 1e-4."""
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    b = batch.shape[0]
+    gen = torch.Generator().manual_seed(24)
+    t = torch.randint(0, STEPS, (b,), generator=gen)
+    noise = torch.randn(b, N, GAUSSIAN_DIM, 1, generator=gen)
+    runs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        w = VQDiffusionWorker(cfg, log_dir, device=device)
+        state = w.init_state()
+        for module in (w.composite, state.ema):
+            module.to(dtype)
+        x = torch.from_numpy(batch).to(device, dtype)
+        idx = w.composite.encode_to_z(x).cpu()
+        t0 = time.perf_counter()
+        _, metrics = w.train_step(state, x, t=t.to(device), noise=noise.to(device, dtype))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        runs[device, dtype] = (idx, metrics,
+                               {k: v.cpu() for k, v in state.unet.state_dict().items()},
+                               {k: p.grad.cpu().double() for k, p in state.unet.named_parameters()},
+                               {k: v.cpu() for k, v in state.ema.state_dict().items()}, sec)
+        lr = w.lr_fn(0)
+        del w, state
+    (gi, gm, gp, gg, ge, _), (ci, cm, cp, cg, ce, csec) = runs["cuda", torch.float32], \
+        runs["cpu", torch.float32]
+    same = (gi == ci).double().mean().item()
+    live = gradients_against_float64("q", gg, cg, runs["cpu", torch.float64][3])
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
+    checks = {}
+    for part, got, want in (("U-Net", gp, cp), ("EMA", ge, ce)):
+        checks[part] = params_card_against_cpu(got, want, live, lr)
+        worst, p_worst, near, stats = checks[part]
+        print(f"(q) {part} after one step on the card against the CPU: parameters max diff "
+              f"{worst:.3e} (2 lr = {2 * lr:.3e}), fewest within lr / 10 {p_worst} "
+              f"{100 * near[p_worst]:.3f}%; running statistics max diff {stats:.3e}")
+    print(f"(q) one step at batch {b} on the card against the CPU ({csec:.1f} s on the CPU): "
+          f"{100 * same:.3f}% of {gi.numel()} indices equal; metrics card {gm}, CPU {cm}; "
+          f"{card}")
+    if same < 0.999 or rel["noise_mse"] > 1e-4 or rel["indices_recon"] > 1e-2 or any(
+            worst > 2 * lr + 1e-6 or near[p_worst] < 0.99 or stats > 1e-4
+            for worst, p_worst, near, stats in checks.values()):
+        raise AssertionError("(q) the card's diffusion step departs from the CPU's")
+
+
+def phase_vqd_train(card: str) -> dict:
+    """(q): gaussian3d prior training at full width; returns the step's numbers."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+    from vq_vae_gan_diffusion_torch.models.shuffle_infer import apply_folded, fold_unet
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_vqd_")
+    out = run_train_cli("q", VQD_TRAIN_CONFIG, log_dir,
+                        {"shuffle_bottleneck": 39 * STEPS, "shuffle_downsample": 4 * STEPS},
+                        ("recon_epoch0_0.jpg", "samples_epoch0.jpg"))
+    ema = out["worker"].state.ema
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    x = torch.randn(B, N, GAUSSIAN_DIM, 1, generator=gen, device="cuda")
+    t = torch.randint(0, STEPS, (B,), generator=gen, device="cuda")
+    with torch.no_grad():
+        ref = ema.eval()(x, None, t)
+    err = check_close("(q) the EMA U-Net, kernel route vs module", apply_folded(
+        fold_unet(ema), x, t), ref, 1e-3, scale=ref.abs().max().item())
+    print(f"(q) the trained EMA U-Net forward {list(x.shape)}, kernel route vs fused_sampler "
+          f"False: max abs err {err:.3e}, max |module| {ref.abs().max().item():.3f}")
+    del out, ema
+    torch.cuda.empty_cache()
+    cfg = load_config(VQD_TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = next(iter(loader))
+    if batch.shape != (STAGE2_B, 256, 256, 3):
+        raise AssertionError(f"(q) batch {batch.shape}")
+    worker = VQDiffusionWorker(cfg, log_dir, device="cuda", num_iters_per_epoch=len(loader))
+    worker.init_state()
+    numbers = stage2_step_times("q", VQD_TRAIN_CONFIG, worker, torch.from_numpy(batch).cuda(),
+                                card)
+    del worker
+    torch.cuda.empty_cache()
+    numbers.update(cli_numbers(cli_epochs("q", VQD_TRAIN_CONFIG, log_dir, STAGE2_EPOCHS,
+                                          STAGE2_B)))
+    torch.cuda.empty_cache()
+    vqd_card_against_cpu(cfg, log_dir, batch[:2], card)
+    shutil.rmtree(log_dir)
     return numbers
 
 
@@ -1498,6 +1903,8 @@ def main() -> int:
     quant_launches = phase_int8kv_path()
     phase_int8kv_routes()
     print(json.dumps({"vqgan_train_step": phase_train(card)}))
+    print(json.dumps({"gpt_train_step": phase_gpt_train(card)}))
+    print(json.dumps({"vqd_train_step": phase_vqd_train(card)}))
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",

@@ -139,7 +139,7 @@ class GaussianDiffusion3D:
         x_t = self.forward_diffusion(x0, t, noise)
         pred = self.model_fn(x_t, None, t)
         if self.loss_fn == "noise_mse":
-            return torch.mean((pred.float() - noise) ** 2)
+            return torch.mean((pred - noise) ** 2)
         post_mean, post_var, post_logvar = self._q_posterior_ref(x0, x_t, t)
         pred_x0 = self.predict_start_from_noise(x_t, t, pred)
         model_mean, model_var, _ = self._q_posterior_ref(pred_x0, x_t, t)
@@ -287,7 +287,7 @@ class VQGaussianDiffusion3D(nn.Module):
         if gaussian.dim() == 4:
             gaussian = gaussian[..., 0] if gaussian.shape[-1] == 1 else gaussian.squeeze(1)
         b, n, d = gaussian.shape
-        flat = gaussian.reshape(-1, d).float()
+        flat = gaussian.reshape(-1, d).to(self.lookup_normed.dtype)
         flat = flat / torch.clamp(torch.linalg.vector_norm(flat, dim=-1, keepdim=True),
                                   min=1e-12)
         sim = flat @ self.lookup_normed.T
@@ -305,7 +305,7 @@ class VQGaussianDiffusion3D(nn.Module):
         t, noise = _draw_t_noise(x0, self.diffusion.timesteps, generator, t, noise)
         x_t = self.diffusion.forward_diffusion(x0, t, noise)
         pred = self.diffusion.model_fn(x_t, None, t)
-        loss = torch.mean((pred.float() - noise) ** 2)
+        loss = torch.mean((pred - noise) ** 2)
         metrics = {"noise_mse": loss}
         if self.compute_indices_recon_loss:
             with torch.no_grad():

@@ -7,8 +7,8 @@ One step, as the JAX step computes it:
 - :meth:`..models.vq_transformer.VQTransformer.forward`: the frozen VQVAE's
   indices, corrupted with probability 1 - ``pkeep``, SOS prepended, the
   GPT's logits against the original indices;
-- ``ce_loss``, the mean cross-entropy of the f32 logits, and
-  ``token_accuracy``, the share of argmax hits;
+- ``ce_loss``, the mean cross-entropy of the logits in float32 (float64 for
+  a float64 model), and ``token_accuracy``, the share of argmax hits;
 - AdamW(lr, betas=(beta1, beta2), eps 1e-8) with the minGPT decay split
   (:func:`mingpt_param_groups`: weight decay 0.01 on the 2-D ``nn.Linear``
   weights only), through :func:`.base.maybe_accumulate`.
@@ -146,7 +146,7 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
         logits, targets = self.composite(imgs, generator, keep=keep,
                                          random_indices=random_indices)
-        logits = logits.float()
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
         acc = (logits.argmax(-1) == targets).float().mean()
         state.opt.zero_grad()
