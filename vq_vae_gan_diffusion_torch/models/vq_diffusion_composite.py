@@ -21,8 +21,8 @@ Two priors are ported:
 
 ``fused_sampler`` selects the BN-folded CUDA-kernel forward of the U-Net
 (``models/shuffle_infer.py``, any truthy value) or the unfused module
-(falsy) for sampling. ``sample`` takes the U-Net to sample with (the
-trainer's EMA copy) or samples with ``unet``.
+(falsy) for sampling. ``sample`` runs the chain of the U-Net it is given
+(the trainer's EMA copy), or of ``unet``.
 
 Training (``loss``, gaussian3d only): the frozen VQVAE's indices, then the
 prior's loss through the U-Net module in train mode (batch statistics,
