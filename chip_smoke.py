@@ -444,10 +444,12 @@ def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
 
 
 def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
-                kernel_reps: int = 20, plain_reps: int = 3) -> dict:
+                kernel_reps: int = 20, plain_reps: int = 3, mults: tuple = (1, 2, 4, 8),
+                batch: int = B) -> dict:
     """The bottleneck and downsample kernels against reference_bottleneck /
     reference_downsample at every distinct unit shape of the U-Net forward
-    on a [B, h, w, 1] input (the gaussian3d state by default).
+    (base 64, ``mults``) on a [batch, h, w, C] input (the gaussian3d state
+    by default).
 
     Tolerance: max |kernel - plain| <= tol * max(1, max |plain|). f32, tol
     1e-4: both sum the same f32 products in other orders, over at most 9
@@ -460,17 +462,20 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
 
     Times are per call, at each shape, by CUDA events over back-to-back
     calls, printed with each kernel's tile plan; the returned means are
-    per call over one forward's 39 bottleneck and 4 downsample calls.
+    per call over one forward's bottleneck and downsample calls (39 and 4
+    at mults (1, 2, 4, 8): each level 4 bottlenecks and a downsample down,
+    5 bottlenecks up, and 3 in the middle).
     """
     from vq_vae_gan_diffusion_torch.ops.shuffle import (bottleneck_plan, downsample_plan,
                                                         fused_bottleneck, fused_downsample,
                                                         reference_bottleneck,
                                                         reference_downsample)
-    units = unet_unit_shapes(h, w)
+    units = unet_unit_shapes(h, w, 64, mults)
     counts: dict = {}
     for u in units:
         counts[u] = counts.get(u, 0) + 1
-    if [k for k, *_ in units].count("K1") != 39 or len(units) != 43:
+    if [k for k, *_ in units].count("K1") != 9 * len(mults) + 3 or \
+            len(units) != 10 * len(mults) + 3:
         raise AssertionError(f"unexpected unit list {units}")
     gen = torch.Generator(device="cuda").manual_seed(3)
     result = {}
@@ -480,7 +485,7 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
                    "ops_ms": 0.0, "bound_ms": 0.0, "calls": 0} for k in ("K1", "K2")}
         for (kind, uh, uw, c_in, c_out), count in counts.items():
             p = random_unit(kind, c_in, c_out, dtype, gen)
-            x = torch.randn(B, uh, uw, c_in, generator=gen, device="cuda").to(dtype)
+            x = torch.randn(batch, uh, uw, c_in, generator=gen, device="cuda").to(dtype)
             kernel, plain = ((fused_bottleneck, reference_bottleneck) if kind == "K1"
                              else (fused_downsample, reference_downsample))
             what = f"{tag} {kind} {uh}x{uw} {c_in}->{c_out}"
@@ -488,7 +493,7 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
             torch.cuda.synchronize()
             err = check_close(what, got, want, tol)
             if kind == "K2":
-                t_vec = torch.randn(B, c_in, generator=gen, device="cuda").to(dtype)
+                t_vec = torch.randn(batch, c_in, generator=gen, device="cuda").to(dtype)
                 got_t, want_t = kernel(x, p, t_vec), plain(x, p, t_vec)
                 torch.cuda.synchronize()
                 err_t = check_close(what + " t_vec", got_t, want_t, tol)
@@ -497,10 +502,10 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
                 err = max(err, err_t)
             ms = cuda_ms(lambda: kernel(x, p), reps=kernel_reps)
             plain_ms = cuda_ms(lambda: plain(x, p), reps=plain_reps)
-            by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, B, dtype, card)
+            by_bytes, by_ops = shuffle_unit_bound(kind, uh, uw, c_in, c_out, batch, dtype, card)
             bound = max(by_bytes, by_ops)
-            plan = (bottleneck_plan(B, uh, uw, c_in // 2, c_out // 2) if kind == "K1"
-                    else downsample_plan(B, uh, uw, c_in, c_out // 2))
+            plan = (bottleneck_plan(batch, uh, uw, c_in // 2, c_out // 2) if kind == "K1"
+                    else downsample_plan(batch, uh, uw, c_in, c_out // 2))
             print(f"({label}) {what} (x{count} a forward): max abs err {err:.3e}; "
                   f"kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "

@@ -4,17 +4,19 @@ Three forms, all files written by ``torch.save``:
 
 - the port's own bundle, ``{"vqvae": state_dict, "gpt" | "unet": state_dict}``
   (either part may be left out);
-- a training checkpoint of the port, ``{"state": {"vqvae": ..., ...},
-  "step", "epoch"}``: stage 1's (``"disc"``, ``"opt_g"``, ...), the GPT
-  prior's (``"gpt"``, ``"opt"``) or the diffusion prior's (``"unet"``,
-  ``"ema"``, ``"opt"``), of which the serving workers read the VQVAE and the
-  prior: the GPT, or the U-Net's EMA copy with its statistics, the weights
-  the JAX worker samples with;
+- a training checkpoint of the port, ``{"state": {...}, "step",
+  "epoch"}``: stage 1's (``"vqvae"``, ``"disc"``, ``"opt_g"``, ...), the GPT
+  prior's (``"vqvae"``, ``"gpt"``, ``"opt"``), the diffusion prior's
+  (``"vqvae"``, ``"unet"``, ``"ema"``, ``"opt"``) or the pixel-space
+  ``gaussiandiffusion3d`` worker's (``"unet"``, ``"ema"``, ``"opt"``, no
+  VQVAE), of which the serving workers read the VQVAE and the prior: the
+  GPT, or the U-Net's EMA copy with its statistics, the weights the JAX
+  worker samples with;
 - a bare ``state_dict`` of one module, as ``tools/export_torch_checkpoint.py``
   writes it from an Orbax checkpoint of the JAX package: the VQVAE
   (``vqvae``/``vqgan``), the minGPT prior (``*_transformer``) or the
-  ShuffleNet U-Net denoiser (``vqdiffusion``; with ``--ema``, the EMA
-  weights the JAX worker samples with). Their key names are the ones the
+  ShuffleNet U-Net denoiser (``vqdiffusion``, ``gaussiandiffusion3d``; with
+  ``--ema``, the EMA weights the JAX worker samples with). Their key names are the ones the
   port's modules use; each module is told by a key only it has.
 
 A path where nothing exists is no checkpoint: the caller warns and keeps
@@ -49,20 +51,26 @@ def _refuse(path: str, why: str) -> ValueError:
 
 
 def _is_training(tree) -> bool:
-    """True for a training checkpoint of the port (stage 1's or a prior's)."""
+    """True for a training checkpoint of the port (stage 1's, a prior's or
+    the pixel-space worker's)."""
     return (isinstance(tree, dict) and {"state", "step", "epoch"} <= set(tree)
-            and isinstance(tree["state"], dict) and isinstance(tree["state"].get("vqvae"), dict))
+            and isinstance(tree["state"], dict)
+            and any(isinstance(tree["state"].get(k), dict) for k in ("vqvae", "unet")))
 
 
 def _prior_of(tree: dict) -> Optional[str]:
-    """The prior a training checkpoint trains (``gpt``, ``unet``), None for stage 1."""
+    """What a training checkpoint trains: ``gpt`` or ``unet`` (a prior over
+    a VQVAE's codes), ``pixel`` (the pixel-space U-Net, no VQVAE), None for
+    stage 1."""
+    if "vqvae" not in tree["state"]:
+        return "pixel"
     return next((kind for kind in ("gpt", "unet") if kind in tree["state"]), None)
 
 
 def read_training_checkpoint(path: str, prior: Optional[str] = None) -> Optional[dict]:
     """The port's training checkpoint at ``path`` whole (optimizers, step,
-    EMA too) when it trains ``prior`` (``gpt``, ``unet``; None: stage 1),
-    or None where ``path`` holds nothing or another form."""
+    EMA too) when it trains ``prior`` (``gpt``, ``unet``, ``pixel``; None:
+    stage 1), or None where ``path`` holds nothing or another form."""
     if not os.path.isfile(path):
         return None
     tree = _load(path)
@@ -94,7 +102,7 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
         return {kinds[0]: state}
     if _is_training(state):
         trained = state["state"]
-        found = {"vqvae": trained["vqvae"]}
+        found = {"vqvae": trained["vqvae"]} if "vqvae" in trained else {}
         if "gpt" in trained:
             found["gpt"] = trained["gpt"]
         if "ema" in trained:

@@ -83,6 +83,20 @@ class DiscreteSchedule(NamedTuple):
         return DiscreteSchedule(*(x.to(device) for x in self))
 
 
+class LtState(NamedTuple):
+    """The importance-sampling history of the training loss, [T] each: the
+    EMA of each t's squared loss and its count, and the EMAs of the x0
+    accuracy and the kept share at each t (telemetry)."""
+    Lt_history: torch.Tensor
+    Lt_count: torch.Tensor
+    acc_ema: torch.Tensor
+    keep_ema: torch.Tensor
+
+    @classmethod
+    def init(cls, timesteps: int, device=None) -> "LtState":
+        return cls(*(torch.zeros(timesteps, device=device) for _ in range(4)))
+
+
 def make_discrete_schedule(timesteps: int, num_classes: int,
                            ctt_T: float = 0.99999) -> DiscreteSchedule:
     """Log-space float32 schedule on the CPU; N = num_classes - 1 non-mask

@@ -1,6 +1,6 @@
 """Generation entry point of the port (mirrors the root ``generate.py`` for the
-stage-1 ``vqvae`` / ``vqgan`` models, the ``*_transformer`` models and the
-``vqdiffusion`` priors).
+stage-1 ``vqvae`` / ``vqgan`` models, the ``*_transformer`` models, the
+``vqdiffusion`` priors and the pixel-space ``gaussiandiffusion3d`` DDPM).
 
 Usage::
 
@@ -19,9 +19,12 @@ gaussian3d diffusion prior, as in ``configs/inference_config_vqdiffusion.yml``,
 or the discrete ``VQ_Official`` prior, as in
 ``configs/inference_config_vqofficial.yml``),
 decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
-``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. ``--ckpt`` loads
-a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``) or
-a bare prior ``state_dict`` as ``tools/export_torch_checkpoint.py`` writes
+``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. For
+``gaussiandiffusion3d`` it samples ``--n-samples`` images with the
+pixel-space DDPM's U-Net (its EMA copy in a training checkpoint) and writes
+them, six to a row, as ``samples_epoch0.jpg``. ``--ckpt`` loads
+a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``, a
+training checkpoint included) or a bare prior ``state_dict`` as ``tools/export_torch_checkpoint.py`` writes
 it from an Orbax checkpoint; without one it tries
 ``architecture.<model>.resume_path``. The VQVAE comes from
 ``architecture.vqvae.resume_path`` (a bare VQVAE ``state_dict`` or a
@@ -50,7 +53,6 @@ from .config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
 
 # the ROADMAP slice that ports each family's generation path
 _LATER_SLICES = {
-    "gaussiandiffusion3d": "slice 4 (pixel-space gaussian3d worker)",
     "c_vqdiffusion": "slice 7 (other families)",
     "v_vqdiffusion": "slice 7 (other families)",
     "gaussiandiffusion2d": "slice 7 (other families)",
@@ -84,7 +86,8 @@ def run(argv: Optional[Sequence[str]] = None,
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion",):
+    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion",
+                                                                   "gaussiandiffusion3d"):
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
@@ -103,7 +106,7 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
-    from .train import VQDiffusionWorker, VQTransformerWorker
+    from .train import GaussianDiffusion3DWorker, VQDiffusionWorker, VQTransformerWorker
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -113,7 +116,9 @@ def run(argv: Optional[Sequence[str]] = None,
     logger = setup_logging(run_dir)
     if model_name in VQ_STAGE1_MODELS:
         return dict(_reconstruct(config, run_dir, logger, args, str(device)), run_dir=run_dir)
-    worker_cls = VQDiffusionWorker if model_name == "vqdiffusion" else VQTransformerWorker
+    worker_cls = {"vqdiffusion": VQDiffusionWorker,
+                  "gaussiandiffusion3d": GaussianDiffusion3DWorker}.get(model_name,
+                                                                        VQTransformerWorker)
     worker = worker_cls(config, run_dir, logger, seed=args.seed, device=str(device))
     worker.init_state()
     ckpt = args.ckpt

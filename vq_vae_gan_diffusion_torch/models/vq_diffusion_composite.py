@@ -39,7 +39,7 @@ import torch
 from torch import nn
 
 from ..config import Config
-from ..diffusion.discrete import DiscreteDiffusion
+from ..diffusion.discrete import DiscreteDiffusion, LtState
 from ..diffusion.gaussian3d import VQGaussianDiffusion3D
 from .shuffle_infer import apply_folded, fold_unet, resolve_sampler_mode
 from .unet_shuffle import ShuffleUNet
@@ -126,6 +126,11 @@ class VQDiffusionComposite(nn.Module):
     def _device(self) -> torch.device:
         return next(self.unet.parameters()).device
 
+    def init_lt_state(self) -> LtState:
+        """VQ_Official's empty importance-sampling history, on the U-Net's
+        device."""
+        return LtState.init(self.timesteps, device=self._device())
+
     @torch.no_grad()
     def sample(self, batch_size: int = 1, generator: Optional[torch.Generator] = None,
                unet: Optional[ShuffleUNet] = None, **noise) -> torch.Tensor:
@@ -144,11 +149,13 @@ class VQDiffusionComposite(nn.Module):
         return self.vqvae.encode(x)[1].reshape(x.shape[0], -1)
 
     def loss(self, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
-             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
-        """The gaussian3d prior's training loss on images x [B, H, W, C] ->
-        (loss, metrics), the U-Net in train mode: its BatchNorms run on batch
-        statistics and move their running ones. ``t`` and ``noise`` come
-        from ``generator`` unless given."""
+             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             lt=None):
+        """The prior's training loss on images x [B, H, W, C] -> (loss,
+        metrics, the new importance-sampling history), the U-Net in train
+        mode: its BatchNorms run on batch statistics and move their running
+        ones. ``t`` and ``noise`` come from ``generator`` unless given.
+        gaussian3d returns ``lt`` as it came (None)."""
         if self.diffusion_type == "VQ_Official":
             raise NotImplementedError(
                 "training the VQ_Official prior is not ported yet: see ROADMAP.md, A4 "
@@ -156,7 +163,8 @@ class VQDiffusionComposite(nn.Module):
         indices = self.encode_to_z(x)
         unet = self.unet.train()
         self.prior.diffusion.model_fn = lambda x_t, self_cond, tt: unet(x_t, None, tt)
-        return self.prior.loss(indices, generator, t=t, noise=noise)
+        loss, metrics = self.prior.loss(indices, generator, t=t, noise=noise)
+        return loss, metrics, lt
 
     @torch.no_grad()
     def log_images(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,7 @@
+from .gaussian_diffusion_workers import GaussianDiffusion3DWorker
 from .vq_diffusion_worker import VQDiffusionWorker
 from .vq_transformer_worker import VQTransformerWorker
 from .vqgan_worker import VQGANVQVAEWorker
 
-__all__ = ["VQDiffusionWorker", "VQTransformerWorker", "VQGANVQVAEWorker"]
+__all__ = ["GaussianDiffusion3DWorker", "VQDiffusionWorker", "VQTransformerWorker",
+           "VQGANVQVAEWorker"]

@@ -22,7 +22,10 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
 - ``vqdiffusion`` with ``diffusion_type: gaussiandiffusion3d``: the
   diffusion prior over those codes, with its OneCycle schedule over
   ``num_epochs`` x the loader's batches and its EMA copy;
-  ``recon_epoch<e>_<i>.jpg`` and the EMA's ``samples_epoch<e>.jpg``.
+  ``recon_epoch<e>_<i>.jpg`` and the EMA's ``samples_epoch<e>.jpg``;
+- ``gaussiandiffusion3d``: the pixel-space DDPM on the images themselves
+  (the ShuffleNet U-Net, mults (2, 4)), OneCycle and EMA as above; the
+  EMA's ``samples_epoch<e>.jpg``.
 
 A prior's training checkpoint at ``architecture.<model>.resume_path``
 resumes it at its step. ``--debug`` trains one epoch of two batches of 2
@@ -39,10 +42,9 @@ from typing import Dict, Optional, Sequence
 
 from ..config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
 
-TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion",)
+TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion", "gaussiandiffusion3d")
 # the ROADMAP item that ports each family's training
 _LATER_SLICES = {
-    "gaussiandiffusion3d": "A3, slice 4 (pixel-space gaussian3d worker)",
     "c_vqdiffusion": "slice 7 (other families)", "v_vqdiffusion": "slice 7 (other families)",
     "gaussiandiffusion2d": "slice 7 (other families)", "vae": "slice 7 (other families)",
 }
@@ -88,6 +90,7 @@ def run(argv: Optional[Sequence[str]] = None,
 
     from ..data import load_dataloader
     from ..utils import create_run_dir, resolve_device, setup_logging
+    from .gaussian_diffusion_workers import GaussianDiffusion3DWorker
     from .vq_diffusion_worker import VQDiffusionWorker
     from .vq_transformer_worker import VQTransformerWorker
     from .vqgan_worker import VQGANVQVAEWorker
@@ -106,7 +109,8 @@ def run(argv: Optional[Sequence[str]] = None,
         worker_cls = VQTransformerWorker
     else:
         # OneCycle's total steps: epochs x batches an epoch, as the root train.py
-        worker_cls = VQDiffusionWorker
+        worker_cls = (VQDiffusionWorker if model_name == "vqdiffusion"
+                      else GaussianDiffusion3DWorker)
         kwargs["num_iters_per_epoch"] = max(len(train_loader), 1)
     worker = worker_cls(config, run_dir, logger, **kwargs)
     epochs = args.epochs or int(config.trainer.num_epochs)
