@@ -143,11 +143,40 @@ Phases, each printed as it runs; any failure exits non-zero:
       the trained EMA U-Net through the kernel route against its module
       (h's 1e-3); a warm ``train_step`` at batch 20, as ``{"vqd_train_step":
       ...}`` with two CLI epochs; one step at batch 2 on the card against the
-      CPU and float64: gradients, running statistics and the EMA's leaves.
+      CPU and float64: gradients, running statistics and the EMA's leaves;
+  (r) the pixel-space gaussiandiffusion3d worker on
+      configs/training_config_pixel3d.yml at full width (U-Net base 64,
+      mults (2, 4) on 28x28x1, 1000 steps): K1 and K2 against their plain
+      versions at every unit shape of its forward (28x28 down to 7x7 at
+      batch 36, the samples' batch), as (f); the train CLI in --debug
+      (metrics, a checkpoint, the EMA's 36 samples with 21000 K1 and 2000
+      K2 launches: 21 and 2 a forward, counted from the U-Net's units);
+      the EMA's samples again, counted and timed; the trained EMA U-Net
+      through the kernel route against its module; a warm ``train_step``
+      at batch 500 as ``{"pixel3d_train_step": ...}``; one step at batch 4
+      on the card against the CPU and float64, (q)'s rule;
+  (s) VQ_Official prior training on configs/training_config_vqofficial.yml
+      at full width (K = 1024 over 256 tokens, the U-Net on [B, 1024, 256,
+      1], the frozen VQVAE of training_config_small.yml): the train CLI in
+      --debug with the hook's chain cut to 20 steps (19 B6, 780 K1, 80 K2
+      launches, as (j)) and the importance-sampling history's counts; the
+      peak memory of a warm step at batch 2 and 4, which must leave the
+      config's batch under 70 GiB; a warm ``train_step`` at the config's
+      batch as ``{"vqofficial_train_step": ...}``; one step at batch 1 on the
+      card against the CPU (indices, metrics, the new LtState, parameters);
+  (t) B6 and B7 against their plain versions at the demo's logits [4, 64,
+      64] (K = 65); the demo ``vq_vae_gan_diffusion_torch.vq_diffusion`` on
+      the card under --fused-posterior on and prng: 23 B6 or 23 B7 launches
+      (sample 19, fast_sample 4), indices in the codebook; its trained
+      prior's sample with the same noise, posterior kernel against plain
+      ops (at least 99% of indices equal).
 
-Each path, (d), (g), (j), (m), each run of (k) and the training hooks of
-(p) and (q), runs with every kernel's launch count set to 0 just before it
-and read just after. Before the last line it prints one JSON line
+``--only r,s`` (any of o-t) runs (a), (b) and those training phases alone,
+and prints no kernels line and no result line.
+
+Each path, (d), (g), (j), (m), each run of (k), the training hooks of
+(p)-(s) and each run of (t), runs with every kernel's launch count set to 0
+just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -196,6 +225,12 @@ GPT_TRAIN_CONFIG = "configs/training_config_gpt.yml"
 VQD_TRAIN_CONFIG = "configs/training_config_vqdiffusion.yml"
 STAGE2_B, STAGE2_STEPS, LOG_B, PREFIX = 20, 5, 4, N // 2 + 1
 STAGE2_EPOCHS = 2
+# the pixel-space gaussiandiffusion3d worker on training_config_pixel3d.yml:
+# batch 500 of 28x28x1, the U-Net at base 64 with mults (2, 4), 36 samples
+PIXEL_CONFIG, PIXEL_B, PIXEL_HW, PIXEL_MULTS, PIXEL_SAMPLES = (
+    "configs/training_config_pixel3d.yml", 500, 28, (2, 4), 36)
+# the VQ_Official prior's training on training_config_vqofficial.yml
+VQO_TRAIN_CONFIG = "configs/training_config_vqofficial.yml"
 
 
 def phase_device() -> str:
@@ -1627,12 +1662,12 @@ def stage2_step_times(label: str, key: str, worker, batch: torch.Tensor, card: s
 
 
 def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
-                  files: tuple) -> dict:
-    """The train CLI in --debug on ``config`` on the card, every kernel's
-    launch count set to 0 just before it and read just after: two steps
-    in metrics.jsonl, one checkpoint, ``files`` in the run dir, and the
-    launches ``want_launches`` (every other kernel none). Returns the CLI's
-    result."""
+                  files: tuple, overrides: dict | None = None) -> dict:
+    """The train CLI in --debug on ``config`` (with ``overrides``) on the
+    card, every kernel's launch count set to 0 just before it and read just
+    after: two steps in metrics.jsonl, one checkpoint, ``files`` in the run
+    dir, and the launches ``want_launches`` (every other kernel none).
+    Returns the CLI's result."""
     import glob
     import os
 
@@ -1640,7 +1675,8 @@ def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
 
     reset_counts()
     t0 = time.perf_counter()
-    out = cli.run(["--config", config, "--debug"], overrides={"trainer.log_dir": log_dir})
+    out = cli.run(["--config", config, "--debug"],
+                  overrides={"trainer.log_dir": log_dir, **(overrides or {})})
     sec = time.perf_counter() - t0
     launches = read_counts()
     want = {name: want_launches.get(name, 0) for name in launches}
@@ -1799,14 +1835,17 @@ def phase_gpt_train(card: str) -> dict:
     return numbers
 
 
-def vqd_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
-    """(q) one gaussian3d prior step at batch 2 from the same seeded weights,
-    batch, t and noise on the card and on the CPU in f32, and on the CPU in
-    float64 as the reference of both: at least 99.9% of the frozen VQVAE's
-    indices equal; noise_mse within 1e-4 relative; indices_recon within 1e-2
-    relative (one argmax of 512 flipped at a near tie moves it by less);
+def diffusion_step_against_cpu(label: str, make_worker, batch, t: torch.Tensor,
+                               noise: torch.Tensor, metric_tols: dict, card: str,
+                               indices=None) -> None:
+    """(q), (r): one diffusion step from the same seeded weights, batch, t
+    and noise on the card and on the CPU in f32, and on the CPU in float64
+    as the reference of both (``make_worker(device)`` builds the worker,
+    whose U-Net, EMA copy and, where it has one, composite are cast):
+    ``indices(worker, x)`` (the frozen VQVAE's, where given) at least 99.9%
+    equal; each metric within its relative tolerance of ``metric_tols``;
     gradients by (o)'s rule, the CPU's f32 distance the larger of two
-    reduction orders (all its threads, and one: through the U-Net's ninety
+    reduction orders (all its threads, and one: through the U-Net's
     BatchNorm backwards the f32 gradients of one order lie several times
     further from float64 than another's, so one CPU run alone does not
     measure f32 rounding); the card's float64 step within 1e-9 of each
@@ -1821,12 +1860,7 @@ def vqd_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
     on either side. (o)'s "99% of each live leaf within lr / 10" would
     count them instead: a 32-channel BatchNorm leaf with one such entry has
     96.9% within.)"""
-    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
-
     b = batch.shape[0]
-    gen = torch.Generator().manual_seed(24)
-    t = torch.randint(0, STEPS, (b,), generator=gen)
-    noise = torch.randn(b, N, GAUSSIAN_DIM, 1, generator=gen)
     runs = {}
     threads = torch.get_num_threads()
     for device, dtype, n_threads in (("cuda", torch.float32, threads),
@@ -1834,12 +1868,12 @@ def vqd_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
                                      ("cpu", torch.float64, threads),
                                      ("cuda", torch.float64, threads)):
         torch.set_num_threads(n_threads)
-        w = VQDiffusionWorker(cfg, log_dir, device=device)
+        w = make_worker(device)
         state = w.init_state()
-        for module in (w.composite, state.ema):
+        for module in (getattr(w, "composite", None) or state.unet, state.ema):
             module.to(dtype)
         x = torch.from_numpy(batch).to(device, dtype)
-        idx = w.composite.encode_to_z(x).cpu()
+        idx = indices(w, x).cpu() if indices else torch.zeros(1)
         t0 = time.perf_counter()
         _, metrics = w.train_step(state, x, t=t.to(device), noise=noise.to(device, dtype))
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -1855,34 +1889,51 @@ def vqd_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
         runs["cpu", torch.float32, threads]
     same = (gi == ci).double().mean().item()
     ref = runs["cpu", torch.float64, threads][3]
-    live = gradients_against_float64("q", gg, [cg, runs["cpu", torch.float32, 1][3]], ref)
+    live = gradients_against_float64(label, gg, [cg, runs["cpu", torch.float32, 1][3]], ref)
     card64 = runs["cuda", torch.float64, threads][3]
     gap64 = max(float((card64[k] - ref[k]).abs().max()) / float(ref[k].abs().max())
                 for k in live)
-    print(f"(q) the card's float64 step against the CPU's: gradients within {gap64:.3e} of each "
-          f"live leaf's largest entry (tol 1e-9)")
+    print(f"({label}) the card's float64 step against the CPU's: gradients within {gap64:.3e} "
+          f"of each live leaf's largest entry (tol 1e-9)")
     rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
-    noise = {k: max(float((g[k] - ref[k]).abs().max())
-                    for g in (gg, cg, runs["cpu", torch.float32, 1][3])) for k in live}
+    rounding = {k: max(float((g[k] - ref[k]).abs().max())
+                       for g in (gg, cg, runs["cpu", torch.float32, 1][3])) for k in live}
     checks = {}
     for part, got, want in (("U-Net", gp, cp), ("EMA", ge, ce)):
         worst, p_worst, near, stats = params_card_against_cpu(got, want, live, lr)
         far = {k: (got[k].double() - want[k].double()).abs() > lr / 10 for k in live}
-        unexplained = sum(int((ref[k].abs()[far[k]] > noise[k]).sum()) for k in live)
+        unexplained = sum(int((ref[k].abs()[far[k]] > rounding[k]).sum()) for k in live)
         checks[part] = (worst, stats, unexplained)
-        print(f"(q) {part} after one step on the card against the CPU: parameters max diff "
+        print(f"({label}) {part} after one step on the card against the CPU: parameters max diff "
               f"{worst:.3e} (2 lr = {2 * lr:.3e}); {sum(int(m.sum()) for m in far.values())} "
               f"entries of {sum(m.numel() for m in far.values())} more than lr / 10 apart, "
               f"{unexplained} of them with a float64 gradient beyond its leaf's f32 rounding; "
               f"fewest within lr / 10 {p_worst} {100 * near[p_worst]:.3f}%; running statistics "
               f"max diff {stats:.3e}")
-    print(f"(q) one step at batch {b} on the card against the CPU ({csec:.1f} s on the CPU): "
-          f"{100 * same:.3f}% of {gi.numel()} indices equal; metrics card {gm}, CPU {cm}; "
-          f"{card}")
-    if same < 0.999 or rel["noise_mse"] > 1e-4 or rel["indices_recon"] > 1e-2 or gap64 > 1e-9 \
+    equal = f"{100 * same:.3f}% of {gi.numel()} indices equal; " if indices else ""
+    print(f"({label}) one step at batch {b} on the card against the CPU ({csec:.1f} s on the "
+          f"CPU): {equal}metrics card {gm}, CPU {cm}; {card}")
+    if same < 0.999 or any(rel[k] > tol for k, tol in metric_tols.items()) or gap64 > 1e-9 \
             or any(worst > 2 * lr + 1e-6 or stats > 1e-4 or unexplained
                    for worst, stats, unexplained in checks.values()):
-        raise AssertionError("(q) the card's diffusion step departs from the CPU's")
+        raise AssertionError(f"({label}) the card's diffusion step departs from the CPU's")
+
+
+def vqd_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(q) one gaussian3d prior step at batch 2 by :func:`diffusion_step_against_cpu`:
+    the frozen VQVAE's indices, noise_mse within 1e-4 relative,
+    indices_recon within 1e-2 relative (one argmax of 512 flipped at a near
+    tie moves it by less)."""
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    b = batch.shape[0]
+    gen = torch.Generator().manual_seed(24)
+    t = torch.randint(0, STEPS, (b,), generator=gen)
+    noise = torch.randn(b, N, GAUSSIAN_DIM, 1, generator=gen)
+    diffusion_step_against_cpu(
+        "q", lambda device: VQDiffusionWorker(cfg, log_dir, device=device), batch, t, noise,
+        {"noise_mse": 1e-4, "indices_recon": 1e-2}, card,
+        indices=lambda w, x: w.composite.encode_to_z(x))
 
 
 def phase_vqd_train(card: str) -> dict:
@@ -1929,11 +1980,301 @@ def phase_vqd_train(card: str) -> dict:
     return numbers
 
 
-def main() -> int:
+def phase_pixel_train(card: str) -> dict:
+    """(r): the pixel-space gaussiandiffusion3d worker at full width (U-Net
+    base 64, mults (2, 4) on 28x28x1, 1000 steps); returns the step's
+    numbers with the samples' launches and seconds."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+    from vq_vae_gan_diffusion_torch.models.shuffle_infer import apply_folded, fold_unet
+    from vq_vae_gan_diffusion_torch.train.gaussian_diffusion_workers import (
+        GaussianDiffusion3DWorker)
+
+    units = unet_unit_shapes(PIXEL_HW, PIXEL_HW, 64, PIXEL_MULTS)
+    k1 = sum(kind == "K1" for kind, *_ in units)
+    k2 = len(units) - k1
+    if k2 != 2:
+        raise AssertionError(f"(r) {k2} downsamples a forward, expected 2")
+    print(f"(r) the pixel U-Net (base 64, mults {PIXEL_MULTS}) on {PIXEL_HW}x{PIXEL_HW}x1: "
+          f"{k1} K1 and {k2} K2 a forward")
+    phase_units(card, h=PIXEL_HW, w=PIXEL_HW, label="r", mults=PIXEL_MULTS, batch=PIXEL_SAMPLES)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_pixel_")
+    want = {"shuffle_bottleneck": k1 * STEPS, "shuffle_downsample": k2 * STEPS}
+    out = run_train_cli("r", PIXEL_CONFIG, log_dir, want, ("samples_epoch0.jpg",))
+    worker = out["worker"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    images = worker.sample(PIXEL_SAMPLES)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != {name: want.get(name, 0) for name in launches}:
+        raise AssertionError(f"(r) the EMA's samples: launches {launches}, expected {want}")
+    if tuple(images.shape) != (PIXEL_SAMPLES, PIXEL_HW, PIXEL_HW, 1) or \
+            not torch.isfinite(images).all():
+        raise AssertionError(f"(r) samples {tuple(images.shape)} not finite of "
+                             f"[{PIXEL_SAMPLES}, {PIXEL_HW}, {PIXEL_HW}, 1]")
+    print(f"(r) the EMA's {PIXEL_SAMPLES} samples: {STEPS}-step chain {sample_s:.3f} s "
+          f"({1e3 * sample_s / STEPS:.3f} ms a reverse step); {want['shuffle_bottleneck']} K1 "
+          f"and {want['shuffle_downsample']} K2 launches; values in "
+          f"[{images.min().item():.3f}, {images.max().item():.3f}]; {card}")
+    ema = worker.state.ema
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn(PIXEL_SAMPLES, PIXEL_HW, PIXEL_HW, 1, generator=gen, device="cuda")
+    t = torch.randint(0, STEPS, (PIXEL_SAMPLES,), generator=gen, device="cuda")
+    with torch.no_grad():
+        ref = ema.eval()(x, None, t)
+    err = check_close("(r) the EMA U-Net, kernel route vs module", apply_folded(
+        fold_unet(ema), x, t), ref, 1e-3, scale=ref.abs().max().item())
+    print(f"(r) the trained EMA U-Net forward {list(x.shape)}, kernel route vs fused_sampler "
+          f"False: max abs err {err:.3e}, max |module| {ref.abs().max().item():.3f}")
+    del out, worker, ema
+    torch.cuda.empty_cache()
+    cfg = load_config(PIXEL_CONFIG).replace_path("trainer.log_dir", log_dir)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = next(iter(loader))
+    if batch.shape != (PIXEL_B, PIXEL_HW, PIXEL_HW, 1):
+        raise AssertionError(f"(r) batch {batch.shape}")
+    worker = GaussianDiffusion3DWorker(cfg, log_dir, device="cuda",
+                                       num_iters_per_epoch=len(loader))
+    worker.init_state()
+    numbers = stage2_step_times("r", PIXEL_CONFIG, worker, torch.from_numpy(batch).cuda(), card)
+    numbers.update({"samples": PIXEL_SAMPLES, "sample_s": sample_s, "sample_launches": want})
+    del worker
+    torch.cuda.empty_cache()
+    b = 4
+    g = torch.Generator().manual_seed(27)
+    t = torch.randint(0, STEPS, (b,), generator=g)
+    noise = torch.randn(b, PIXEL_HW, PIXEL_HW, 1, generator=g)
+    diffusion_step_against_cpu(
+        "r", lambda device: GaussianDiffusion3DWorker(cfg, log_dir, device=device), batch[:b],
+        t, noise, {"loss": 1e-4}, card)
+    shutil.rmtree(log_dir)
+    return numbers
+
+
+def vqo_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(s) one VQ_Official step at batch 1 from the same seeded weights,
+    batch, t and Gumbel noise on the card and on the CPU, f32: the frozen
+    VQVAE's indices equal; the loss and its metrics within 2e-4 relative
+    (tests/test_torch_port_discrete_train.py's bar for one sample's KL
+    through the U-Net; at batch 1 the loss is one sample's); the new
+    LtState's counts equal, its history within 4e-4 relative (squared
+    losses), its accuracy EMAs within 1e-3 (one argmax of 256 flipped at a
+    near tie moves one by 0.1 / 256); every U-Net parameter within 2 lr,
+    the running statistics within 1e-4 plus 2e-3 of each leaf's largest
+    entry (flax-free here, but the init conv's output on the -69 / 0 image
+    has a mean near 130 against its spread, so two reduction orders
+    differ by about 1e-3 of its variance)."""
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import gumbel_from_uniform
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    b = batch.shape[0]
+    gen = torch.Generator().manual_seed(28)
+    t = torch.randint(0, VQO_T, (b,), generator=gen)
+    noise = gumbel_from_uniform(torch.rand(b, N, VQO_K, generator=gen))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        w = VQDiffusionWorker(cfg, log_dir, device=device)
+        state = w.init_state()
+        x = torch.from_numpy(batch).to(device)
+        idx = w.composite.encode_to_z(x).cpu()
+        t0 = time.perf_counter()
+        _, metrics = w.train_step(state, x, t=t.to(device), noise=noise.to(device))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        runs[device] = (idx, metrics, [v.cpu() for v in state.lt],
+                        {k: v.cpu() for k, v in state.unet.state_dict().items()}, sec)
+        lr = w.lr_fn(0)
+        del w, state
+    (gi, gm, gl, gp, _), (ci, cm, cl, cp, csec) = runs["cuda"], runs["cpu"]
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
+    hist = float(((gl[0] - cl[0]).abs() / cl[0].abs().clamp(min=1e-6)).max())
+    acc = max(float((g - c).abs().max()) for g, c in zip(gl[2:], cl[2:]))
+    params = max(float((gp[k] - cp[k]).abs().max()) for k in cp
+                 if "running" not in k and "num_batches" not in k)
+    stats = max(float((gp[k] - cp[k]).abs().max()) - 2e-3 * float(cp[k].abs().max())
+                for k in cp if "running" in k)
+    print(f"(s) one step at batch {b} on the card against the CPU ({csec:.1f} s on the CPU): "
+          f"{int((gi == ci).sum())} of {gi.numel()} indices equal; metrics card {gm}, CPU {cm}; "
+          f"LtState: counts {'equal' if torch.equal(gl[1], cl[1]) else 'DIFFERENT'}, history "
+          f"{hist:.3e} relative, accuracy EMAs {acc:.3e}; parameters max diff {params:.3e} "
+          f"(2 lr = {2 * lr:.3e}); running statistics beyond 2e-3 of their leaf {stats:.3e}; "
+          f"{card}")
+    if not torch.equal(gi, ci) or max(rel.values()) > 2e-4 or not torch.equal(gl[1], cl[1]) \
+            or hist > 4e-4 or acc > 1e-3 or params > 2 * lr + 1e-6 or stats > 1e-4:
+        raise AssertionError("(s) the card's VQ_Official step departs from the CPU's")
+
+
+def phase_vqo_train(card: str) -> dict:
+    """(s): VQ_Official prior training at full width (K = 1024 over 256
+    tokens, the U-Net on [B, 1024, 256, 1], 1000 steps); returns the step's
+    numbers with the peak memory by batch."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.config import load_config, resolve_batch_size
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_vqo_")
+    want = {"shuffle_bottleneck": 39 * VQO_STEPS, "shuffle_downsample": 4 * VQO_STEPS,
+            "discrete_posterior": VQO_STEPS - 1}
+    out = run_train_cli("s", VQO_TRAIN_CONFIG, log_dir, want,
+                        ("recon_epoch0_0.jpg", "samples_epoch0.jpg"),
+                        overrides={"architecture.vqdiffusion.sampling_steps": VQO_STEPS})
+    lt = out["worker"].state.lt
+    if float(lt.Lt_count.sum()) != 4 or not torch.isfinite(lt.Lt_history).all():
+        raise AssertionError(f"(s) LtState after two steps at batch 2: {lt}")
+    print(f"(s) LtState after the CLI's two steps: {int(lt.Lt_count.sum())} counts at t = "
+          f"{lt.Lt_count.nonzero().flatten().tolist()}")
+    del out, lt
+    torch.cuda.empty_cache()
+    cfg = load_config(VQO_TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = next(iter(loader))
+    b = resolve_batch_size(cfg)
+    if batch.shape != (b, 256, 256, 3):
+        raise AssertionError(f"(s) batch {batch.shape}")
+    peaks = {}
+    for small in (2, 4):
+        w = VQDiffusionWorker(cfg, log_dir, device="cuda")
+        w.init_state()
+        x = torch.from_numpy(batch[:small]).cuda()
+        w.train_step(w.state, x, w.generator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w.train_step(w.state, x, w.generator)
+        torch.cuda.synchronize()
+        peaks[small] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del w, x
+        torch.cuda.empty_cache()
+    slope = (peaks[4] - peaks[2]) / 2
+    fits = int(2 + (70 - peaks[2]) // slope)
+    print(f"(s) peak memory of a warm train_step: batch 2 {peaks[2]:.3f} GiB, batch 4 "
+          f"{peaks[4]:.3f} GiB, {slope:.3f} GiB an image: under 70 GiB up to batch {fits}; "
+          f"the config's batch {b}; {card}")
+    if b > fits:
+        raise AssertionError(f"(s) batch {b} would need more than 70 GiB")
+    worker = VQDiffusionWorker(cfg, log_dir, device="cuda", num_iters_per_epoch=len(loader))
+    worker.init_state()
+    numbers = stage2_step_times("s", VQO_TRAIN_CONFIG, worker, torch.from_numpy(batch).cuda(),
+                                card)
+    numbers["peak_gib_by_batch"] = peaks
+    if numbers["peak_gib"] > 70:
+        raise AssertionError(f"(s) peak {numbers['peak_gib']:.3f} GiB at batch {b}")
+    del worker
+    torch.cuda.empty_cache()
+    vqo_card_against_cpu(cfg, log_dir, batch[:1], card)
+    shutil.rmtree(log_dir)
+    return numbers
+
+
+def phase_demo(card: str) -> dict:
+    """(t): B6 and B7 against their plain versions at the demo's shape
+    (logits [4, 64, 64], K = 65, 20 steps, gamma_T 0.9), as (i) checks
+    them; then the demo ``python -m vq_vae_gan_diffusion_torch.vq_diffusion``
+    on the card under ``--fused-posterior on`` and ``prng``: its sample (19
+    structured steps) and fast_sample (4) launch 23 B6 or 23 B7 and nothing
+    else; its trained prior's sample with the same noise under on and off
+    (at least 99% of indices equal). Returns each mode's launches."""
+    from vq_vae_gan_diffusion_torch import vq_diffusion
+    from vq_vae_gan_diffusion_torch.diffusion.discrete import make_discrete_schedule
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
+        gumbel_from_bits, gumbel_from_uniform, philox_bits, posterior_scores)
+
+    b, n, k, steps = 4, 64, 65, 20
+    trunc = int(k * 0.86)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    sched = make_discrete_schedule(steps, k, 0.9).to("cuda")
+    gumbel = gumbel_from_uniform(torch.rand(b, n, k, generator=gen, device="cuda"))
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (b, 2), dtype=torch.int32, generator=gen,
+                          device="cuda")
+    x_t = torch.randint(0, k, (b, n), generator=gen, device="cuda")
+    x_t[:, ::5] = k - 1
+    logits = 3 * torch.randn(b, n, k - 1, generator=gen, device="cuda")
+    gap = 0.0
+    for t in (0, 1, steps // 2, steps - 1):
+        coefs = gather_posterior_coefs(sched, torch.full((b,), t, device="cuda"), steps)
+        for trunc_k in (0, trunc):
+            for fn, noise, g in ((fused_posterior_sample, gumbel, gumbel),
+                                 (fused_posterior_sample_prng, seeds,
+                                  gumbel_from_bits(philox_bits(seeds, n, k)))):
+                got = fn(logits, x_t, coefs, noise, trunc_k=trunc_k)
+                torch.cuda.synchronize()
+                gap = max(gap, check_indices(f"(t) {fn.__name__} t={t} trunc_k={trunc_k}", got,
+                                             posterior_scores(logits, x_t, coefs, g, trunc_k)))
+    print(f"(t) B6 and B7 at the demo's logits [{b}, {n}, {k - 1}], t in {{0, 1, {steps // 2}, "
+          f"{steps - 1}}}, trunc_k 0 and {trunc}: every check passes, max score gap {gap:.3e}")
+    none = {name: 0 for name in kernel_wrappers()}
+    structured = steps - 1 + len(range(steps - 1, -1, -4)) - 1
+    counted = {}
+    for mode, name in (("on", "discrete_posterior"), ("prng", "discrete_posterior_prng")):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = vq_diffusion.run(["--device", "cuda", "--fused-posterior", mode])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != dict(none, **{name: structured}):
+            raise AssertionError(f"(t) {mode}: launches {launches}, expected {structured} {name}")
+        for idx in (out["samples"], out["fast"]):
+            if tuple(idx.shape) != (4, 8, 8) or int(idx.min()) < 0 or int(idx.max()) > 63:
+                raise AssertionError(f"(t) {mode}: indices {tuple(idx.shape)} not [4, 8, 8] in "
+                                     "[0, 63]")
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"(t) {mode}: losses {out['losses']}")
+        counted[mode] = launches
+        print(f"(t) the demo under --fused-posterior {mode}: 20 Adam steps, loss "
+              f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; {launches[name]} {name} "
+              f"launches (sample 19, fast_sample 4); {sec:.2f} s in all; {card}")
+    m = out["model"]
+    u_noise = [gumbel_from_uniform(torch.rand(4, n, k, generator=gen, device="cuda"))
+               for _ in range(steps)]
+    idx = {}
+    for mode in (True, False):
+        m.diffusion.fused_posterior = mode
+        idx[mode] = m.sample(4, step_gumbel=u_noise)
+    agree = (idx[True] == idx[False]).float().mean().item()
+    print(f"(t) the trained demo prior's sample, same noise, fused_posterior on against off: "
+          f"{100 * agree:.2f}% of 4 x {n} indices equal")
+    if agree < 0.99:
+        raise AssertionError(f"(t) posterior kernel and plain ops agree on only {100 * agree:.2f}%")
+    return counted
+
+
+def training_phases() -> dict:
+    """The training phases, each on its own, by label: each prints its JSON
+    line."""
+    return {"o": lambda card: print(json.dumps({"vqgan_train_step": phase_train(card)})),
+            "p": lambda card: print(json.dumps({"gpt_train_step": phase_gpt_train(card)})),
+            "q": lambda card: print(json.dumps({"vqd_train_step": phase_vqd_train(card)})),
+            "r": lambda card: print(json.dumps({"pixel3d_train_step": phase_pixel_train(card)})),
+            "s": lambda card: print(json.dumps({"vqofficial_train_step": phase_vqo_train(card)})),
+            "t": phase_demo}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
+    parser.add_argument("--only", default=None,
+                        help="run (a), (b) and these training phases alone, comma-separated "
+                             f"of {','.join(training_phases())}; prints no kernels line and no "
+                             "result line")
+    args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.only:
+        for label in args.only.split(","):
+            training_phases()[label](card)
+        print(f"chip_smoke: phases {args.only} alone; no kernels line, no result line")
+        return 0
     timing = phase_kernel(card)
     launches = phase_main()
     phase_routes()
@@ -1947,9 +2288,8 @@ def main() -> int:
     quant = phase_quant_kernels(card)
     quant_launches = phase_int8kv_path()
     phase_int8kv_routes()
-    print(json.dumps({"vqgan_train_step": phase_train(card)}))
-    print(json.dumps({"gpt_train_step": phase_gpt_train(card)}))
-    print(json.dumps({"vqd_train_step": phase_vqd_train(card)}))
+    for phase in training_phases().values():
+        phase(card)
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",

@@ -278,9 +278,21 @@ def test_prior_chain_init_is_flat():
 
 
 def test_filmstrip_not_ported():
-    d = td.DiscreteDiffusion(num_classes=9, seq_len=4, timesteps=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 5"):
-        d.sample(2, return_all_timesteps=True)
+    """The sampling filmstrip, refused until ROADMAP A4 ported it: with
+    ``return_all_timesteps`` the sampler returns the indices and each of the
+    5 steps' [B, 5, N], identical to the JAX sampler's with its noise
+    injected."""
+    k, n, b, T = 9, 4, 2, 5
+    jdd = jd.DiscreteDiffusion(num_classes=k, seq_len=n, timesteps=T)
+    tdd = td.DiscreteDiffusion(num_classes=k, seq_len=n, timesteps=T)
+    jdd.model_fn, tdd.model_fn = _model_fns(k)
+    rng = jax.random.PRNGKey(8)
+    want_idx, want = jax.jit(lambda r: jdd.sample(r, b, return_all_timesteps=True))(rng)
+    u, gumbel = _jax_noise(rng, (b, n, k), T)
+    idx, frames = tdd.sample(b, init_uniform=u, step_gumbel=gumbel, return_all_timesteps=True)
+    assert tuple(frames.shape) == (b, T, n)
+    np.testing.assert_array_equal(frames.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
 
 
 def _vqofficial(tiny_config, log_dir=None, **overrides) -> dict:

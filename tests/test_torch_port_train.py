@@ -260,9 +260,9 @@ def test_train_cli_debug_checkpoint_resume_and_generate(tmp_path, tiny_config):
 
 def test_train_cli_refusals(tmp_path, tiny_config, monkeypatch):
     """No GPU and no --device cpu: raises. The pixel-space gaussiandiffusion3d
-    worker, refused until ROADMAP A3 ported it, now trains (two --debug
-    steps on the CPU); a family or a reader the port does not train yet:
-    NotImplementedError naming the ROADMAP item."""
+    worker and the VQ_Official prior, refused until ROADMAP A3 and A4 ported
+    them, now train (two --debug steps on the CPU); a family or a reader the
+    port does not train yet: NotImplementedError naming the ROADMAP item."""
     config = _cli_config(tmp_path, tiny_config)
 
     def write(name, model, diffusion_type):
@@ -270,16 +270,17 @@ def test_train_cli_refusals(tmp_path, tiny_config, monkeypatch):
         path.write_text(yaml.safe_dump(
             tiny_config.replace_path("architecture.model_name", model)
             .replace_path("architecture.vqdiffusion.diffusion_type", diffusion_type)
+            .replace_path("architecture.vqdiffusion.sampling_steps", 2)
             .replace_path("trainer.log_dir", str(tmp_path / "zlog")).to_dict()))
         return str(path)
-    out = cli.run(["--config", write("pixel.yml", "gaussiandiffusion3d", "gaussiandiffusion3d"),
-                   "--debug", "--device", "cpu"])
-    assert out["worker"].global_step == 2 and np.isfinite(out["metrics"]["loss"])
-    for name, model, diffusion_type, item in (
-            ("vqofficial.yml", "vqdiffusion", "VQ_Official", "A4"),
-            ("vae.yml", "vae", "gaussiandiffusion3d", "slice 7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-            cli.run(["--config", write(name, model, diffusion_type), "--device", "cpu"])
+    for name, model, diffusion_type, metric in (
+            ("pixel.yml", "gaussiandiffusion3d", "gaussiandiffusion3d", "loss"),
+            ("vqofficial.yml", "vqdiffusion", "VQ_Official", "vb_loss")):
+        out = cli.run(["--config", write(name, model, diffusion_type), "--debug",
+                       "--device", "cpu"])
+        assert out["worker"].global_step == 2 and np.isfinite(out["metrics"][metric])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 7"):
+        cli.run(["--config", write("vae.yml", "vae", "gaussiandiffusion3d"), "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.run(["--config", config, "--debug"])

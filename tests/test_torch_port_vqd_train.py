@@ -245,7 +245,7 @@ def port_worker(jax_worker, cfg, state) -> TorchWorker:
 
 
 def assert_params_close(got: dict, want: dict, steps: int, live: set, lr: float,
-                        stats_atol: float = 1e-4) -> None:
+                        stats_atol: float = 1e-4, stats_rtol: float = 0.0) -> None:
     params = [k for k in want if "running" not in k and "num_batches" not in k]
     diffs = {k: (got[k].double() - want[k].double()).abs() for k in params}
     worst = max(diffs, key=lambda k: diffs[k].max())
@@ -255,7 +255,8 @@ def assert_params_close(got: dict, want: dict, steps: int, live: set, lr: float,
         assert near >= 0.99, f"{k}: {100 * float(near):.2f}% within lr / 10"
     for k in want:
         if "running" in k:
-            torch.testing.assert_close(got[k], want[k], rtol=0, atol=stats_atol, msg=k)
+            torch.testing.assert_close(got[k], want[k], rtol=0, msg=k,
+                                       atol=stats_atol + stats_rtol * float(want[k].abs().max()))
 
 
 @pytest.fixture(scope="module")

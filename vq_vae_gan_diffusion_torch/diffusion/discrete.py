@@ -1,5 +1,5 @@
-"""Discrete mask-and-replace VQ-diffusion in log space, sampling side
-(PyTorch counterpart of the JAX ``diffusion/discrete.py``).
+"""Discrete mask-and-replace VQ-diffusion in log space (PyTorch counterpart
+of the JAX ``diffusion/discrete.py``): sampling and the training loss.
 
 Kept exactly as in the JAX package:
 
@@ -19,23 +19,30 @@ Kept exactly as in the JAX package:
   the padding entry (btt 0, ctt 0): the init is flat at log(1e-30), not
   q(x_T) (ROADMAP.md §C);
 - the Gumbel transform has one definition
-  (``ops.discrete_posterior.gumbel_from_uniform``).
+  (``ops.discrete_posterior.gumbel_from_uniform``);
+- the training loss: t uniform until every ``Lt_count`` passes 10, then
+  drawn in proportion to sqrt(Lt_history) with pt[0] = pt[1] (unless
+  ``use_importance_sampling`` is off); x_t a Gumbel sample of q(x_t | x_0);
+  the KL of the posteriors weighted by ``mask_weight`` at masked and
+  unmasked positions, the decoder NLL at t = 0, the auxiliary x0-KL
+  (weighted (1 - t/T) + 1 under ``adaptive_auxiliary_loss``), each over pt,
+  summed over the batch's B x N positions; the history, counts and the
+  accuracy EMAs scattered at t, the last of equal t's winning (as the JAX
+  scatter on the CPU; here the same on the card).
 
 Noise comes from an explicit ``torch.Generator`` on the device, or is
-injected (``init_uniform`` and one Gumbel tensor a step) for the parity
-tests. ``fused_posterior`` routes each structured step: truthy (``True``,
+injected for the parity tests: ``init_uniform`` and one Gumbel tensor a
+step for the samplers, ``t`` and the Gumbel noise of q(x_t | x_0) for the
+loss. ``fused_posterior`` routes each structured step: truthy (``True``,
 ``"on"``, ``"interpret"``) to the fused kernel with Gumbel noise read from
 memory, ``"prng"`` to the kernel that draws it, falsy to plain ops.
-
-The training loss, ``LtState``, ``sample_time`` and the filmstrip
-(``return_all_timesteps``) come with the training half of the slice.
 
 Layout: class-last [B, N, K]; K includes the mask class, the last.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,20 +134,27 @@ def posterior_mode(mode) -> object:
     return "prng" if m == "prng" else True
 
 
-def _filmstrip_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "return_all_timesteps (the sampling filmstrip) is not ported yet: see ROADMAP.md, "
-        "slice 5 (discrete VQ-diffusion priors, training half)")
+def _scatter_set(arr: torch.Tensor, t: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """A copy of ``arr`` with ``values[i]`` at ``t[i]``; of equal t's the last
+    wins, on any device."""
+    i = torch.arange(t.shape[0], device=t.device)
+    later = ((t[:, None] == t[None, :]) & (i[None, :] > i[:, None])).any(1)
+    out = arr.clone()
+    out[t[~later]] = values[~later]
+    return out
 
 
 class DiscreteDiffusion:
-    """Diffusion_VQ_Official's sampler around ``model_fn(log_x_t [B, N, K],
-    t [B]) -> logits [B, N, K-1]``, or ``model_fn_idx(x_idx [B, N], t)`` when
-    the denoiser embeds indices."""
+    """Diffusion_VQ_Official around ``model_fn(log_x_t [B, N, K], t [B]) ->
+    logits [B, N, K-1]``, or ``model_fn_idx(x_idx [B, N], t)`` when the
+    denoiser embeds indices."""
 
     def __init__(self, num_classes: int, seq_len: int, timesteps: int = 100,
-                 sampling_timesteps: Optional[int] = None, ctt_T: float = 0.99999,
+                 sampling_timesteps: Optional[int] = None,
+                 auxiliary_loss_weight: float = 0.0, adaptive_auxiliary_loss: bool = False,
+                 mask_weight: Tuple[float, float] = (1.0, 1.0), ctt_T: float = 0.99999,
                  mask_logit_pad: float = LOG_EPS, chain_init: str = "uniform_rand",
+                 use_importance_sampling: bool = True,
                  truncation_rate: Optional[float] = None):
         self.num_classes = num_classes          # includes the mask class (last)
         self.seq_len = seq_len
@@ -149,6 +163,10 @@ class DiscreteDiffusion:
         self.model_fn: Optional[Callable] = None
         self.model_fn_idx: Optional[Callable] = None
         self.fused_posterior = False
+        self.auxiliary_loss_weight = auxiliary_loss_weight
+        self.adaptive_auxiliary_loss = adaptive_auxiliary_loss
+        self.mask_weight = mask_weight
+        self.use_importance_sampling = use_importance_sampling
         self.mask_logit_pad = mask_logit_pad
         self.chain_init = chain_init              # "uniform_rand" | "prior"
         self.truncation_rate = truncation_rate
@@ -314,6 +332,87 @@ class DiscreteDiffusion:
         logits = torch.where(logits < kth, -torch.inf, logits)
         return (gumbel + logits).argmax(-1)
 
+    def q_sample(self, log_x_start: torch.Tensor, t: torch.Tensor,
+                 gumbel: torch.Tensor) -> torch.Tensor:
+        """A log-onehot sample of q(x_t | x_0) with the Gumbel noise given."""
+        idx = self.sample_categorical_idx(self.q_pred(log_x_start, t), gumbel)
+        return index_to_log_onehot(idx, self.num_classes)
+
+    # -- training loss ------------------------------------------------------------
+    def sample_time(self, b: int, lt: LtState, generator: Optional[torch.Generator] = None,
+                    t: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """t [b] and its probability pt [b]: uniform until every count of
+        ``lt`` passes 10, then drawn in proportion to sqrt(Lt_history), with
+        pt[0] = pt[1]. Both draws come from ``generator`` on ``lt``'s device
+        and the warm test picks one on the device (no host sync); a given
+        ``t`` replaces them and gets the pt of the same rule."""
+        dev = lt.Lt_history.device
+        T = self.num_timesteps
+        drawn = t is None
+        t = torch.randint(0, T, (b,), generator=generator, device=dev) if drawn else t.to(dev)
+        pt_uniform = torch.full((b,), 1.0 / T, device=dev)
+        if not self.use_importance_sampling:
+            return t, pt_uniform
+        lt_sqrt = torch.sqrt(lt.Lt_history + 1e-10) + 1e-4
+        lt_sqrt = torch.cat([lt_sqrt[1:2], lt_sqrt[1:]])
+        pt_all = lt_sqrt / lt_sqrt.sum()
+        warm = (lt.Lt_count > 10).all()
+        if drawn:
+            t_imp = torch.multinomial(pt_all, b, replacement=True, generator=generator)
+            t = torch.where(warm, t_imp, t)
+        return t, torch.where(warm, pt_all[t], pt_uniform)
+
+    def train_loss(self, x0: torch.Tensor, lt: LtState,
+                   generator: Optional[torch.Generator] = None, *,
+                   t: Optional[torch.Tensor] = None, gumbel: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], LtState]:
+        """The training loss of indices x0 [B, N] -> (loss, metrics {vb_loss,
+        kl, decoder_nll}, the new ``LtState``). ``t`` (then its pt by
+        :meth:`sample_time`'s rule) and ``gumbel`` [B, N, K], the noise of
+        q(x_t | x_0), come from ``generator`` unless given."""
+        b, n = x0.shape
+        k = self.num_classes
+        t, pt = self.sample_time(b, lt, generator, t)
+        log_x_start = index_to_log_onehot(x0, k)
+        if gumbel is None:
+            gumbel = self._gumbel(torch.rand((b, n, k), generator=generator, device=x0.device))
+        xt = self.sample_categorical_idx(self.q_pred(log_x_start, t), gumbel.to(x0.device))
+
+        log_x0_recon = self.predict_start_idx(xt, t)
+        log_model_prob = self.q_posterior_idx(log_x0_recon, xt, t)
+
+        with torch.no_grad():
+            same0 = (log_onehot_to_index(log_x0_recon) == x0).float().mean(1)
+            samek = (log_onehot_to_index(log_model_prob) == xt).float().mean(1)
+            acc_ema = _scatter_set(lt.acc_ema, t, 0.1 * same0 + 0.9 * lt.acc_ema[t])
+            keep_ema = _scatter_set(lt.keep_ema, t, 0.1 * samek + 0.9 * lt.keep_ema[t])
+
+        log_true_prob = self.q_posterior_idx(log_x_start, xt, t)
+        kl = (log_true_prob.exp() * (log_true_prob - log_model_prob)).sum(-1)       # [B, N]
+        mask_region = (xt == k - 1).float()
+        mask_w = mask_region * self.mask_weight[0] + (1 - mask_region) * self.mask_weight[1]
+        kl = (kl * mask_w).sum(1)                                                   # [B]
+        decoder_nll = -(log_x_start.exp() * log_model_prob).sum(-1).sum(1)
+
+        is_t0 = (t == 0).float()
+        kl_loss = is_t0 * decoder_nll + (1 - is_t0) * kl
+        with torch.no_grad():
+            history = _scatter_set(lt.Lt_history, t,
+                                   0.1 * kl_loss ** 2 + 0.9 * lt.Lt_history[t])
+            count = lt.Lt_count.index_add(0, t, torch.ones_like(pt))
+
+        vb_loss = kl_loss / pt
+        if self.auxiliary_loss_weight != 0:
+            kl_aux = (log_x_start[..., :-1].exp()
+                      * (log_x_start[..., :-1] - log_x0_recon[..., :-1])).sum(-1)
+            kl_aux_loss = is_t0 * decoder_nll + (1 - is_t0) * (kl_aux * mask_w).sum(1)
+            add_w = (1 - t.float() / self.num_timesteps) + 1.0 \
+                if self.adaptive_auxiliary_loss else 1.0
+            vb_loss = vb_loss + add_w * self.auxiliary_loss_weight * kl_aux_loss / pt
+        loss = vb_loss.sum() / (b * n)
+        metrics = {"vb_loss": loss, "kl": kl.mean(), "decoder_nll": decoder_nll.mean()}
+        return loss, metrics, LtState(history, count, acc_ema, keep_ema)
+
     # -- sampling -------------------------------------------------------------------
     def _chain_init(self, batch_size: int, u: Optional[torch.Tensor],
                     device: torch.device) -> torch.Tensor:
@@ -354,12 +453,12 @@ class DiscreteDiffusion:
                device=None, init_uniform: Optional[torch.Tensor] = None,
                step_gumbel: Optional[Sequence[torch.Tensor]] = None,
                return_all_timesteps: bool = False) -> torch.Tensor:
-        """Indices [B, N] after ``sampling_timesteps`` reverse steps. Noise
-        comes from ``generator`` (drawn on its device) or is injected:
-        ``init_uniform`` [B, N, K] and ``step_gumbel[i]`` [B, N, K] for the
-        i-th step (t = start - 1 - i)."""
-        if return_all_timesteps:
-            raise _filmstrip_not_ported()
+        """Indices [B, N] after ``sampling_timesteps`` reverse steps; with
+        ``return_all_timesteps`` also the filmstrip [B, F, N], the indices
+        after each of the F = ``sampling_timesteps`` steps. Noise comes from
+        ``generator`` (drawn on its device) or is injected: ``init_uniform``
+        [B, N, K] and ``step_gumbel[i]`` [B, N, K] for the i-th step (t =
+        start - 1 - i)."""
         device, shape, log_z = self._start(batch_size, generator, device, init_uniform)
         start = self.sampling_timesteps
         seeds = self.posterior_route() == "prng"
@@ -368,11 +467,14 @@ class DiscreteDiffusion:
         t0 = torch.full((batch_size,), start - 1, dtype=torch.long, device=device)
         z_idx = self.sample_categorical_idx(
             self.p_pred(log_z, t0), self._noise(0, shape, step_gumbel, generator, device))
+        frames = [z_idx]
         for i, step in enumerate(range(start - 2, -1, -1), start=1):
             t = torch.full((batch_size,), step, dtype=torch.long, device=device)
             z_idx = self._step_idx(z_idx, t, t, self._noise(i, shape, step_gumbel, generator,
                                                             device, seeds))
-        return z_idx
+            if return_all_timesteps:
+                frames.append(z_idx)
+        return (z_idx, torch.stack(frames, 1)) if return_all_timesteps else z_idx
 
     @torch.no_grad()
     def sample_fast(self, batch_size: int = 16, skip_step: int = 1,

@@ -1,5 +1,5 @@
-"""Transformer-predictor VQ-Diffusion with AdaLN time conditioning, sampling
-side (PyTorch counterpart of the JAX ``models/transformer_vq_diffusion.py``).
+"""Transformer-predictor VQ-Diffusion with AdaLN time conditioning
+(PyTorch counterpart of the JAX ``models/transformer_vq_diffusion.py``).
 
 - :class:`TransformerPredictor`: token embedding plus a learned positional
   encoding, blocks of AdaLN(t) -> self-attention -> FFN, a head to K-1
@@ -10,9 +10,11 @@ side (PyTorch counterpart of the JAX ``models/transformer_vq_diffusion.py``).
   ``weights.transformer_predictor_state_from_jax`` maps a JAX tree key for
   key.
 - :class:`TransformerVQDiffusion`: the discrete mask-and-replace process
-  with γ̄_T 0.9, mask-logit pad -30 and the ``"prior"`` chain init, and its
-  samplers ``sample`` (every step) and ``fast_sample`` (every
-  ``skip_step``-th step, truncated top-r Gumbel sampling).
+  with γ̄_T 0.9, mask-logit pad -30, mask weights (1.5, 1.0), the auxiliary
+  x0-KL at 5e-4 with its adaptive weight, uniform t and the ``"prior"``
+  chain init; its training ``loss`` and its samplers ``sample`` (every
+  step) and ``fast_sample`` (every ``skip_step``-th step, truncated top-r
+  Gumbel sampling).
 
 Kept as in the JAX package: LayerNorm eps 1e-6 (flax's default, not
 torch's 1e-5); the attention scales q by head_dim^-0.5 before the product;
@@ -20,9 +22,13 @@ a block returns ``norm2(h) + ffn``, not ``h + ffn``; the samplers clamp
 indices to K-2 (never the mask class) and reshape to [B, g, g];
 ``fast_sample`` takes each step's posterior at t itself.
 
-Dropout, the training loss, and text conditioning (it needs CLIP weights,
-which the repository does not hold) are not ported; ``use_text_condition``
-raises.
+Dropout (0.1, as the flax blocks' default) acts in train mode, as flax's
+does when the loss gives it a dropout key: on the attention weights, one
+mask broadcast over the batch and the heads, and on the attention's and
+the FFN's outputs; its masks come from torch's global generator. ``loss``
+runs the predictor in train mode, the samplers in eval mode (the JAX
+samplers' ``deterministic=True``). Text conditioning needs CLIP weights,
+which the repository does not hold: ``use_text_condition`` raises.
 """
 
 from __future__ import annotations
@@ -35,15 +41,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..diffusion.discrete import DiscreteDiffusion, log_onehot_to_index
+from ..diffusion.discrete import DiscreteDiffusion, LtState, log_onehot_to_index
 
 
 class SelfAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` on one input, no mask."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.query = nn.Linear(embed_dim, embed_dim)
         self.key = nn.Linear(embed_dim, embed_dim)
         self.value = nn.Linear(embed_dim, embed_dim)
@@ -55,16 +62,20 @@ class SelfAttention(nn.Module):
         q, k, v = (proj(x).view(b, n, h, c // h) for proj in (self.query, self.key, self.value))
         q = q / math.sqrt(c // h)
         att = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        if self.training and self.dropout > 0:
+            keep = 1.0 - self.dropout
+            att = att * (torch.bernoulli(torch.full((1, 1, n, n), keep, device=x.device)) / keep)
         return self.out(torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, n, c))
 
 
 class AdaLNTransformerBlock(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.ada_ln_scale = nn.Linear(embed_dim, embed_dim)
         self.ada_ln_bias = nn.Linear(embed_dim, embed_dim)
-        self.self_attention = SelfAttention(embed_dim, num_heads)
+        self.self_attention = SelfAttention(embed_dim, num_heads, dropout)
+        self.drop = nn.Dropout(dropout)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.ffn1 = nn.Linear(embed_dim, 4 * embed_dim)
         self.ffn2 = nn.Linear(4 * embed_dim, embed_dim)
@@ -72,21 +83,22 @@ class AdaLNTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
         h = self.norm1(x)
         h = self.ada_ln_scale(t_emb)[:, None, :] * h + self.ada_ln_bias(t_emb)[:, None, :]
-        h = h + self.self_attention(h)
+        h = h + self.drop(self.self_attention(h))
         h2 = self.norm2(h)
-        return h2 + self.ffn2(F.relu(self.ffn1(h2)))
+        return h2 + self.drop(self.ffn2(F.relu(self.ffn1(h2))))
 
 
 class TransformerPredictor(nn.Module):
     def __init__(self, num_tokens: int, embedding_dim: int = 64, num_layers: int = 4,
-                 num_heads: int = 4, seq_len: int = 256, diffusion_steps: int = 100):
+                 num_heads: int = 4, seq_len: int = 256, diffusion_steps: int = 100,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         self.embedding = nn.Embedding(num_tokens, embedding_dim)
         self.positional_encoding = nn.Parameter(torch.zeros(1, seq_len, embedding_dim))
         self.time_embedding = nn.Embedding(diffusion_steps, embedding_dim)
         for i in range(num_layers):
-            self.add_module(f"block{i}", AdaLNTransformerBlock(embedding_dim, num_heads))
+            self.add_module(f"block{i}", AdaLNTransformerBlock(embedding_dim, num_heads, dropout))
         self.fc = nn.Linear(embedding_dim, num_tokens - 1)
 
     @torch.no_grad()
@@ -123,7 +135,7 @@ class TransformerVQDiffusion(nn.Module):
     def __init__(self, codebook_size: int = 1024, seq_len: int = 256,
                  diffusion_steps: int = 100, embedding_dim: int = 64, num_layers: int = 4,
                  num_heads: int = 4, truncation_rate: float = 0.86,
-                 use_text_condition: bool = False, fused_posterior=False):
+                 use_text_condition: bool = False, fused_posterior=False, dropout: float = 0.1):
         super().__init__()
         if use_text_condition:
             raise NotImplementedError(
@@ -132,11 +144,12 @@ class TransformerVQDiffusion(nn.Module):
         self.num_classes = codebook_size + 1
         self.seq_len = seq_len
         self.predictor = TransformerPredictor(self.num_classes, embedding_dim, num_layers,
-                                              num_heads, seq_len, diffusion_steps)
+                                              num_heads, seq_len, diffusion_steps, dropout)
         self.diffusion = DiscreteDiffusion(
             num_classes=self.num_classes, seq_len=seq_len, timesteps=diffusion_steps,
+            auxiliary_loss_weight=5e-4, adaptive_auxiliary_loss=True, mask_weight=(1.5, 1.0),
             ctt_T=0.9, mask_logit_pad=-30.0, chain_init="prior",
-            truncation_rate=truncation_rate)
+            use_importance_sampling=False, truncation_rate=truncation_rate)
         self.diffusion.fused_posterior = fused_posterior
 
     def _bind(self):
@@ -154,6 +167,19 @@ class TransformerVQDiffusion(nn.Module):
     def _device(self) -> torch.device:
         return self.predictor.fc.weight.device
 
+    def init_lt_state(self) -> LtState:
+        return LtState.init(self.diffusion.num_timesteps, device=self._device())
+
+    def loss(self, x0: torch.Tensor, lt: LtState, generator: Optional[torch.Generator] = None,
+             *, t: Optional[torch.Tensor] = None, gumbel: Optional[torch.Tensor] = None):
+        """The training loss of indices x0 [B, N] with the predictor in train
+        mode (dropout on) -> (loss, metrics, the new ``LtState``): t uniform,
+        ``DiscreteDiffusion.train_loss``'s draws from ``generator`` unless
+        given."""
+        self.predictor.train()
+        self.diffusion.model_fn = self._bind()
+        return self.diffusion.train_loss(x0, lt, generator, t=t, gumbel=gumbel)
+
     def _grid(self, idx: torch.Tensor) -> torch.Tensor:
         g = int(self.seq_len ** 0.5)
         return idx.clamp(max=self.num_classes - 2).reshape(idx.shape[0], g, g)
@@ -164,6 +190,7 @@ class TransformerVQDiffusion(nn.Module):
         """Every reverse step, t = T-1 .. 0 -> indices [B, g, g]. Noise from
         ``generator`` or injected as ``step_gumbel``, one [B, N, K] tensor a
         step."""
+        self.predictor.eval()
         self.diffusion.model_fn = self._bind()
         idx = self.diffusion.sample(num_samples, generator=generator, device=self._device(),
                                     step_gumbel=step_gumbel)
@@ -176,6 +203,7 @@ class TransformerVQDiffusion(nn.Module):
         """Steps t = T-1, T-1-skip, ..., each posterior at t, with truncated
         top-r sampling -> indices [B, g, g]. Noise as in :meth:`sample`."""
         d = self.diffusion
+        self.predictor.eval()
         d.model_fn = self._bind()
         device = self._device()
         shape = (num_samples, self.seq_len, self.num_classes)

@@ -24,11 +24,12 @@ Two priors are ported:
 (falsy) for sampling. ``sample`` runs the chain of the U-Net it is given
 (the trainer's EMA copy), or of ``unet``.
 
-Training (``loss``, gaussian3d only): the frozen VQVAE's indices, then the
-prior's loss through the U-Net module in train mode (batch statistics,
-running statistics moved). The ``VQ_Official`` training loss, its Unet1D
-branch (``unet_dim: 2``) and the ``gaussiandiffusion2d`` prior come with
-later ROADMAP items.
+Training (``loss``): the frozen VQVAE's indices, then the prior's loss
+through the U-Net module in train mode (batch statistics, running
+statistics moved): gaussian3d's noise MSE, or VQ_Official's
+``DiscreteDiffusion.train_loss`` with its importance-sampling history. The
+VQ_Official Unet1D branch (``unet_dim: 2``) and the ``gaussiandiffusion2d``
+prior come with a later ROADMAP item (slice 7).
 """
 
 from __future__ import annotations
@@ -114,14 +115,20 @@ class VQDiffusionComposite(nn.Module):
         if self.diffusion_type != "VQ_Official":
             self.prior.diffusion.model_fn = lambda x, self_cond, t: fwd(x, t)
             return self.prior
-
-        def model_fn(log_x_t, t):
-            out = fwd(log_x_t.transpose(1, 2)[..., None], t)[..., 0]       # [B, K, N]
-            return out[:, :-1, :].transpose(1, 2).contiguous()
-        self.prior.model_fn = model_fn
+        self.prior.model_fn = self._discrete_model_fn(fwd)
         mode = self.fused_posterior
         self.prior.fused_posterior = self._device().type == "cuda" if mode is None else mode
         return self.prior
+
+    @staticmethod
+    def _discrete_model_fn(fwd):
+        """VQ_Official's denoiser around the U-Net forward ``fwd(x, t)``:
+        log_x_t [B, N, K] as the [B, K, N, 1] image, the output's last row
+        dropped -> logits [B, N, K-1]."""
+        def model_fn(log_x_t, t):
+            out = fwd(log_x_t.transpose(1, 2)[..., None], t)[..., 0]       # [B, K, N]
+            return out[:, :-1, :].transpose(1, 2).contiguous()
+        return model_fn
 
     def _device(self) -> torch.device:
         return next(self.unet.parameters()).device
@@ -154,14 +161,15 @@ class VQDiffusionComposite(nn.Module):
         """The prior's training loss on images x [B, H, W, C] -> (loss,
         metrics, the new importance-sampling history), the U-Net in train
         mode: its BatchNorms run on batch statistics and move their running
-        ones. ``t`` and ``noise`` come from ``generator`` unless given.
-        gaussian3d returns ``lt`` as it came (None)."""
-        if self.diffusion_type == "VQ_Official":
-            raise NotImplementedError(
-                "training the VQ_Official prior is not ported yet: see ROADMAP.md, A4 "
-                "(slice 5, discrete prior training)")
+        ones. ``t`` and ``noise`` (gaussian3d: the Gaussian noise;
+        VQ_Official: the Gumbel noise of q(x_t | x_0)) come from
+        ``generator`` unless given. VQ_Official's loss moves the history
+        ``lt``; gaussian3d returns it as it came (None)."""
         indices = self.encode_to_z(x)
         unet = self.unet.train()
+        if self.diffusion_type == "VQ_Official":
+            self.prior.model_fn = self._discrete_model_fn(lambda x_t, tt: unet(x_t, None, tt))
+            return self.prior.train_loss(indices, lt, generator, t=t, gumbel=noise)
         self.prior.diffusion.model_fn = lambda x_t, self_cond, tt: unet(x_t, None, tt)
         loss, metrics = self.prior.loss(indices, generator, t=t, noise=noise)
         return loss, metrics, lt

@@ -19,9 +19,10 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
 - ``vqvae_transformer`` / ``vqgan_transformer``: the GPT prior over the codes
   of the frozen VQVAE at ``architecture.vqvae.resume_path`` (a stage-1
   checkpoint); ``transformer_epoch<e>_<i>.jpg`` and ``samples_epoch<e>.jpg``;
-- ``vqdiffusion`` with ``diffusion_type: gaussiandiffusion3d``: the
-  diffusion prior over those codes, with its OneCycle schedule over
-  ``num_epochs`` x the loader's batches and its EMA copy;
+- ``vqdiffusion``: the diffusion prior over those codes
+  (``diffusion_type`` ``gaussiandiffusion3d`` or the discrete
+  ``VQ_Official`` with its importance-sampling history), with its OneCycle
+  schedule over ``num_epochs`` x the loader's batches and its EMA copy;
   ``recon_epoch<e>_<i>.jpg`` and the EMA's ``samples_epoch<e>.jpg``;
 - ``gaussiandiffusion3d``: the pixel-space DDPM on the images themselves
   (the ShuffleNet U-Net, mults (2, 4)), OneCycle and EMA as above; the
@@ -73,12 +74,6 @@ def run(argv: Optional[Sequence[str]] = None,
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"training {model_name!r} is not ported yet: see ROADMAP.md, {where}")
-    if model_name == "vqdiffusion":
-        diffusion_type = config.architecture.vqdiffusion.diffusion_type
-        if diffusion_type != "gaussiandiffusion3d":
-            raise NotImplementedError(
-                f"training the {diffusion_type!r} prior is not ported yet: see ROADMAP.md, "
-                "A4 (slice 5, discrete prior training)")
     train_split = str(config.dataset.get("train_split", "train"))
     if args.debug:
         config = config.replace_path("trainer.num_epochs", 1)

@@ -1,6 +1,6 @@
 """Stage-2 diffusion worker (PyTorch counterpart of the JAX
 ``train/vq_diffusion_worker.py``): a diffusion prior over the codes of a
-frozen VQVAE, trained (gaussian3d) and served (gaussian3d, VQ_Official).
+frozen VQVAE, trained and served (gaussian3d, VQ_Official).
 
 One step, as the JAX step computes it:
 
@@ -10,11 +10,12 @@ One step, as the JAX step computes it:
 - AdamW, OneCycle and the EMA of :mod:`.diffusion_trainer`, with the
   configured beta2.
 
-The metrics are ``noise_mse``, ``indices_recon`` (where the config computes
-it) and ``loss``. ``log_artifacts`` writes the inputs over their
-reconstructions (``recon_epoch{e}_{i}.jpg``); checkpoints hold the frozen
-VQVAE, the U-Net, its EMA copy, the optimizer, the step and the count of
-updates. ``generate_images`` samples the EMA copy, as the JAX worker does,
+The metrics are gaussian3d's ``noise_mse`` and ``indices_recon`` (where
+the config computes it), or VQ_Official's ``vb_loss``, ``kl`` and
+``decoder_nll``, and ``loss``. ``log_artifacts`` writes the inputs over
+their reconstructions (``recon_epoch{e}_{i}.jpg``); checkpoints hold the
+frozen VQVAE, the U-Net, its EMA copy, the optimizer, the step, the count
+of updates and VQ_Official's importance-sampling history (``lt``). ``generate_images`` samples the EMA copy, as the JAX worker does,
 through the BN-folded kernel route unless ``fused_sampler`` is off, and
 writes the filmstrip where ``return_all_timestamps`` is set. VQ_Official
 indices are not clamped, as in the JAX worker: the mask class K-1 is also
