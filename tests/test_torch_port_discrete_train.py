@@ -47,6 +47,7 @@ from vq_vae_gan_diffusion_torch import generate, vq_diffusion
 from vq_vae_gan_diffusion_torch import weights as W
 from vq_vae_gan_diffusion_torch.config import config_from_dict as t_config_from_dict
 from vq_vae_gan_diffusion_torch.diffusion import discrete as td
+from vq_vae_gan_diffusion_torch.models import transformer_vq_diffusion as t_tvq_mod
 from vq_vae_gan_diffusion_torch.models import vq_diffusion_composite as t_comp_mod
 from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
     TransformerVQDiffusion as TorchTVQ)
@@ -254,13 +255,14 @@ def _grads_close(got: dict, want: dict, tol: float = 1e-5) -> None:
     assert live > len(want) / 2
 
 
-def test_transformer_loss_and_gradients_match_jax():
+def test_transformer_loss_and_gradients_match_jax(monkeypatch):
     """The transformer prior's loss with dropout off (the JAX denoiser bound
     without a dropout key), its metrics and LtState, and the predictor's
     gradients leaf by leaf."""
     jm = JaxTVQ(diffusion_steps=8, **GEOMETRY)
     params = _numpy_params(jm, 5)
-    tm = TorchTVQ(diffusion_steps=8, dropout=0.0, **GEOMETRY)
+    monkeypatch.setattr(t_tvq_mod, "DROPOUT", 0.0)
+    tm = TorchTVQ(diffusion_steps=8, **GEOMETRY)
     tm.predictor.load_state_dict(W.transformer_predictor_state_from_jax(
         jax.tree_util.tree_map(np.asarray, params)), strict=True)
     rs = np.random.RandomState(6)

@@ -22,10 +22,11 @@ decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 ``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. For
 ``gaussiandiffusion3d`` it samples ``--n-samples`` images with the
 pixel-space DDPM's U-Net (its EMA copy in a training checkpoint) and writes
-them, six to a row, as ``samples_epoch0.jpg``. ``--ckpt`` loads
-a port checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``, a
-training checkpoint included) or a bare prior ``state_dict`` as ``tools/export_torch_checkpoint.py`` writes
-it from an Orbax checkpoint; without one it tries
+them, six to a row, as ``samples_epoch0.jpg``. ``--ckpt`` loads a port
+checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``, a
+training checkpoint included) or a bare prior ``state_dict`` as
+``tools/export_torch_checkpoint.py`` writes it from an Orbax checkpoint;
+without one it tries
 ``architecture.<model>.resume_path``. The VQVAE comes from
 ``architecture.vqvae.resume_path`` (a bare VQVAE ``state_dict`` or a
 bundle). A path where nothing exists warns and keeps the seeded fresh init;

@@ -28,7 +28,7 @@ TPU unit) compute the same function, which is one CUDA kernel here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +50,19 @@ def resolve_sampler_mode(mode: Any) -> bool:
         raise ValueError(f"fused_sampler={mode!r} was removed from the JAX package in "
                          "round 4; use 'packed', 'pallas', True or False")
     return True
+
+
+def eval_forward(unet: ShuffleUNet, fused_sampler: Any,
+                 dtype: torch.dtype = torch.float32) -> Callable[[torch.Tensor, torch.Tensor],
+                                                                 torch.Tensor]:
+    """``unet``'s NHWC eval forward ``fn(x, t)`` for one sampling chain: the
+    BN-folded kernel route under a truthy ``fused_sampler`` (the
+    BatchNorms folded here, once), else the module in eval mode."""
+    if resolve_sampler_mode(fused_sampler):
+        folded = fold_unet(unet, dtype)
+        return lambda x, t: apply_folded(folded, x, t).to(x.dtype)
+    unet.eval()
+    return lambda x, t: unet(x, None, t)
 
 
 @torch.no_grad()

@@ -43,14 +43,16 @@ from torch import nn
 
 from ..diffusion.discrete import DiscreteDiffusion, LtState, log_onehot_to_index
 
+DROPOUT = 0.1          # the flax blocks' default, read when a block is built
+
 
 class SelfAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` on one input, no mask."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.dropout = dropout
+        self.dropout = DROPOUT
         self.query = nn.Linear(embed_dim, embed_dim)
         self.key = nn.Linear(embed_dim, embed_dim)
         self.value = nn.Linear(embed_dim, embed_dim)
@@ -69,13 +71,13 @@ class SelfAttention(nn.Module):
 
 
 class AdaLNTransformerBlock(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1):
+    def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.ada_ln_scale = nn.Linear(embed_dim, embed_dim)
         self.ada_ln_bias = nn.Linear(embed_dim, embed_dim)
-        self.self_attention = SelfAttention(embed_dim, num_heads, dropout)
-        self.drop = nn.Dropout(dropout)
+        self.self_attention = SelfAttention(embed_dim, num_heads)
+        self.drop = nn.Dropout(DROPOUT)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.ffn1 = nn.Linear(embed_dim, 4 * embed_dim)
         self.ffn2 = nn.Linear(4 * embed_dim, embed_dim)
@@ -90,15 +92,14 @@ class AdaLNTransformerBlock(nn.Module):
 
 class TransformerPredictor(nn.Module):
     def __init__(self, num_tokens: int, embedding_dim: int = 64, num_layers: int = 4,
-                 num_heads: int = 4, seq_len: int = 256, diffusion_steps: int = 100,
-                 dropout: float = 0.1):
+                 num_heads: int = 4, seq_len: int = 256, diffusion_steps: int = 100):
         super().__init__()
         self.num_layers = num_layers
         self.embedding = nn.Embedding(num_tokens, embedding_dim)
         self.positional_encoding = nn.Parameter(torch.zeros(1, seq_len, embedding_dim))
         self.time_embedding = nn.Embedding(diffusion_steps, embedding_dim)
         for i in range(num_layers):
-            self.add_module(f"block{i}", AdaLNTransformerBlock(embedding_dim, num_heads, dropout))
+            self.add_module(f"block{i}", AdaLNTransformerBlock(embedding_dim, num_heads))
         self.fc = nn.Linear(embedding_dim, num_tokens - 1)
 
     @torch.no_grad()
@@ -135,7 +136,7 @@ class TransformerVQDiffusion(nn.Module):
     def __init__(self, codebook_size: int = 1024, seq_len: int = 256,
                  diffusion_steps: int = 100, embedding_dim: int = 64, num_layers: int = 4,
                  num_heads: int = 4, truncation_rate: float = 0.86,
-                 use_text_condition: bool = False, fused_posterior=False, dropout: float = 0.1):
+                 use_text_condition: bool = False, fused_posterior=False):
         super().__init__()
         if use_text_condition:
             raise NotImplementedError(
@@ -144,7 +145,7 @@ class TransformerVQDiffusion(nn.Module):
         self.num_classes = codebook_size + 1
         self.seq_len = seq_len
         self.predictor = TransformerPredictor(self.num_classes, embedding_dim, num_layers,
-                                              num_heads, seq_len, diffusion_steps, dropout)
+                                              num_heads, seq_len, diffusion_steps)
         self.diffusion = DiscreteDiffusion(
             num_classes=self.num_classes, seq_len=seq_len, timesteps=diffusion_steps,
             auxiliary_loss_weight=5e-4, adaptive_auxiliary_loss=True, mask_weight=(1.5, 1.0),

@@ -34,7 +34,7 @@ prior come with a later ROADMAP item (slice 7).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -42,7 +42,7 @@ from torch import nn
 from ..config import Config
 from ..diffusion.discrete import DiscreteDiffusion, LtState
 from ..diffusion.gaussian3d import VQGaussianDiffusion3D
-from .shuffle_infer import apply_folded, fold_unet, resolve_sampler_mode
+from .shuffle_infer import eval_forward
 from .unet_shuffle import ShuffleUNet
 from .vqvae import VQVAE
 
@@ -96,22 +96,13 @@ class VQDiffusionComposite(nn.Module):
             clipped_reverse_diffusion=bool(dcfg.get("clipped_reverse_diffusion", True)),
             compute_indices_recon_loss=bool(dcfg.get("compute_indices_recon_loss", False)))
 
-    def _unet_fwd(self, unet: ShuffleUNet) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-        """``unet``'s NHWC eval forward ``fn(x, t)`` for one chain. The kernel
-        route folds the BatchNorms here, once."""
-        if resolve_sampler_mode(self.fused_sampler):
-            folded = fold_unet(unet, self.dtype)
-            return lambda x, t: apply_folded(folded, x, t).to(x.dtype)
-        unet.eval()
-        return lambda x, t: unet(x, None, t)
-
     def bind(self, unet: Optional[ShuffleUNet] = None):
         """The prior with this chain's denoiser bound (``unet``, default the
         composite's own): ``fn(x, self_cond, t)`` for gaussian3d; for
         VQ_Official ``fn(log_x_t [B, N, K], t)`` -> logits [B, N, K-1]
         through the U-Net on [B, K, N, 1], and ``fused_posterior`` resolved
         for the U-Net's device."""
-        fwd = self._unet_fwd(self.unet if unet is None else unet)
+        fwd = eval_forward(self.unet if unet is None else unet, self.fused_sampler, self.dtype)
         if self.diffusion_type != "VQ_Official":
             self.prior.diffusion.model_fn = lambda x, self_cond, t: fwd(x, t)
             return self.prior

@@ -35,7 +35,7 @@ import torch
 from ..checkpoint import read_training_checkpoint, restore
 from ..config import Config, resolve_img_channels, resolve_img_size
 from ..diffusion.gaussian3d import GaussianDiffusion3D
-from ..models.shuffle_infer import apply_folded, fold_unet, resolve_sampler_mode
+from ..models.shuffle_infer import eval_forward
 from ..models.unet_shuffle import ShuffleUNet
 from ..utils import make_grid, save_image
 from ..utils.init_utils import torch_like_reinit
@@ -120,15 +120,6 @@ class GaussianDiffusion3DWorker(DiffusionTrainer):
         return state, {"loss": loss.detach()}
 
     # -- artifacts -------------------------------------------------------------
-    def _denoiser(self, unet: ShuffleUNet):
-        """``unet``'s eval forward for one chain: BN-folded through the CUDA
-        kernels, or the module under a falsy ``fused_sampler``."""
-        if resolve_sampler_mode(self.fused_sampler):
-            folded = fold_unet(unet, self.dtype)
-            return lambda x, self_cond, t: apply_folded(folded, x, t).to(x.dtype)
-        unet.eval()
-        return lambda x, self_cond, t: unet(x, None, t)
-
     @torch.no_grad()
     def sample(self, n: int, generator: Optional[torch.Generator] = None,
                unet: Optional[ShuffleUNet] = None, **noise) -> torch.Tensor:
@@ -136,7 +127,9 @@ class GaussianDiffusion3DWorker(DiffusionTrainer):
         of ``unet`` (default the EMA copy), clipped unless ``no_clip``. Noise
         from ``generator`` (default the worker's) or injected (``x_T``,
         ``step_noise``)."""
-        self.process.model_fn = self._denoiser(self.state.ema if unet is None else unet)
+        fwd = eval_forward(self.state.ema if unet is None else unet, self.fused_sampler,
+                           self.dtype)
+        self.process.model_fn = lambda x, self_cond, t: fwd(x, t)
         if not noise:
             noise = {"generator": self.generator if generator is None else generator}
         return self.process.ddpm_sample(n, device=self.device,

@@ -15,9 +15,10 @@ the config computes it), or VQ_Official's ``vb_loss``, ``kl`` and
 ``decoder_nll``, and ``loss``. ``log_artifacts`` writes the inputs over
 their reconstructions (``recon_epoch{e}_{i}.jpg``); checkpoints hold the
 frozen VQVAE, the U-Net, its EMA copy, the optimizer, the step, the count
-of updates and VQ_Official's importance-sampling history (``lt``). ``generate_images`` samples the EMA copy, as the JAX worker does,
-through the BN-folded kernel route unless ``fused_sampler`` is off, and
-writes the filmstrip where ``return_all_timestamps`` is set. VQ_Official
+of updates and VQ_Official's importance-sampling history (``lt``).
+``generate_images`` samples the EMA copy, as the JAX worker does, through
+the BN-folded kernel route unless ``fused_sampler`` is off, and writes the
+filmstrip where ``return_all_timestamps`` is set. VQ_Official
 indices are not clamped, as in the JAX worker: the mask class K-1 is also
 a codebook index.
 """

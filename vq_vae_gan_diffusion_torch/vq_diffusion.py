@@ -71,7 +71,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         opt.zero_grad()
         loss.backward()
         opt.step()
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         if i % max(args.steps // 10, 1) == 0:
             print(f"step {i}: loss {losses[-1]:.4f}")
     print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
