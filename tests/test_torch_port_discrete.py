@@ -395,11 +395,6 @@ def test_vqofficial_config_is_the_gaussian3d_config_with_two_changes():
     assert got == base
 
 
-def test_vqofficial_unet1d_branch_not_ported(tiny_config):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 7"):
-        TorchComposite(t_config_from_dict(_vqofficial(tiny_config, unet_dim=2)))
-
-
 def test_wrapper_rejects_bad_arguments():
     """The checks that guard the CUDA kernel raise on what it does not take;
     a device other than cuda or cpu raises before any check."""

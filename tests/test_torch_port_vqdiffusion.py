@@ -196,17 +196,6 @@ def test_generate_cli_without_gpu_raises(tmp_path, tiny_config, monkeypatch):
         generate.main(["--config", cfg_path, "--n-samples", "2"])
 
 
-@pytest.mark.parametrize("diffusion_type,slice_", [("VQ_Official", "slice 7"),
-                                                   ("gaussiandiffusion2d", "slice 7")])
-def test_other_priors_not_ported(tiny_config, diffusion_type, slice_):
-    """The VQ_Official prior is ported with its ShuffleNet U-Net; its Unet1D
-    branch (unet_dim 2) and gaussiandiffusion2d are not."""
-    cfg = t_config_from_dict(_vqdiffusion(tiny_config, diffusion_type=diffusion_type,
-                                          unet_dim=2))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {slice_}"):
-        TorchComposite(cfg)
-
-
 def test_resolve_sampler_mode():
     for mode in (True, "true", "on", "pallas", "packed"):
         assert resolve_sampler_mode(mode) is True

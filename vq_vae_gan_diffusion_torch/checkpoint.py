@@ -15,8 +15,9 @@ Three forms, all files written by ``torch.save``:
 - a bare ``state_dict`` of one module, as ``tools/export_torch_checkpoint.py``
   writes it from an Orbax checkpoint of the JAX package: the VQVAE
   (``vqvae``/``vqgan``), the minGPT prior (``*_transformer``) or the
-  ShuffleNet U-Net denoiser (``vqdiffusion``, ``gaussiandiffusion3d``; with
-  ``--ema``, the EMA weights the JAX worker samples with). Their key names are the ones the
+  U-Net denoiser, ShuffleNet or Conv1d (``vqdiffusion``,
+  ``gaussiandiffusion2d``, ``gaussiandiffusion3d``; with ``--ema``, the EMA
+  weights the JAX worker samples with). Their key names are the ones the
   port's modules use; each module is told by a key only it has.
 
 A path where nothing exists is no checkpoint: the caller warns and keeps
@@ -35,9 +36,10 @@ import torch
 from torch import nn
 
 EXPORT_TOOL = "tools/export_torch_checkpoint.py"
-# the key that tells each module's bare state_dict from the others
-_MARKERS = {"vqvae": "codebook.codebook.weight", "gpt": "tok_emb.weight",
-            "unet": "init_conv.module.0.weight"}
+# the keys that tell each module's bare state_dict from the others (the
+# U-Net's: the ShuffleNet's, the Conv1d U-Net's)
+_MARKERS = {"vqvae": ("codebook.codebook.weight",), "gpt": ("tok_emb.weight",),
+            "unet": ("init_conv.module.0.weight", "mid_attn.fn.fn.to_qkv.weight")}
 
 State = Dict[str, torch.Tensor]
 
@@ -46,7 +48,7 @@ def _refuse(path: str, why: str) -> ValueError:
     return ValueError(
         f"checkpoint {path} {why}. The port reads a torch.save file: its own bundle "
         "{'vqvae': ..., 'gpt' | 'unet': ...}, its training checkpoint, or a bare "
-        f"VQVAE, minGPT or ShuffleNet denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
+        f"VQVAE, minGPT or U-Net denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
         "--config <yml> --ckpt <dir> --out <file>.pth (add --ema for a diffusion prior)")
 
 
@@ -96,7 +98,7 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
     if not isinstance(state, dict) or not state:
         raise _refuse(path, "holds no dict")
     if all(isinstance(v, torch.Tensor) for v in state.values()):
-        kinds = [kind for kind, key in _MARKERS.items() if key in state]
+        kinds = [kind for kind, keys in _MARKERS.items() if any(k in state for k in keys)]
         if len(kinds) != 1:
             raise _refuse(path, "is a state_dict of no module the port serves")
         return {kinds[0]: state}

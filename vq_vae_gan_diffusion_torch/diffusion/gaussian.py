@@ -1,15 +1,21 @@
-"""Gaussian diffusion schedule buffers (PyTorch counterpart of the JAX
-``diffusion/gaussian.py``: ``GaussianSchedule``, ``make_schedule`` and
-``_extract``).
+"""Gaussian diffusion core (PyTorch counterpart of the JAX
+``diffusion/gaussian.py``): the schedule buffers, q-sampling, the
+prediction conversions of the pred_noise / pred_x0 / pred_v objectives, the
+MSE loss and the DDPM and DDIM reverse chains.
 
 The schedule is computed in float64 with numpy, then held as float32 CPU
-tensors, as the JAX package holds float32 arrays. The pixel-space
-``GaussianDiffusion`` class comes with the pixel-diffusion slice.
+tensors, as the JAX package holds float32 arrays; a reverse step reads its
+scalars from them, so the step's arithmetic is float32 as in JAX.
+
+Noise comes from an explicit ``torch.Generator`` on the state's device, or
+is injected (``step_noise``, one tensor a reverse step), as the parity
+tests inject the JAX package's draws. The pixel-space ``GaussianDiffusion``
+class comes with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +73,152 @@ def make_schedule(timesteps: int, name: str = "linear", beta_start: float = 1e-4
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-batch schedule values on t's device, shaped to broadcast."""
     return arr.to(t.device)[t].reshape(t.shape[0], *([1] * (ndim - 1)))
+
+
+ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor], torch.Tensor]
+# model_fn(x_t, condition_or_self_cond, t) -> prediction
+
+
+def _randn(shape, generator: Optional[torch.Generator],
+           device: Optional[torch.device]) -> torch.Tensor:
+    """N(0, I) of ``shape`` from ``generator`` (on its device), else from
+    torch's global generator on ``device``."""
+    if generator is not None:
+        device = generator.device
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def q_posterior(sched: GaussianSchedule, x0: torch.Tensor, x_t: torch.Tensor,
+                t: torch.Tensor):
+    """q(x_{t-1} | x_t, x_0) -> (mean, variance, log_variance_clipped)."""
+    n = x_t.dim()
+    mean = (_extract(sched.posterior_mean_coef1, t, n) * x0 +
+            _extract(sched.posterior_mean_coef2, t, n) * x_t)
+    return (mean, _extract(sched.posterior_variance, t, n),
+            _extract(sched.posterior_log_variance_clipped, t, n))
+
+
+def q_sample(sched: GaussianSchedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x0 -> x_t."""
+    return (_extract(sched.sqrt_alphas_cumprod, t, x0.dim()) * x0 +
+            _extract(sched.sqrt_one_minus_alphas_cumprod, t, x0.dim()) * noise)
+
+
+def predict_start_from_noise(sched, x_t, t, noise):
+    return (_extract(sched.sqrt_recip_alphas_cumprod, t, x_t.dim()) * x_t -
+            _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.dim()) * noise)
+
+
+def predict_noise_from_start(sched, x_t, t, x0):
+    return ((_extract(sched.sqrt_recip_alphas_cumprod, t, x_t.dim()) * x_t - x0) /
+            _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.dim()))
+
+
+def predict_v(sched, x0, t, noise):
+    return (_extract(sched.sqrt_alphas_cumprod, t, x0.dim()) * noise -
+            _extract(sched.sqrt_one_minus_alphas_cumprod, t, x0.dim()) * x0)
+
+
+def predict_start_from_v(sched, x_t, t, v):
+    return (_extract(sched.sqrt_alphas_cumprod, t, x_t.dim()) * x_t -
+            _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_t.dim()) * v)
+
+
+def model_predictions(sched: GaussianSchedule, model_fn: ModelFn, x_t, condition, t,
+                      objective: str = "pred_noise", clip_x_start: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (pred_noise, pred_x0) by the objective, x0 clipped to [-1, 1] when
+    ``clip_x_start``."""
+    out = model_fn(x_t, condition, t)
+
+    def clip(v):
+        return torch.clamp(v, -1.0, 1.0) if clip_x_start else v
+
+    if objective == "pred_noise":
+        return out, clip(predict_start_from_noise(sched, x_t, t, out))
+    if objective == "pred_x0":
+        x0 = clip(out)
+    elif objective == "pred_v":
+        x0 = clip(predict_start_from_v(sched, x_t, t, out))
+    else:
+        raise ValueError(objective)
+    return predict_noise_from_start(sched, x_t, t, x0), x0
+
+
+def diffusion_loss(sched: GaussianSchedule, model_fn: ModelFn, x0, condition, t, noise,
+                   objective: str = "pred_noise") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MSE training loss against the objective's target -> (loss, x_t)."""
+    x_t = q_sample(sched, x0, t, noise)
+    out = model_fn(x_t, condition, t)
+    if objective == "pred_noise":
+        target = noise
+    elif objective == "pred_x0":
+        target = x0
+    elif objective == "pred_v":
+        target = predict_v(sched, x0, t, noise)
+    else:
+        raise ValueError(objective)
+    return torch.mean((out.float() - target.float()) ** 2), x_t
+
+
+def _step_noise(i: int, x: torch.Tensor, generator: Optional[torch.Generator],
+                step_noise: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+    if step_noise is not None:
+        return step_noise[i].to(x.device)
+    return _randn(x.shape, generator, x.device)
+
+
+def ddpm_sample(sched: GaussianSchedule, model_fn: ModelFn, x_t: torch.Tensor,
+                condition=None, objective: str = "pred_noise", clip_x_start: bool = False,
+                return_all: bool = False, *, generator: Optional[torch.Generator] = None,
+                step_noise: Optional[Sequence[torch.Tensor]] = None):
+    """The full reverse DDPM chain from ``x_t``, t = T-1 .. 0; ``step_noise[i]``
+    is the i-th step's noise (no noise enters at t = 0). With ``return_all``
+    also every step's state [T, ...]."""
+    x, states = x_t, []
+    for i, t in enumerate(range(sched.num_timesteps - 1, -1, -1)):
+        z = _step_noise(i, x, generator, step_noise)
+        tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+        pred_noise, _ = model_predictions(sched, model_fn, x, condition, tb, objective,
+                                          clip_x_start)
+        alpha_t, hat_alpha_t = sched.alphas[t], sched.alphas_cumprod[t]
+        x = (1.0 / torch.sqrt(alpha_t)) * (
+            x - (1 - alpha_t) / torch.sqrt(1 - hat_alpha_t) * pred_noise)
+        if t > 0:
+            x = x + torch.sqrt(sched.betas[t]) * z
+        states.append(x)
+    return (x, torch.stack(states)) if return_all else x
+
+
+def ddim_times(total_timesteps: int, sampling_timesteps: int) -> np.ndarray:
+    """torch.linspace(-1, T-1, S+1).int(), descending."""
+    times = np.linspace(-1, total_timesteps - 1, sampling_timesteps + 1)
+    return np.asarray(list(reversed(times.astype(int).tolist())), np.int32)
+
+
+def ddim_sample(sched: GaussianSchedule, model_fn: ModelFn, x_t: torch.Tensor,
+                condition=None, eta: float = 0.0, sampling_timesteps: Optional[int] = None,
+                objective: str = "pred_noise", clip_x_start: bool = False,
+                return_all: bool = False, *, generator: Optional[torch.Generator] = None,
+                step_noise: Optional[Sequence[torch.Tensor]] = None):
+    """The DDIM reverse chain over :func:`ddim_times`: ``at1`` read at
+    max(time_next, 0), the last step (time_next = -1) takes x_start.
+    ``step_noise[i]`` is the i-th step's noise; with ``return_all`` also
+    every step's state."""
+    times = ddim_times(sched.num_timesteps, sampling_timesteps or sched.num_timesteps)
+    x, states = x_t, []
+    for i, (time, time_next) in enumerate(zip(times[:-1].tolist(), times[1:].tolist())):
+        noise = _step_noise(i, x, generator, step_noise)
+        tb = torch.full((x.shape[0],), time, dtype=torch.long, device=x.device)
+        pred_noise, x_start = model_predictions(sched, model_fn, x, condition, tb, objective,
+                                                clip_x_start)
+        if time_next < 0:
+            x = x_start
+        else:
+            at, at1 = sched.alphas_cumprod[time], sched.alphas_cumprod[time_next]
+            sigma = eta * torch.sqrt((1 - at / at1) * (1 - at1) / (1 - at))
+            c = torch.sqrt(torch.clamp(1 - at1 - sigma ** 2, min=0.0))
+            x = x_start * torch.sqrt(at1) + c * pred_noise + sigma * noise
+        states.append(x)
+    return (x, torch.stack(states)) if return_all else x

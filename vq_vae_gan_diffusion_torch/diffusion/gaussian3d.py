@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .gaussian import _extract, make_schedule
+from .gaussian import _extract, _randn, make_schedule
 
 ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor], torch.Tensor]
 
@@ -51,13 +51,6 @@ def positional_encoding_table(dim: int, num_vectors: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)[:, : pe[:, 1::2].shape[1]]
     return pe
-
-
-def _randn(shape, generator: Optional[torch.Generator],
-           device: Optional[torch.device]) -> torch.Tensor:
-    if generator is not None:
-        device = generator.device
-    return torch.randn(shape, generator=generator, device=device)
 
 
 def _draw_t_noise(x0: torch.Tensor, timesteps: int, generator: Optional[torch.Generator],

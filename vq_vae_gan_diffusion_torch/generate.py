@@ -16,13 +16,17 @@ training checkpoint of ``python -m vq_vae_gan_diffusion_torch.train``
 included). Otherwise it samples ``--n-samples`` index grids with the config's prior (the GPT prior
 for ``vqvae_transformer`` / ``vqgan_transformer``; for ``vqdiffusion`` the
 gaussian3d diffusion prior, as in ``configs/inference_config_vqdiffusion.yml``,
+the gaussian2d prior, as in ``configs/inference_config_gaussian2d.yml``,
 or the discrete ``VQ_Official`` prior, as in
-``configs/inference_config_vqofficial.yml``),
+``configs/inference_config_vqofficial.yml`` and, on its Conv1d U-Net,
+``configs/inference_config_vqofficial1d.yml``),
 decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 ``<trainer.log_dir>/<dataset>/<model>_generate/run_<time>/``. For
 ``gaussiandiffusion3d`` it samples ``--n-samples`` images with the
 pixel-space DDPM's U-Net (its EMA copy in a training checkpoint) and writes
-them, six to a row, as ``samples_epoch0.jpg``. ``--ckpt`` loads a port
+them, six to a row, as ``samples_epoch0.jpg``; for ``gaussiandiffusion2d``
+it samples 4 images with the Conv1d U-Net (its EMA copy), as the JAX
+worker, and writes ``Generating_epoch000.jpg``. ``--ckpt`` loads a port
 checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``, a
 training checkpoint included) or a bare prior ``state_dict`` as
 ``tools/export_torch_checkpoint.py`` writes it from an Orbax checkpoint;
@@ -56,7 +60,6 @@ from .config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
 _LATER_SLICES = {
     "c_vqdiffusion": "slice 7 (other families)",
     "v_vqdiffusion": "slice 7 (other families)",
-    "gaussiandiffusion2d": "slice 7 (other families)",
     "vae": "slice 7 (other families)",
 }
 
@@ -87,8 +90,8 @@ def run(argv: Optional[Sequence[str]] = None,
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion",
-                                                                   "gaussiandiffusion3d"):
+    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + (
+            "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d"):
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
             f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
@@ -107,7 +110,8 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
-    from .train import GaussianDiffusion3DWorker, VQDiffusionWorker, VQTransformerWorker
+    from .train import (GaussianDiffusion2DWorker, GaussianDiffusion3DWorker, VQDiffusionWorker,
+                        VQTransformerWorker)
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -118,6 +122,7 @@ def run(argv: Optional[Sequence[str]] = None,
     if model_name in VQ_STAGE1_MODELS:
         return dict(_reconstruct(config, run_dir, logger, args, str(device)), run_dir=run_dir)
     worker_cls = {"vqdiffusion": VQDiffusionWorker,
+                  "gaussiandiffusion2d": GaussianDiffusion2DWorker,
                   "gaussiandiffusion3d": GaussianDiffusion3DWorker}.get(model_name,
                                                                         VQTransformerWorker)
     worker = worker_cls(config, run_dir, logger, seed=args.seed, device=str(device))

@@ -6,7 +6,8 @@
   decode -> grid run of the generation workers;
 - :class:`TrainingWorker`: the epoch loop, the metric and artifact cadence,
   checkpoints and resume;
-- :func:`maybe_accumulate`: ``optax.MultiSteps`` for a torch optimizer.
+- :func:`maybe_accumulate`: ``optax.MultiSteps`` for a torch optimizer;
+- :class:`ClipByGlobalNorm`: ``optax.clip_by_global_norm`` ahead of one.
 
 Every write of the training loop (``metrics.jsonl``, images, checkpoints)
 happens before the loop goes on, so an error surfaces where it happens and
@@ -138,6 +139,37 @@ class MultiSteps:
         self.mini_step = int(state["mini_step"])
         for acc, saved in zip(self.acc, state["acc"]):
             acc.copy_(saved)
+
+
+class ClipByGlobalNorm:
+    """``optax.chain(optax.clip_by_global_norm(max_norm), opt)`` for a torch
+    optimizer: :meth:`step` rescales the gradients where their global norm
+    is at least ``max_norm``, as optax does (``g / norm * max_norm``, no
+    epsilon; ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``),
+    then steps ``opt``. The test stays on the device."""
+
+    def __init__(self, opt: torch.optim.Optimizer, max_norm: float):
+        self.opt, self.max_norm = opt, max_norm
+        self.param_groups = opt.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.opt.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for group in self.param_groups for p in group["params"]
+                 if p.grad is not None]
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = norm < self.max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        self.opt.step()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.opt.load_state_dict(state)
 
 
 def maybe_accumulate(opt: torch.optim.Optimizer, trainer_cfg: Config):

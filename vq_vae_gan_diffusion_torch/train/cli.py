@@ -24,6 +24,12 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
   ``VQ_Official`` with its importance-sampling history), with its OneCycle
   schedule over ``num_epochs`` x the loader's batches and its EMA copy;
   ``recon_epoch<e>_<i>.jpg`` and the EMA's ``samples_epoch<e>.jpg``;
+  ``diffusion_type`` ``gaussiandiffusion2d`` and VQ_Official's ``unet_dim:
+  2`` train the Conv1d U-Net the same way;
+- ``gaussiandiffusion2d``: the pixel-space diffusion of grayscale images,
+  their rows the Conv1d U-Net's channels, Adam behind a global-norm clip of
+  1.0 and an EMA at 0.9999 every 10 steps; the EMA's
+  ``Generating_epoch<e>.jpg``;
 - ``gaussiandiffusion3d``: the pixel-space DDPM on the images themselves
   (the ShuffleNet U-Net, mults (2, 4)), OneCycle and EMA as above; the
   EMA's ``samples_epoch<e>.jpg``.
@@ -43,11 +49,12 @@ from typing import Dict, Optional, Sequence
 
 from ..config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
 
-TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion", "gaussiandiffusion3d")
+TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion", "gaussiandiffusion2d",
+                                                   "gaussiandiffusion3d")
 # the ROADMAP item that ports each family's training
 _LATER_SLICES = {
     "c_vqdiffusion": "slice 7 (other families)", "v_vqdiffusion": "slice 7 (other families)",
-    "gaussiandiffusion2d": "slice 7 (other families)", "vae": "slice 7 (other families)",
+    "vae": "slice 7 (other families)",
 }
 
 
@@ -85,7 +92,7 @@ def run(argv: Optional[Sequence[str]] = None,
 
     from ..data import load_dataloader
     from ..utils import create_run_dir, resolve_device, setup_logging
-    from .gaussian_diffusion_workers import GaussianDiffusion3DWorker
+    from .gaussian_diffusion_workers import GaussianDiffusion2DWorker, GaussianDiffusion3DWorker
     from .vq_diffusion_worker import VQDiffusionWorker
     from .vq_transformer_worker import VQTransformerWorker
     from .vqgan_worker import VQGANVQVAEWorker
@@ -102,6 +109,8 @@ def run(argv: Optional[Sequence[str]] = None,
         worker_cls = VQGANVQVAEWorker
     elif model_name in TRANSFORMER_MODELS:
         worker_cls = VQTransformerWorker
+    elif model_name == "gaussiandiffusion2d":
+        worker_cls = GaussianDiffusion2DWorker
     else:
         # OneCycle's total steps: epochs x batches an epoch, as the root train.py
         worker_cls = (VQDiffusionWorker if model_name == "vqdiffusion"

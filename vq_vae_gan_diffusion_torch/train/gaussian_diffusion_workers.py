@@ -1,5 +1,26 @@
-"""Pixel-space Gaussian diffusion worker (PyTorch counterpart of the JAX
-``train/gaussian_diffusion_workers.py::GaussianDiffusion3DWorker``).
+"""Pixel-space Gaussian diffusion workers (PyTorch counterparts of the JAX
+``train/gaussian_diffusion_workers.py``).
+
+``gaussiandiffusion2d``: the reference ``worker/gaussianDiffusion2DWorker.py``
+on grayscale images. The image's rows are the channels of the Conv1d U-Net
+(``models/unet1d.py``, ``architecture.gaussiandiffusion2d.unet_base_dim`` 64
+and ``unet_dim_mults`` (1, 2, 4, 8) unless the config says otherwise) over
+its columns: x0 [B, H, W] enters as [B, C = H, L = W], and the process is
+:class:`..diffusion.gaussian2d.GaussianDiffusion2D` on raw sequences. One
+step, as the JAX step computes it:
+
+- the noise MSE of :meth:`GaussianDiffusion2D.loss`;
+- Adam (``trainer.gaussiandiffusion2d.adam_betas``, (0.9, 0.99) where it
+  is a string that does not parse) behind ``optax.clip_by_global_norm(1.0)``
+  (:class:`.base.ClipByGlobalNorm`);
+- the EMA copy moves with decay 0.9999 on steps whose count before the
+  step is a multiple of 10; it starts as a copy.
+
+``generate_images`` samples 4 images with the EMA copy, whatever
+``n_samples`` says, as the JAX worker: DDIM from uniform noise [4, H, W],
+min-max normalised over the whole batch, four to a row, as
+``Generating_epoch{e:03d}.jpg``. The metric is ``loss``; checkpoints hold
+the U-Net, its EMA copy, the optimizer and the step.
 
 ``gaussiandiffusion3d``: a DDPM on the images themselves, the reference
 ``worker/gaussianDiffusion3DWorker.py``. The denoiser is the ShuffleNet
@@ -25,25 +46,154 @@ step and the count of updates.
 
 from __future__ import annotations
 
+import copy
 import os
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..checkpoint import read_training_checkpoint, restore
 from ..config import Config, resolve_img_channels, resolve_img_size
+from ..diffusion.gaussian2d import GaussianDiffusion2D, GaussianDiffusion2DConfig
 from ..diffusion.gaussian3d import GaussianDiffusion3D
 from ..models.shuffle_infer import eval_forward
+from ..models.unet1d import Unet1D
 from ..models.unet_shuffle import ShuffleUNet
 from ..utils import make_grid, save_image
+from ..utils.ema import ema_update
 from ..utils.init_utils import torch_like_reinit
+from .base import ClipByGlobalNorm, TrainingWorker, maybe_accumulate
 from .diffusion_trainer import DiffusionState, DiffusionTrainer
 
 DIM_MULTS = (2, 4)          # the reference train.py's U-Net for this worker
 TIME_EMBEDDING_DIM = 256
 ADAMW_BETA2 = 0.999
+
+
+class GaussianDiffusion2DWorker(TrainingWorker):
+    model_name = "gaussiandiffusion2d"
+    ema_decay, ema_every, n_samples, clip_norm = 0.9999, 10, 4, 1.0
+
+    def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
+                 seed: int = 0, save_ckpt_dir: Optional[str] = None,
+                 device: Optional[str] = None):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+        dcfg = config.architecture.gaussiandiffusion2d
+        self.trainer_cfg = tr = config.trainer.gaussiandiffusion2d
+        self.img_size = resolve_img_size(config)
+        self.unet_kwargs = dict(dim=int(dcfg.get("unet_base_dim", 64)),
+                                dim_mults=tuple(dcfg.get("unet_dim_mults", (1, 2, 4, 8))),
+                                channels=self.img_size, out_dim=self.img_size)
+        self.process = GaussianDiffusion2D(GaussianDiffusion2DConfig(
+            seq_length=self.img_size, timesteps=int(dcfg.diffusion_steps),
+            sampling_timesteps=int(dcfg.sampling_steps), diffusion_type="gaussiandiffusion2d"))
+        self.lr = float(tr.learning_rate)
+        betas = tr.get("adam_betas", (0.9, 0.99))
+        self.betas = (0.9, 0.99) if isinstance(betas, str) else tuple(map(float, betas))
+
+    def build_unet(self) -> Unet1D:
+        return Unet1D(**self.unet_kwargs)
+
+    # -- state ---------------------------------------------------------------
+    def init_state(self) -> DiffusionState:
+        """A U-Net drawn flax-style from a generator seeded by ``seed`` on the
+        worker's device, its EMA copy and a fresh optimizer; also set as the
+        worker's state. A training checkpoint of this worker at
+        ``architecture.gaussiandiffusion2d.resume_path`` replaces it whole."""
+        unet = self.build_unet()
+        unet.init_weights(torch.Generator().manual_seed(self.seed))
+        unet = unet.to(self.device)
+        opt = ClipByGlobalNorm(torch.optim.Adam(unet.parameters(), lr=self.lr, betas=self.betas,
+                                                eps=1e-8), self.clip_norm)
+        self.state = DiffusionState(unet, copy.deepcopy(unet).eval().requires_grad_(False),
+                                    maybe_accumulate(opt, self.trainer_cfg))
+        n = sum(p.numel() for p in unet.parameters())
+        self.logger.info("gaussiandiffusion2d U-Net params: %.1fM", n / 1e6)
+        resume = self.config.architecture.gaussiandiffusion2d.get("resume_path")
+        tree = read_training_checkpoint(str(resume), "pixel") if resume else None
+        if tree is not None:
+            self.load_checkpoint_tree(tree)
+            self.logger.info("state resumed from %s at step %d", resume, self.state.step)
+        return self.state
+
+    def load(self, path: str) -> None:
+        """Load a training checkpoint of this worker whole, or a bare Conv1d
+        U-Net ``state_dict`` (``tools/export_torch_checkpoint.py``'s
+        ``export_unet1d``; ``--ema`` gives the weights the JAX worker samples
+        with) into the U-Net and its EMA copy alike; a path where nothing
+        exists only warns, any other unreadable path raises."""
+        tree = read_training_checkpoint(path, "pixel")
+        if tree is not None:
+            self.load_checkpoint_tree(tree)
+            self.logger.info("restored the training state of %s", path)
+        elif restore(path, {"unet": self.state.unet}, self.logger, "gaussiandiffusion2d"):
+            self.state.ema.load_state_dict(self.state.unet.state_dict())
+
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        return {"state": self.state.state_dict(), "step": self.global_step}
+
+    def load_checkpoint_tree(self, tree: Dict[str, Any]) -> None:
+        self.state.load_state_dict(tree["state"])
+        self.global_step = int(tree["step"])
+
+    # -- the step ------------------------------------------------------------
+    def train_step(self, state: DiffusionState, batch,
+                   generator: Optional[torch.Generator] = None, *,
+                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        """One step on images ``batch`` [B, H, W, 1] (or [B, H, W]) ->
+        (state, metrics). ``t`` and ``noise`` come from ``generator`` unless
+        given."""
+        imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
+        x0 = imgs[..., 0] if imgs.dim() == 4 else imgs
+        unet = state.unet.train()
+        self.process.model_fn = lambda x, self_cond, tt: unet(x, self_cond, tt)
+        loss = self.process.loss(x0, generator, t=t, noise=noise)
+        state.opt.zero_grad()
+        loss.backward()
+        state.opt.step()
+        if getattr(state.opt, "mini_step", 0) == 0:
+            state.updates += 1
+        if state.step % self.ema_every == 0:
+            ema_update(state.ema, state.unet, self.ema_decay)
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    # -- artifacts -------------------------------------------------------------
+    @torch.no_grad()
+    def sample(self, generator: Optional[torch.Generator] = None, unet: Optional[Unet1D] = None,
+               *, xt: Optional[torch.Tensor] = None, step_noise=None) -> torch.Tensor:
+        """4 sequences [4, H, W]: the DDIM chain of ``unet`` (default the EMA
+        copy) from uniform noise. Noise from ``generator`` (default the
+        worker's) or injected (``xt``, ``step_noise``)."""
+        unet = (self.state.ema if unet is None else unet).eval()
+        self.process.model_fn = lambda x, self_cond, t: unet(x, self_cond, t)
+        gen = self.generator if generator is None else generator
+        if xt is None:
+            xt = torch.rand((self.n_samples, self.img_size, self.img_size), generator=gen,
+                            device=gen.device)
+        noise = {"step_noise": step_noise} if step_noise is not None else {"generator": gen}
+        return self.process.sample(self.n_samples, xt, **noise)
+
+    def generate_images(self, val_loader=None, n_samples: Optional[int] = None,
+                        epoch: int = 0) -> Dict[str, object]:
+        """Sample 4 images with the EMA copy (``n_samples`` and ``val_loader``
+        are ignored, as in the JAX worker), min-max normalise them over the
+        batch and write ``Generating_epoch{epoch:03d}.jpg``. Returns the
+        images, the grid's path and the sampling seconds (the device
+        synchronised before and after)."""
+        self._sync()
+        t0 = time.perf_counter()
+        images = self.sample()
+        self._sync()
+        sec = time.perf_counter() - t0
+        imgs = images.float().cpu().numpy()
+        imgs = (imgs - imgs.min()) / max(imgs.max() - imgs.min(), 1e-9)
+        path = os.path.join(self.run_dir, f"Generating_epoch{epoch:03d}.jpg")
+        save_image(make_grid((imgs[..., None] * 255).astype(np.uint8), nrow=4), path)
+        self.logger.info("sampled %d images in %.3f s -> %s", len(imgs), sec, path)
+        return {"images": images, "path": path, "seconds": {"sample": sec}}
 
 
 class GaussianDiffusion3DWorker(DiffusionTrainer):

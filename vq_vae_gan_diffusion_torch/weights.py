@@ -7,6 +7,8 @@ is this package's own copy:
 
 - Dense kernels [in, out] -> Linear weights [out, in];
 - Conv kernels HWIO -> OIHW (depthwise [3, 3, 1, C] -> [C, 1, 3, 3]);
+  Conv1d kernels [K, I, O] -> [O, I, K];
+- RMSNorm gains [C] -> [1, C, 1];
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var, with ``num_batches_tracked`` 0;
 - the port's GroupNorm keeps its affine under ``.group_norm``, the JAX
@@ -230,6 +232,69 @@ def transformer_predictor_state_from_jax(params: Dict[str, Any]) -> State:
         _dense(out, f"{p}.ffn2", sub["ffn2"])
         i += 1
     _dense(out, "fc", params["fc"])
+    return out
+
+
+def _conv1d(out: State, p: str, sub) -> None:
+    out[f"{p}.weight"] = _t(np.transpose(np.asarray(sub["kernel"]), (2, 1, 0)))
+    if "bias" in sub:
+        out[f"{p}.bias"] = _t(sub["bias"])
+
+
+def _rms(out: State, p: str, sub) -> None:
+    out[f"{p}.g"] = _t(np.asarray(sub["g"]).reshape(1, -1, 1))
+
+
+def _resnet1d(out: State, p: str, sub) -> None:
+    _dense(out, f"{p}.mlp.1", sub["time_proj"])
+    for block in ("block1", "block2"):
+        _conv1d(out, f"{p}.{block}.proj", sub[block]["proj"])
+        _rms(out, f"{p}.{block}.norm", sub[block]["RMSNorm_0"])
+    if "res_conv" in sub:
+        _conv1d(out, f"{p}.res_conv", sub["res_conv"])
+
+
+def _attn1d(out: State, p: str, sub) -> None:
+    _conv1d(out, f"{p}.to_qkv", sub["to_qkv"])
+    if "out_norm" in sub:               # linear attention: to_out = (conv, RMSNorm)
+        _conv1d(out, f"{p}.to_out.0", sub["to_out"])
+        _rms(out, f"{p}.to_out.1", sub["out_norm"])
+    else:
+        _conv1d(out, f"{p}.to_out", sub["to_out"])
+
+
+def unet1d_state_from_jax(params: Dict[str, Any]) -> State:
+    """The JAX Unet1D's params -> the port Unet1D's ``state_dict``. flax
+    adopts the attention modules that ``PreNormResidual`` wraps into the
+    U-Net's own scope (``LinearAttention1D_{n}``, numbered over the downs
+    and then the ups, and ``Attention1D_0``); the last up stage's bare conv
+    sits at ``ups.{i}.3``, the others' behind the upsample at ``ups.{i}.3.1``.
+    A learned or random sinusoid's weights go to ``time_mlp.0.weights``."""
+    out: State = {}
+    _conv1d(out, "init_conv", params["init_conv"])
+    if "sinu" in params:
+        out["time_mlp.0.weights"] = _t(params["sinu"]["weights"])
+    _dense(out, "time_mlp.1", params["time_fc1"])
+    _dense(out, "time_mlp.3", params["time_fc2"])
+    n_lin = 0
+    for kind, stages in (("down", "downs"), ("up", "ups")):
+        n = sum(1 for k in params if k.startswith(kind) and k.endswith("_res1"))
+        for i in range(n):
+            p = f"{stages}.{i}"
+            _resnet1d(out, f"{p}.0", params[f"{kind}{i}_res1"])
+            _resnet1d(out, f"{p}.1", params[f"{kind}{i}_res2"])
+            _rms(out, f"{p}.2.fn.norm", params[f"{kind}{i}_attn"]["RMSNorm_0"])
+            _attn1d(out, f"{p}.2.fn.fn", params[f"LinearAttention1D_{n_lin}"])
+            n_lin += 1
+            last = kind == "up" and i == n - 1
+            _conv1d(out, f"{p}.3" if kind == "down" or last else f"{p}.3.1",
+                    params[f"{kind}{i}_{kind}"])
+    _resnet1d(out, "mid_block1", params["mid_res1"])
+    _rms(out, "mid_attn.fn.norm", params["mid_attn"]["RMSNorm_0"])
+    _attn1d(out, "mid_attn.fn.fn", params["Attention1D_0"])
+    _resnet1d(out, "mid_block2", params["mid_res2"])
+    _resnet1d(out, "final_res_block", params["final_res"])
+    _conv1d(out, "final_conv", params["final_conv"])
     return out
 
 
