@@ -118,10 +118,9 @@ def config_from_dict(data: dict) -> Config:
 # vqgan_transformer/vqvae_transformer as one (train.py:90-175).
 VQ_STAGE1_MODELS = ("vqvae", "vqgan")
 TRANSFORMER_MODELS = ("vqvae_transformer", "vqgan_transformer")
-ALL_MODELS = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + (
+CONTINUOUS_MODELS = ("c_vqdiffusion", "v_vqdiffusion")
+ALL_MODELS = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
     "vqdiffusion",
-    "c_vqdiffusion",
-    "v_vqdiffusion",
     "gaussiandiffusion2d",
     "gaussiandiffusion3d",
     "vae",

@@ -26,7 +26,9 @@ decodes them with the VQVAE and writes ``samples_epoch0.jpg`` under
 pixel-space DDPM's U-Net (its EMA copy in a training checkpoint) and writes
 them, six to a row, as ``samples_epoch0.jpg``; for ``gaussiandiffusion2d``
 it samples 4 images with the Conv1d U-Net (its EMA copy), as the JAX
-worker, and writes ``Generating_epoch000.jpg``. ``--ckpt`` loads a port
+worker, and writes ``Generating_epoch000.jpg``; ``c_vqdiffusion`` and
+``v_vqdiffusion`` sample index grids with their EMA U-Net as the
+``vqdiffusion`` priors do. ``--ckpt`` loads a port
 checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``, a
 training checkpoint included) or a bare prior ``state_dict`` as
 ``tools/export_torch_checkpoint.py`` writes it from an Orbax checkpoint;
@@ -54,14 +56,11 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from .config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
+from .config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config,
+                     validate)
 
 # the ROADMAP slice that ports each family's generation path
-_LATER_SLICES = {
-    "c_vqdiffusion": "slice 7 (other families)",
-    "v_vqdiffusion": "slice 7 (other families)",
-    "vae": "slice 7 (other families)",
-}
+_LATER_SLICES = {"vae": "slice 7 (other families)"}
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -90,7 +89,7 @@ def run(argv: Optional[Sequence[str]] = None,
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + (
+    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
             "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d"):
         where = _LATER_SLICES.get(model_name, "a later slice")
         raise NotImplementedError(
@@ -110,8 +109,8 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
-    from .train import (GaussianDiffusion2DWorker, GaussianDiffusion3DWorker, VQDiffusionWorker,
-                        VQTransformerWorker)
+    from .train import (ContinuousVQDiffusionWorker, GaussianDiffusion2DWorker,
+                        GaussianDiffusion3DWorker, VQDiffusionWorker, VQTransformerWorker)
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -122,6 +121,8 @@ def run(argv: Optional[Sequence[str]] = None,
     if model_name in VQ_STAGE1_MODELS:
         return dict(_reconstruct(config, run_dir, logger, args, str(device)), run_dir=run_dir)
     worker_cls = {"vqdiffusion": VQDiffusionWorker,
+                  "c_vqdiffusion": ContinuousVQDiffusionWorker,
+                  "v_vqdiffusion": ContinuousVQDiffusionWorker,
                   "gaussiandiffusion2d": GaussianDiffusion2DWorker,
                   "gaussiandiffusion3d": GaussianDiffusion3DWorker}.get(model_name,
                                                                         VQTransformerWorker)

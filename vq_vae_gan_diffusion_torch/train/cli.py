@@ -32,7 +32,11 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
   ``Generating_epoch<e>.jpg``;
 - ``gaussiandiffusion3d``: the pixel-space DDPM on the images themselves
   (the ShuffleNet U-Net, mults (2, 4)), OneCycle and EMA as above; the
-  EMA's ``samples_epoch<e>.jpg``.
+  EMA's ``samples_epoch<e>.jpg``;
+- ``c_vqdiffusion`` / ``v_vqdiffusion``: the continuous priors over the
+  frozen VQVAE's codes (indices / K, or codebook rows) with the Conv1d
+  U-Net, Adam and an EMA at 0.999 every step; the EMA's
+  ``samples_epoch<e>.jpg``.
 
 A prior's training checkpoint at ``architecture.<model>.resume_path``
 resumes it at its step. ``--debug`` trains one epoch of two batches of 2
@@ -47,15 +51,13 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from ..config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config, validate
+from ..config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config,
+                      validate)
 
-TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + ("vqdiffusion", "gaussiandiffusion2d",
-                                                   "gaussiandiffusion3d")
+TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
+    "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d")
 # the ROADMAP item that ports each family's training
-_LATER_SLICES = {
-    "c_vqdiffusion": "slice 7 (other families)", "v_vqdiffusion": "slice 7 (other families)",
-    "vae": "slice 7 (other families)",
-}
+_LATER_SLICES = {"vae": "slice 7 (other families)"}
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -92,6 +94,7 @@ def run(argv: Optional[Sequence[str]] = None,
 
     from ..data import load_dataloader
     from ..utils import create_run_dir, resolve_device, setup_logging
+    from .continuous_vq_worker import ContinuousVQDiffusionWorker
     from .gaussian_diffusion_workers import GaussianDiffusion2DWorker, GaussianDiffusion3DWorker
     from .vq_diffusion_worker import VQDiffusionWorker
     from .vq_transformer_worker import VQTransformerWorker
@@ -111,6 +114,8 @@ def run(argv: Optional[Sequence[str]] = None,
         worker_cls = VQTransformerWorker
     elif model_name == "gaussiandiffusion2d":
         worker_cls = GaussianDiffusion2DWorker
+    elif model_name in CONTINUOUS_MODELS:
+        worker_cls = ContinuousVQDiffusionWorker
     else:
         # OneCycle's total steps: epochs x batches an epoch, as the root train.py
         worker_cls = (VQDiffusionWorker if model_name == "vqdiffusion"
