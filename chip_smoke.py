@@ -169,14 +169,50 @@ Phases, each printed as it runs; any failure exits non-zero:
       the card under --fused-posterior on and prng: 23 B6 or 23 B7 launches
       (sample 19, fast_sample 4), indices in the codebook; its trained
       prior's sample with the same noise, posterior kernel against plain
-      ops (at least 99% of indices equal).
+      ops (at least 99% of indices equal);
+  (u) the gaussiandiffusion2d VQ-diffusion prior on
+      configs/inference_config_gaussian2d.yml at full width (the Conv1d
+      U-Net, base 64, mults (1, 2, 4, 8), on the [16, 256, 96] lookup-table
+      state: 256 channels over length 96; 1000 DDIM steps; seeded weights):
+      ``generate`` cold then warm (s a chain, ms a step, peak memory; no
+      hand-written kernel runs on this path: its convolutions are cuDNN's,
+      its products cuBLAS's); one sample's 1000-step chain on the card and
+      on the CPU from the same indices and noise (at least 99% of indices
+      equal); the train CLI in --debug on
+      configs/training_config_gaussian2d.yml; a warm ``train_step`` at
+      batch 20 @ 256x256x3 as the ``{"gaussian2d_train_step": ...}`` JSON
+      line; one step at batch 2 on the card against the CPU and float64,
+      (q)'s rule;
+  (v) the VQ_Official prior on its Conv1d U-Net (unet_dim 2) on
+      configs/inference_config_vqofficial1d.yml at full width (K = 1024
+      channels over 256 positions, K - 1 out), the chain cut to 20 steps as
+      in (j): ``generate`` cold and warm with 19 B6 launches and nothing
+      else, then under --fused-posterior prng with 19 B7; B6 and B7 against
+      their plain versions at this U-Net's logits [16, 256, 1023] (t in {0,
+      1, T/2, T-1}, masked positions), with B6's time beside its plain
+      version's; the kernel route against plain ops over a 20-step chain
+      with the same noise (every index equal); the train CLI in --debug on
+      configs/training_config_vqofficial1d.yml with the hook cut to 20
+      steps (19 B6), and a warm ``train_step`` at batch 20 as
+      ``{"vqofficial1d_train_step": ...}`` with the hook's launches;
+  (w) the pixel gaussiandiffusion2d worker on
+      configs/training_config_pixel2d.yml (28x28x1 images, rows as the
+      Conv1d U-Net's 28 channels, mults (1, 2, 4)): the train CLI in
+      --debug (metrics, a checkpoint, the EMA's 4 samples), the 4 samples'
+      1000-step DDIM chain timed, a warm ``train_step`` at batch 500 as
+      ``{"pixel2d_train_step": ...}``;
+  (x) ``c_vqdiffusion`` and ``v_vqdiffusion`` on
+      configs/training_config_{cvq,vvq}.yml (batch 20 @ 256x256x3, the
+      Conv1d U-Net over 8 or 256 channels and 256 positions): a warm
+      ``train_step`` each and the EMA's 16 samples through the 500-step
+      DDIM chain, decoded, as ``{"continuous_vq_train_step": ...}``.
 
-``--only r,s`` (any of o-t) runs (a), (b) and those training phases alone,
-and prints no kernels line and no result line.
+``--only r,s`` (any of o-x) runs (a), (b) and those phases alone, and
+prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
-(p)-(s) and each run of (t), runs with every kernel's launch count set to 0
-just before it and read just after. Before the last line it prints one JSON line
+(p)-(s), each run of (t) and each run of (u)-(x), runs with every kernel's
+launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -231,6 +267,18 @@ PIXEL_CONFIG, PIXEL_B, PIXEL_HW, PIXEL_MULTS, PIXEL_SAMPLES = (
     "configs/training_config_pixel3d.yml", 500, 28, (2, 4), 36)
 # the VQ_Official prior's training on training_config_vqofficial.yml
 VQO_TRAIN_CONFIG = "configs/training_config_vqofficial.yml"
+# the Conv1d U-Net family at the full widths of training_config_small.yml:
+# the gaussian2d prior, the VQ_Official prior on its Conv1d U-Net, the pixel
+# gaussiandiffusion2d worker (4 samples, as the JAX worker draws), the
+# continuous priors (500 DDIM steps)
+G2D_CONFIG, G2D_TRAIN_CONFIG = ("configs/inference_config_gaussian2d.yml",
+                                "configs/training_config_gaussian2d.yml")
+VQO1D_CONFIG, VQO1D_TRAIN_CONFIG = ("configs/inference_config_vqofficial1d.yml",
+                                    "configs/training_config_vqofficial1d.yml")
+PIXEL2D_CONFIG, PIXEL2D_SAMPLES = "configs/training_config_pixel2d.yml", 4
+CONTINUOUS_CONFIGS = {"c_vqdiffusion": "configs/training_config_cvq.yml",
+                      "v_vqdiffusion": "configs/training_config_vvq.yml"}
+CONTINUOUS_STEPS = 500
 
 
 def phase_device() -> str:
@@ -2246,15 +2294,304 @@ def phase_demo(card: str) -> dict:
     return counted
 
 
+def no_launches(label: str) -> None:
+    """Fails unless no kernel was launched since the counts were set to 0."""
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"({label}) launches {launches}, expected none")
+
+
+def stage2_batch(label: str, config: str, log_dir: str, shape: tuple):
+    """The first batch of ``config``'s train split (synthetic where the data
+    is not on disk), and the config with ``log_dir``."""
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+
+    cfg = load_config(config).replace_path("trainer.log_dir", log_dir)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = next(iter(loader))
+    if batch.shape != shape:
+        raise AssertionError(f"({label}) batch {batch.shape}, expected {shape}")
+    return cfg, loader, batch
+
+
+def phase_gaussian2d(card: str) -> dict:
+    """(u): the gaussian2d prior at full width; returns the step's numbers
+    with the chain's seconds."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch import generate
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import VQDiffusionComposite
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    argv = ["--config", G2D_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    chain = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate.run(argv)
+        total = time.perf_counter() - t0
+        no_launches("u")
+        idx, images = out["indices"], out["images"]
+        if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= 1024:
+            raise AssertionError(f"(u) indices {tuple(idx.shape)} not [16, 256] in [0, 1024)")
+        if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
+            raise AssertionError(f"(u) images {tuple(images.shape)} not finite of [16,256,256,3]")
+        sec = out["seconds"]
+        chain[run] = sec["sample"]
+        print(f"(u) {run}: {STEPS}-step DDIM chain of 16 {sec['sample']:.3f} s "
+              f"({1e3 * sec['sample'] / STEPS:.3f} ms a reverse step: one U-Net forward and the "
+              f"update); VQVAE decode {sec['decode']:.3f} s; total {total:.2f} s; max memory "
+              f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{len(set(idx.flatten().tolist()))} distinct indices; no kernel launch; {card}")
+
+    comp = VQDiffusionComposite(load_config(G2D_CONFIG))
+    comp.unet.init_weights(torch.Generator().manual_seed(31))
+    gen = torch.Generator().manual_seed(32)
+    init = torch.randint(0, 1024, (1, N), generator=gen)
+    noise = [torch.randn(1, N, GAUSSIAN_DIM, generator=gen) for _ in range(STEPS)]
+    idx, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        comp.unet.to(device)
+        comp.prior.to(device)
+        t0 = time.perf_counter()
+        idx[device] = comp.sample(1, init_indices=init.to(device),
+                                  step_noise=[n.to(device) for n in noise]).cpu()
+        secs[device] = time.perf_counter() - t0
+    agree = (idx["cuda"] == idx["cpu"]).float().mean().item()
+    print(f"(u) one sample's {STEPS}-step chain from the same indices and noise, card "
+          f"{secs['cuda']:.2f} s against CPU {secs['cpu']:.2f} s: {100 * agree:.2f}% of {N} "
+          f"indices equal")
+    if agree < 0.99:
+        raise AssertionError(f"(u) card and CPU agree on only {100 * agree:.2f}% of indices")
+    del comp
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_g2d_")
+    run_train_cli("u", G2D_TRAIN_CONFIG, log_dir, {}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"))
+    torch.cuda.empty_cache()
+    cfg, loader, batch = stage2_batch("u", G2D_TRAIN_CONFIG, log_dir, (STAGE2_B, 256, 256, 3))
+    worker = VQDiffusionWorker(cfg, log_dir, device="cuda", num_iters_per_epoch=len(loader))
+    worker.init_state()
+    numbers = stage2_step_times("u", G2D_TRAIN_CONFIG, worker, torch.from_numpy(batch).cuda(),
+                                card)
+    numbers.update({"chain_s_cold": chain["cold"], "chain_s_warm": chain["warm"],
+                    "samples": B, "ddim_steps": STEPS})
+    del worker
+    torch.cuda.empty_cache()
+    b = 2
+    g = torch.Generator().manual_seed(34)
+    diffusion_step_against_cpu(
+        "u", lambda device: VQDiffusionWorker(cfg, log_dir, device=device), batch[:b],
+        torch.randint(0, STEPS, (b,), generator=g), torch.randn(b, N, GAUSSIAN_DIM, generator=g),
+        {"loss": 1e-4}, card, indices=lambda w, x: w.composite.encode_to_z(x))
+    shutil.rmtree(log_dir)
+    return numbers
+
+
+def phase_vqofficial1d(card: str) -> dict:
+    """(v): the VQ_Official prior on its Conv1d U-Net at full width, the
+    chain cut to 20 steps; returns the step's numbers with the launches of
+    each run."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch import generate
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import VQDiffusionComposite
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, fused_posterior_sample_prng, gather_posterior_coefs,
+        gumbel_from_bits, gumbel_from_uniform, philox_bits, posterior_scores,
+        reference_posterior_sample)
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+
+    steps_path = "architecture.vqdiffusion.sampling_steps"
+    argv = ["--config", VQO1D_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    counted = {}
+    for run, mode, name in (("cold", "on", "discrete_posterior"),
+                            ("warm", "on", "discrete_posterior"),
+                            ("prng", "prng", "discrete_posterior_prng")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate.run(argv + ["--fused-posterior", mode], overrides={steps_path: VQO_STEPS})
+        total = time.perf_counter() - t0
+        launches = read_counts()
+        want = {k: (VQO_STEPS - 1 if k == name else 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"(v) {run}: launches {launches}, expected {want}")
+        idx, images = out["indices"], out["images"]
+        if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= VQO_K:
+            raise AssertionError(f"(v) indices {tuple(idx.shape)} not [16, 256] in [0, 1024)")
+        if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
+            raise AssertionError(f"(v) images {tuple(images.shape)} not finite of [16,256,256,3]")
+        counted[run] = launches[name]
+        sec = out["seconds"]
+        print(f"(v) {run} (--fused-posterior {mode}): {launches[name]} {name} launches and no "
+              f"other; {VQO_STEPS}-step chain {sec['sample']:.3f} s "
+              f"({1e3 * sec['sample'] / VQO_STEPS:.3f} ms a reverse step); VQVAE decode "
+              f"{sec['decode']:.3f} s; total {total:.2f} s; max memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+
+    cfg = load_config(VQO1D_CONFIG).replace_path(steps_path, VQO_STEPS)
+    comp = VQDiffusionComposite(cfg)
+    comp.unet.init_weights(torch.Generator().manual_seed(35))
+    comp.unet.cuda()
+    prior = comp.bind()
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    shape = (B, N, VQO_K)
+    gumbel = gumbel_from_uniform(torch.rand(shape, generator=gen, device="cuda"))
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B, 2), dtype=torch.int32, generator=gen,
+                          device="cuda")
+    x_t = torch.randint(0, VQO_K, (B, N), generator=gen, device="cuda")
+    x_t[:, ::5] = VQO_K - 1
+    gaps = {"discrete_posterior": 0.0, "discrete_posterior_prng": 0.0}
+    for t in (0, 1, VQO_T // 2, VQO_T - 1):
+        tt = torch.full((B,), t, device="cuda")
+        with torch.no_grad():
+            logits = prior._raw_logits_idx(x_t, tt)
+        coefs = gather_posterior_coefs(prior._s(logits.device), tt, VQO_T)
+        for name, fn, noise, g in (
+                ("discrete_posterior", fused_posterior_sample, gumbel, gumbel),
+                ("discrete_posterior_prng", fused_posterior_sample_prng, seeds,
+                 gumbel_from_bits(philox_bits(seeds, N, VQO_K)))):
+            got = fn(logits, x_t, coefs, noise)
+            torch.cuda.synchronize()
+            gaps[name] = max(gaps[name], check_indices(f"(v) {name} t={t}", got,
+                                                       posterior_scores(logits, x_t, coefs, g, 0)))
+    ms = cuda_ms(lambda: fused_posterior_sample(logits, x_t, coefs, gumbel), reps=50)
+    plain_ms = cuda_ms(lambda: reference_posterior_sample(logits, x_t, coefs, gumbel), reps=5)
+    print(f"(v) B6 and B7 at this U-Net's logits {list(logits.shape)}, t in {{0, 1, "
+          f"{VQO_T // 2}, {VQO_T - 1}}}: every check passes, max score gap "
+          f"{max(gaps.values()):.3e}; B6 {ms:.4f} ms a call, plain {plain_ms:.4f} ms; {card}")
+    u = torch.rand(shape, generator=gen, device="cuda")
+    step_gumbel = [gumbel_from_uniform(torch.rand(shape, generator=gen, device="cuda"))
+                   for _ in range(VQO_STEPS)]
+    idx = {}
+    for mode in (True, False):
+        comp.fused_posterior = mode
+        idx[mode] = comp.sample(B, init_uniform=u, step_gumbel=step_gumbel)
+    same = int((idx[True] == idx[False]).sum())
+    print(f"(v) {VQO_STEPS}-step chain, same noise, fused_posterior on against off: {same} of "
+          f"{idx[True].numel()} indices equal")
+    if same != idx[True].numel():
+        raise AssertionError("(v) the kernel route and plain ops sampled different indices")
+    del comp, prior, logits
+    torch.cuda.empty_cache()
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_vqo1d_")
+    hook = {"discrete_posterior": VQO_STEPS - 1}
+    run_train_cli("v", VQO1D_TRAIN_CONFIG, log_dir, hook, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"),
+                  overrides={steps_path: VQO_STEPS})
+    torch.cuda.empty_cache()
+    cfg, loader, batch = stage2_batch("v", VQO1D_TRAIN_CONFIG, log_dir, (STAGE2_B, 256, 256, 3))
+    worker = VQDiffusionWorker(cfg, log_dir, device="cuda", num_iters_per_epoch=len(loader))
+    worker.init_state()
+    numbers = stage2_step_times("v", VQO1D_TRAIN_CONFIG, worker, torch.from_numpy(batch).cuda(),
+                                card)
+    numbers.update({"hook_launches": hook, "generate_launches": counted,
+                    "b6_ms": ms, "b6_plain_ms": plain_ms})
+    del worker
+    torch.cuda.empty_cache()
+    shutil.rmtree(log_dir)
+    return numbers
+
+
+def phase_pixel2d(card: str) -> dict:
+    """(w): the pixel gaussiandiffusion2d worker on 28x28x1; returns the
+    step's numbers with the samples' seconds."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.train.gaussian_diffusion_workers import (
+        GaussianDiffusion2DWorker)
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_pixel2d_")
+    out = run_train_cli("w", PIXEL2D_CONFIG, log_dir, {}, ("Generating_epoch000.jpg",))
+    worker = out["worker"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    images = worker.sample()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    no_launches("w")
+    if tuple(images.shape) != (PIXEL2D_SAMPLES, PIXEL_HW, PIXEL_HW) or \
+            not torch.isfinite(images).all():
+        raise AssertionError(f"(w) samples {tuple(images.shape)} not finite of "
+                             f"[{PIXEL2D_SAMPLES}, {PIXEL_HW}, {PIXEL_HW}]")
+    print(f"(w) the EMA's {PIXEL2D_SAMPLES} samples: {STEPS}-step DDIM chain {sample_s:.3f} s "
+          f"({1e3 * sample_s / STEPS:.3f} ms a reverse step); values in "
+          f"[{images.min().item():.3f}, {images.max().item():.3f}]; {card}")
+    del out, worker
+    torch.cuda.empty_cache()
+    cfg, _, batch = stage2_batch("w", PIXEL2D_CONFIG, log_dir, (PIXEL_B, PIXEL_HW, PIXEL_HW, 1))
+    worker = GaussianDiffusion2DWorker(cfg, log_dir, device="cuda")
+    worker.init_state()
+    numbers = stage2_step_times("w", PIXEL2D_CONFIG, worker, torch.from_numpy(batch).cuda(),
+                                card)
+    numbers.update({"samples": PIXEL2D_SAMPLES, "sample_s": sample_s, "ddim_steps": STEPS})
+    del worker
+    torch.cuda.empty_cache()
+    shutil.rmtree(log_dir)
+    return numbers
+
+
+def phase_continuous(card: str) -> dict:
+    """(x): c_vqdiffusion and v_vqdiffusion at full width; returns each
+    model's step numbers with its samples' seconds."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.train.continuous_vq_worker import (
+        ContinuousVQDiffusionWorker)
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_cvq_")
+    numbers = {}
+    for model, config in CONTINUOUS_CONFIGS.items():
+        cfg, _, batch = stage2_batch("x", config, log_dir, (STAGE2_B, 256, 256, 3))
+        worker = ContinuousVQDiffusionWorker(cfg, log_dir, device="cuda")
+        worker.init_state()
+        steps = min(worker.composite.sampling_timesteps, CONTINUOUS_STEPS)
+        if steps != CONTINUOUS_STEPS:
+            raise AssertionError(f"(x) {model}: {steps} DDIM steps")
+        numbers[model] = stage2_step_times("x", config, worker, torch.from_numpy(batch).cuda(),
+                                           card)
+        reset_counts()
+        out = worker.generate_images(n_samples=B)
+        no_launches("x")
+        idx, images = out["indices"], out["images"]
+        if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= 1024:
+            raise AssertionError(f"(x) {model}: indices {tuple(idx.shape)} not [16, 256] in "
+                                 "[0, 1024)")
+        if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
+            raise AssertionError(f"(x) {model}: images {tuple(images.shape)} not finite")
+        sec = out["seconds"]
+        numbers[model].update({"samples": B, "ddim_steps": steps, "sample_s": sec["sample"],
+                               "decode_s": sec["decode"]})
+        print(f"(x) {model}: the EMA's {B} samples, {steps}-step DDIM chain {sec['sample']:.3f} s "
+              f"({1e3 * sec['sample'] / steps:.3f} ms a reverse step), VQVAE decode "
+              f"{sec['decode']:.3f} s; {len(set(idx.flatten().tolist()))} distinct indices; "
+              f"{card}")
+        del worker
+        torch.cuda.empty_cache()
+    shutil.rmtree(log_dir)
+    return numbers
+
+
 def training_phases() -> dict:
-    """The training phases, each on its own, by label: each prints its JSON
-    line."""
+    """The training phases and the Conv1d U-Net family's, each on its own, by
+    label: each prints its JSON line."""
     return {"o": lambda card: print(json.dumps({"vqgan_train_step": phase_train(card)})),
             "p": lambda card: print(json.dumps({"gpt_train_step": phase_gpt_train(card)})),
             "q": lambda card: print(json.dumps({"vqd_train_step": phase_vqd_train(card)})),
             "r": lambda card: print(json.dumps({"pixel3d_train_step": phase_pixel_train(card)})),
             "s": lambda card: print(json.dumps({"vqofficial_train_step": phase_vqo_train(card)})),
-            "t": phase_demo}
+            "t": phase_demo,
+            "u": lambda card: print(json.dumps({"gaussian2d_train_step": phase_gaussian2d(card)})),
+            "v": lambda card: print(json.dumps({"vqofficial1d_train_step":
+                                                phase_vqofficial1d(card)})),
+            "w": lambda card: print(json.dumps({"pixel2d_train_step": phase_pixel2d(card)})),
+            "x": lambda card: print(json.dumps({"continuous_vq_train_step":
+                                                phase_continuous(card)}))}
 
 
 def main(argv=None) -> int:

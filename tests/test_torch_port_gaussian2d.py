@@ -277,7 +277,8 @@ def test_composite_loss_matches_jax(composites):
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
     assert set(metrics) == set(want_metrics)
     for k in want_metrics:
-        np.testing.assert_allclose(float(metrics[k]), float(want_metrics[k]), rtol=1e-5, err_msg=k)
+        np.testing.assert_allclose(float(metrics[k].detach()), float(want_metrics[k]), rtol=1e-5,
+                                   err_msg=k)
 
 
 def test_composite_sample_matches_jax(composites):

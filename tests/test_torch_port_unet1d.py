@@ -25,6 +25,7 @@ from vq_vae_gan_diffusion_torch.diffusion import gaussian as tg
 from vq_vae_gan_diffusion_torch.models import unet1d as tu
 from vq_vae_gan_diffusion_torch.weights import unet1d_state_from_jax
 from vq_vae_gan_diffusion_tpu.diffusion import gaussian as jg
+from vq_vae_gan_diffusion_tpu.models.unet1d import RMSNorm as JaxRMSNorm
 from vq_vae_gan_diffusion_tpu.models.unet1d import Unet1D as JaxUnet1D
 from vq_vae_gan_diffusion_tpu.utils.torch_export import export_unet1d
 
@@ -148,14 +149,10 @@ def test_rmsnorm_is_not_f_normalize():
     column stays zero and a tiny one is scaled up, as in JAX."""
     x = torch.tensor([[[0.0, 1e-9, 3.0], [0.0, 0.0, 4.0]]])
     got = tu.RMSNorm(2)(x)
-    want = jax.jit(lambda x: jg_rms(x))(jnp.asarray(x.transpose(1, 2).numpy()))
+    want = JaxRMSNorm().apply({"params": {"g": jnp.ones((2,))}},
+                              jnp.asarray(x.transpose(1, 2).numpy()))
     np.testing.assert_allclose(got.detach().transpose(1, 2).numpy(), np.asarray(want),
                                rtol=1e-6, atol=0)
-
-
-def jg_rms(x):
-    from vq_vae_gan_diffusion_tpu.models.unet1d import RMSNorm
-    return RMSNorm().apply({"params": {"g": jnp.ones((x.shape[-1],))}}, x)
 
 
 # -- the Gaussian functions -------------------------------------------------------------

@@ -159,7 +159,8 @@ def diffusion_loss(sched: GaussianSchedule, model_fn: ModelFn, x0, condition, t,
         target = predict_v(sched, x0, t, noise)
     else:
         raise ValueError(objective)
-    return torch.mean((out.float() - target.float()) ** 2), x_t
+    dtype = torch.promote_types(torch.promote_types(out.dtype, target.dtype), torch.float32)
+    return torch.mean((out.to(dtype) - target.to(dtype)) ** 2), x_t
 
 
 def _step_noise(i: int, x: torch.Tensor, generator: Optional[torch.Generator],

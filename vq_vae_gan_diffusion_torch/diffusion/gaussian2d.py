@@ -95,13 +95,12 @@ class GaussianDiffusion2D(nn.Module):
     """The process around ``model_fn(x [B, C, L], self_cond, t)``; the lookup
     table is a buffer (not saved: it is drawn again, as in JAX)."""
 
-    def __init__(self, cfg: GaussianDiffusion2DConfig, model_fn: Optional[ModelFn] = None,
-                 lookup_seed: int = 0):
+    def __init__(self, cfg: GaussianDiffusion2DConfig, model_fn: Optional[ModelFn] = None):
         super().__init__()
         self.cfg = cfg
         self.model_fn = model_fn
         self.sched = make_schedule(cfg.timesteps, "cosine")
-        table = (torch.from_numpy(jax_uniform(lookup_seed, (cfg.vocab_size, cfg.gaussian_dim)))
+        table = (torch.from_numpy(jax_uniform(0, (cfg.vocab_size, cfg.gaussian_dim)))
                  if cfg.diffusion_type == "vqdiffusion" else None)
         self.register_buffer("lookup_table", table, persistent=False)
 
@@ -164,7 +163,7 @@ class GaussianDiffusion2D(nn.Module):
             else:
                 x_self_cond = torch.zeros_like(x_t)
         out = self.model_fn(x_t, x_self_cond, t)
-        per = torch.mean((out.float() - noise) ** 2, dim=tuple(range(1, out.dim())))
+        per = torch.mean((out.to(noise.dtype) - noise) ** 2, dim=tuple(range(1, out.dim())))
         return torch.mean(per)
 
     # -- sampling --------------------------------------------------------------------

@@ -24,7 +24,7 @@ for the loss, ``x_T`` and ``step_noise`` for the sampler).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -67,11 +67,6 @@ class _ContinuousVQBase(nn.Module):
     @torch.no_grad()
     def z_to_image(self, indices: torch.Tensor) -> torch.Tensor:
         return self.vqvae.decode_indices(indices)
-
-    @torch.no_grad()
-    def log_images(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = x[:4]
-        return {"input": x, "rec": self.z_to_image(self.encode_to_z(x))}
 
     def _channels(self, dcfg: Config) -> int:
         """The U-Net's channels: the width of the diffused state."""

@@ -11,14 +11,16 @@ over their [B, C, L] tensors as they are.
 - ResnetBlock with FiLM scale-shift ``x * (scale + 1) + shift`` in its first
   block;
 - linear attention (softmax of q over its features, of k over positions) in
-  every stage, full attention at the bottleneck, softmax in float32;
+  every stage, full attention at the bottleneck;
 - four down stages (two ResnetBlocks, attention, a kernel-4 stride-2 conv;
   the last stage a 3-wide conv), a middle, four up stages with two skip
   concatenations each (nearest x2 and a 3-wide conv; the last stage a bare
   3-wide conv), the input of the U-Net concatenated before the final block.
 
 With ``self_condition`` or ``condition`` a second input of x's shape (zeros
-when not given) is concatenated ahead of x.
+when not given) is concatenated ahead of x. RMSNorm and the softmaxes
+compute in float32 at least (float64 stays float64, so a float64 forward
+is float64 throughout).
 
 The parameter names are the reference ``state_dict``'s, as
 ``utils/torch_export.py::export_unet1d`` of the JAX package writes them
@@ -35,13 +37,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.g = nn.Parameter(torch.ones(1, dim, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = _at_least_f32(x)
         normed = x32 * torch.rsqrt(torch.sum(x32 * x32, dim=1, keepdim=True) + 1e-12)
         return (normed * self.g * math.sqrt(x.shape[1])).to(x.dtype)
 
@@ -51,11 +57,11 @@ class SinusoidalPosEmb(nn.Module):
         super().__init__()
         self.dim, self.theta = dim, theta
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         half = self.dim // 2
-        freqs = torch.exp(torch.arange(half, device=t.device, dtype=torch.float32)
+        freqs = torch.exp(torch.arange(half, device=t.device, dtype=dtype)
                           * (-math.log(self.theta) / (half - 1)))
-        args = t.float()[:, None] * freqs[None, :]
+        args = t.to(dtype)[:, None] * freqs[None, :]
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
@@ -67,9 +73,10 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
         super().__init__()
         self.weights = nn.Parameter(torch.randn(dim // 2), requires_grad=not is_random)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
-        freqs = t.float()[:, None] * self.weights[None, :] * 2 * math.pi
-        return torch.cat([t.float()[:, None], torch.sin(freqs), torch.cos(freqs)], dim=-1)
+    def forward(self, t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        t = t.to(dtype)[:, None]
+        freqs = t * self.weights[None, :].to(dtype) * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
 
 
 class ConvBlock(nn.Module):
@@ -121,8 +128,8 @@ class LinearAttention1D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, n = x.shape
         q, k, v = (_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=1))
-        q = torch.softmax(q.float(), dim=2).to(x.dtype) * self.scale
-        k = torch.softmax(k.float(), dim=3).to(x.dtype)
+        q = torch.softmax(_at_least_f32(q), dim=2).to(x.dtype) * self.scale
+        k = torch.softmax(_at_least_f32(k), dim=3).to(x.dtype)
         context = torch.einsum("bhdn,bhen->bhde", k, v)
         out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(b, -1, n)
         return self.to_out(out)
@@ -140,7 +147,7 @@ class Attention1D(nn.Module):
         b, _, n = x.shape
         q, k, v = (_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=1))
         sim = torch.einsum("bhdi,bhdj->bhij", q * self.scale, k)
-        attn = torch.softmax(sim.float(), dim=-1).to(x.dtype)
+        attn = torch.softmax(_at_least_f32(sim), dim=-1).to(x.dtype)
         out = torch.einsum("bhij,bhdj->bhdi", attn, v).reshape(b, -1, n)
         return self.to_out(out)
 
@@ -252,7 +259,9 @@ class Unet1D(nn.Module):
                           dim=1)
         x = self.init_conv(x)
         r = x
-        t = self.time_mlp(time)
+        # the time embedding in the MLP's dtype, float32 at least
+        dtype = torch.promote_types(self.time_mlp[1].weight.dtype, torch.float32)
+        t = self.time_mlp[1:](self.time_mlp[0](time, dtype).to(self.time_mlp[1].weight.dtype))
         hs = []
         for block1, block2, attn, down in self.downs:
             x = block1(x, t)

@@ -117,20 +117,18 @@ class VQDiffusionComposite(nn.Module):
         unet = self.unet if unet is None else unet
         if isinstance(unet, Unet1D):
             unet.eval()
-
-            def fwd(x, t, self_cond=None):
-                return unet(x, self_cond, t)
-        else:
-            fwd = eval_forward(unet, self.fused_sampler, self.dtype)
-        return self._bind(fwd)
+            return self._bind(lambda x, t: unet(x, None, t))
+        return self._bind(eval_forward(unet, self.fused_sampler, self.dtype))
 
     def _bind(self, fwd):
-        """The prior with the U-Net forward ``fwd(x, t[, self_cond])`` bound."""
-        if self.diffusion_type == "gaussiandiffusion3d":
-            self.prior.diffusion.model_fn = lambda x, self_cond, t: fwd(x, t)
-            return self.prior
-        if self.diffusion_type == "gaussiandiffusion2d":
-            self.prior.model_fn = lambda x, self_cond, t: fwd(x, t, self_cond)
+        """The prior with the U-Net forward ``fwd(x, t)`` bound (no Gaussian
+        prior of the composite self-conditions)."""
+        if self.diffusion_type != "VQ_Official":
+            model_fn = lambda x, self_cond, t: fwd(x, t)              # noqa: E731
+            if self.diffusion_type == "gaussiandiffusion3d":
+                self.prior.diffusion.model_fn = model_fn
+            else:
+                self.prior.model_fn = model_fn
             return self.prior
         self.prior.model_fn = self._discrete_model_fn(fwd, isinstance(self.unet, Unet1D))
         mode = self.fused_posterior
@@ -188,7 +186,7 @@ class VQDiffusionComposite(nn.Module):
         history ``lt``; the Gaussian priors return it as it came (None)."""
         indices = self.encode_to_z(x)
         unet = self.unet.train()
-        prior = self._bind(lambda x_t, tt, self_cond=None: unet(x_t, self_cond, tt))
+        prior = self._bind(lambda x_t, tt: unet(x_t, None, tt))
         if self.diffusion_type == "VQ_Official":
             return prior.train_loss(indices, lt, generator, t=t, gumbel=noise)
         if self.diffusion_type == "gaussiandiffusion2d":

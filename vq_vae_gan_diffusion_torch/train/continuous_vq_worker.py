@@ -27,14 +27,13 @@ import torch
 from ..checkpoint import read_training_checkpoint, restore
 from ..config import Config
 from ..models.continuous_vq import C_VQDiffusion, V_VQDiffusion
-from ..utils.ema import ema_update
-from .base import ServingWorker, TrainingWorker, maybe_accumulate
-from .diffusion_trainer import DiffusionState
+from .base import ServingWorker, maybe_accumulate
+from .diffusion_trainer import DiffusionState, DiffusionTrainer
 
 EMA_DECAY = 0.999
 
 
-class ContinuousVQDiffusionWorker(TrainingWorker, ServingWorker):
+class ContinuousVQDiffusionWorker(DiffusionTrainer, ServingWorker):
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
                  device: Optional[str] = None):
@@ -96,8 +95,7 @@ class ContinuousVQDiffusionWorker(TrainingWorker, ServingWorker):
 
     def load_checkpoint_tree(self, tree: Dict[str, Any]) -> None:
         self.composite.vqvae.load_state_dict(tree["state"]["vqvae"], strict=True)
-        self.state.load_state_dict(tree["state"])
-        self.global_step = int(tree["step"])
+        super().load_checkpoint_tree(tree)
 
     # -- the step ------------------------------------------------------------
     def train_step(self, state: DiffusionState, batch,
@@ -107,13 +105,7 @@ class ContinuousVQDiffusionWorker(TrainingWorker, ServingWorker):
         ``noise`` come from ``generator`` unless given."""
         imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
         loss = self.composite.loss(imgs, generator, t=t, noise=noise)
-        state.opt.zero_grad()
-        loss.backward()
-        state.opt.step()
-        if getattr(state.opt, "mini_step", 0) == 0:
-            state.updates += 1
-        ema_update(state.ema, state.unet, EMA_DECAY)
-        state.step += 1
+        self._step(state, loss, EMA_DECAY, 1)
         return state, {"loss": loss.detach()}
 
     # -- artifacts -------------------------------------------------------------

@@ -67,7 +67,9 @@ class DiffusionState:
 
 
 class DiffusionTrainer(TrainingWorker):
-    """A training worker whose state is a :class:`DiffusionState`."""
+    """A training worker whose state is a :class:`DiffusionState`; the
+    OneCycle-scheduled workers call :meth:`_setup_schedule` and
+    :meth:`_update`, the others :meth:`_step`."""
 
     def _setup_schedule(self, tr: Config, num_iters_per_epoch: int, beta2: float) -> None:
         """The OneCycle schedule, the EMA cadence and decay and beta2 from the
@@ -105,20 +107,28 @@ class DiffusionTrainer(TrainingWorker):
         self.global_step = int(tree["step"])
 
     def _update(self, state: DiffusionState, loss: torch.Tensor) -> None:
-        """Backward of ``loss``, one optimizer step at the schedule's lr and
-        beta1, and the EMA (parameters and statistics) on its steps; moves
-        the step count."""
+        """:meth:`_step` at the schedule's lr and beta1, the EMA on its
+        cadence."""
         opt = state.opt.opt if isinstance(state.opt, MultiSteps) else state.opt
         for group in opt.param_groups:
             group["lr"] = self.lr_fn(state.updates)
             group["betas"] = (self.b1_fn(state.updates), group["betas"][1])
+        self._step(state, loss, self.ema_decay, self.model_ema_steps)
+
+    @staticmethod
+    def _step(state: DiffusionState, loss: torch.Tensor, ema_decay: float,
+              ema_every: int) -> None:
+        """Backward of ``loss`` and one optimizer step; on steps whose count
+        before the step is a multiple of ``ema_every`` the EMA's parameters
+        move by ``ema_decay`` and its buffers (BatchNorm statistics) are
+        copied; moves the step count."""
         state.opt.zero_grad()
         loss.backward()
         state.opt.step()
         if getattr(state.opt, "mini_step", 0) == 0:
             state.updates += 1
-        if state.step % self.model_ema_steps == 0:
-            ema_update(state.ema, state.unet, self.ema_decay)
+        if state.step % ema_every == 0:
+            ema_update(state.ema, state.unet, ema_decay)
             with torch.no_grad():
                 for e, b in zip(state.ema.buffers(), state.unet.buffers()):
                     e.copy_(b)

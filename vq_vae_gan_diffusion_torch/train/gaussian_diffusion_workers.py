@@ -49,7 +49,7 @@ from __future__ import annotations
 import copy
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -62,9 +62,8 @@ from ..models.shuffle_infer import eval_forward
 from ..models.unet1d import Unet1D
 from ..models.unet_shuffle import ShuffleUNet
 from ..utils import make_grid, save_image
-from ..utils.ema import ema_update
 from ..utils.init_utils import torch_like_reinit
-from .base import ClipByGlobalNorm, TrainingWorker, maybe_accumulate
+from .base import ClipByGlobalNorm, maybe_accumulate
 from .diffusion_trainer import DiffusionState, DiffusionTrainer
 
 DIM_MULTS = (2, 4)          # the reference train.py's U-Net for this worker
@@ -72,7 +71,7 @@ TIME_EMBEDDING_DIM = 256
 ADAMW_BETA2 = 0.999
 
 
-class GaussianDiffusion2DWorker(TrainingWorker):
+class GaussianDiffusion2DWorker(DiffusionTrainer):
     model_name = "gaussiandiffusion2d"
     ema_decay, ema_every, n_samples, clip_norm = 0.9999, 10, 4, 1.0
 
@@ -131,13 +130,6 @@ class GaussianDiffusion2DWorker(TrainingWorker):
         elif restore(path, {"unet": self.state.unet}, self.logger, "gaussiandiffusion2d"):
             self.state.ema.load_state_dict(self.state.unet.state_dict())
 
-    def checkpoint_tree(self) -> Dict[str, Any]:
-        return {"state": self.state.state_dict(), "step": self.global_step}
-
-    def load_checkpoint_tree(self, tree: Dict[str, Any]) -> None:
-        self.state.load_state_dict(tree["state"])
-        self.global_step = int(tree["step"])
-
     # -- the step ------------------------------------------------------------
     def train_step(self, state: DiffusionState, batch,
                    generator: Optional[torch.Generator] = None, *,
@@ -150,14 +142,7 @@ class GaussianDiffusion2DWorker(TrainingWorker):
         unet = state.unet.train()
         self.process.model_fn = lambda x, self_cond, tt: unet(x, self_cond, tt)
         loss = self.process.loss(x0, generator, t=t, noise=noise)
-        state.opt.zero_grad()
-        loss.backward()
-        state.opt.step()
-        if getattr(state.opt, "mini_step", 0) == 0:
-            state.updates += 1
-        if state.step % self.ema_every == 0:
-            ema_update(state.ema, state.unet, self.ema_decay)
-        state.step += 1
+        self._step(state, loss, self.ema_decay, self.ema_every)
         return state, {"loss": loss.detach()}
 
     # -- artifacts -------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Stage-2 diffusion worker (PyTorch counterpart of the JAX
 ``train/vq_diffusion_worker.py``): a diffusion prior over the codes of a
-frozen VQVAE, trained and served (gaussian3d, VQ_Official).
+frozen VQVAE, trained and served (gaussian3d, gaussian2d, VQ_Official on
+the ShuffleNet or the Conv1d U-Net).
 
 One step, as the JAX step computes it:
 
@@ -12,12 +13,13 @@ One step, as the JAX step computes it:
 
 The metrics are gaussian3d's ``noise_mse`` and ``indices_recon`` (where
 the config computes it), or VQ_Official's ``vb_loss``, ``kl`` and
-``decoder_nll``, and ``loss``. ``log_artifacts`` writes the inputs over
+``decoder_nll``, and ``loss`` (gaussian2d's only metric). ``log_artifacts`` writes the inputs over
 their reconstructions (``recon_epoch{e}_{i}.jpg``); checkpoints hold the
 frozen VQVAE, the U-Net, its EMA copy, the optimizer, the step, the count
 of updates and VQ_Official's importance-sampling history (``lt``).
 ``generate_images`` samples the EMA copy, as the JAX worker does, through
-the BN-folded kernel route unless ``fused_sampler`` is off, and writes the
+the BN-folded kernel route for a ShuffleNet U-Net unless ``fused_sampler``
+is off (the Conv1d U-Net runs as its module), and writes the
 filmstrip where ``return_all_timestamps`` is set. VQ_Official
 indices are not clamped, as in the JAX worker: the mask class K-1 is also
 a codebook index.
@@ -83,7 +85,7 @@ class VQDiffusionWorker(DiffusionTrainer, ServingWorker):
     def load(self, path: str) -> None:
         """Load a diffusion training checkpoint of this worker whole, or a port
         bundle (``torch.save({"vqvae": ..., "unet": ...})``) or a bare
-        ShuffleNet-denoiser or VQVAE ``state_dict`` as
+        U-Net-denoiser (ShuffleNet or Conv1d) or VQVAE ``state_dict`` as
         ``tools/export_torch_checkpoint.py`` writes it (``--ema`` gives the
         weights the JAX worker samples with) into the U-Net and its EMA
         copy alike; a path where nothing exists only warns, any other
