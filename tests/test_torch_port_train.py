@@ -284,6 +284,10 @@ def test_train_cli_refusals(tmp_path, tiny_config, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.run(["--config", config, "--debug"])
-    _, tcfg = _configs(tiny_config, dataset__dataset_name="cifar10")
-    with pytest.raises(NotImplementedError, match="cifar10 reader"):
-        t_load_dataloader(None, "train", config=tcfg)
+    _, tcfg = _configs(tiny_config, dataset__dataset_name="cifar10",
+                       dataset__data_root=str(tmp_path / "none"),
+                       dataset__img_size={"cifar10": 32}, dataset__img_channels={"cifar10": 3},
+                       dataset__batch_size={"vqvae": {"cifar10": 8}})
+    loader, dataset = t_load_dataloader(None, "train", config=tcfg)
+    batch = next(iter(loader))
+    assert isinstance(dataset, tds.SyntheticDataset) and batch.shape == (8, 32, 32, 3)

@@ -7,6 +7,10 @@ As the JAX package's:
 - the batch size from the ``batch_size[model][dataset]`` table;
 - MNIST: 4000 train / 1000 val samples, the train split shuffled with its
   last short batch dropped;
+- CIFAR-10, Oxford102 and InterHand26M: with ``dataset.subset``, 10 x batch
+  train / 4 x batch val samples; the folder datasets' train split
+  augmented (flips and rotation), each sample from a numpy generator
+  seeded by (seed, epoch, index), the epoch counted from 1;
 - where the dataset is not on disk, a warning and :class:`SyntheticDataset`
   of 64 (train) or 16 (val) x max(1, batch // 8) images, or the config's
   ``max_{train,val}_samples``.
@@ -24,13 +28,11 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..config import Config, resolve_batch_size, resolve_img_channels, resolve_img_size
-from .datasets import ArrayDataset, MNISTDataset, SyntheticDataset
+from .datasets import (ArrayDataset, CIFAR10Dataset, InterHand26MDataset, MNISTDataset,
+                       OxfordFlowersDataset, SyntheticDataset)
 from .transforms import Preprocessor
 
 log = logging.getLogger(__name__)
-
-# the ROADMAP item that ports each reader still missing
-_LATER_READERS = {"cifar10": "A5", "Oxford102Flower": "A5", "InterHand26M": "A5"}
 
 
 class DataLoader:
@@ -64,7 +66,8 @@ class DataLoader:
         self._epoch += 1
 
         def fetch(i: int) -> np.ndarray:
-            return self.preprocess(self.dataset.get_image(int(i)))
+            rng = np.random.default_rng((self.seed, self._epoch, int(i)))
+            return self.preprocess(self.dataset.get_image(int(i)), rng)
 
         with ThreadPoolExecutor(self.num_threads) as pool:
             for start in range(0, self.n, self.batch_size):
@@ -83,14 +86,12 @@ def load_dataloader(name: Optional[str] = None, split: str = "train",
         raise ValueError("load_dataloader needs a config")
     logger = logger or log
     name = name or config.dataset.dataset_name
-    if name in _LATER_READERS:
-        raise NotImplementedError(f"the {name} reader is not ported yet: see ROADMAP.md, "
-                                  f"{_LATER_READERS[name]}")
     img_size = resolve_img_size(config)
     channels = resolve_img_channels(config)
     batch_size = resolve_batch_size(config)
     num_threads = int(config.trainer.get("num_workers", 4) or 1)
     mean, std = list(config.dataset.mean), list(config.dataset.std)
+    subset = bool(config.dataset.get("subset", False))
     train = split == "train"
     root = config.dataset.get("data_root", "data")
 
@@ -100,10 +101,19 @@ def load_dataloader(name: Optional[str] = None, split: str = "train",
             dataset = MNISTDataset(root, train=train)
             prep = Preprocessor(img_size, (0.5,), (0.5,), grayscale=True)
             max_samples = 4000 if train else 1000
+        elif name == "cifar10":
+            dataset = CIFAR10Dataset(root, train=train)
+            prep = Preprocessor(img_size, (0.1307,), (0.3081,))
+        elif name in ("Oxford102Flower", "InterHand26M"):
+            reader = OxfordFlowersDataset if name == "Oxford102Flower" else InterHand26MDataset
+            dataset = reader(root, split)
+            prep = Preprocessor(img_size, mean, std, augment=train)
         elif name == "synthetic":
             raise FileNotFoundError("synthetic requested explicitly")
         else:
             raise ValueError(f"unknown dataset {name!r}")
+        if subset and name != "mnist":
+            max_samples = 10 * batch_size if train else 4 * batch_size
     except FileNotFoundError as e:
         if name != "synthetic":
             logger.warning("dataset %s unavailable (%s); using synthetic fallback", name, e)
