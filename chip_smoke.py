@@ -205,13 +205,20 @@ Phases, each printed as it runs; any failure exits non-zero:
       configs/training_config_{cvq,vvq}.yml (batch 20 @ 256x256x3, the
       Conv1d U-Net over 8 or 256 channels and 256 positions): a warm
       ``train_step`` each and the EMA's 16 samples through the 500-step
-      DDIM chain, decoded, as ``{"continuous_vq_train_step": ...}``.
+      DDIM chain, decoded, as ``{"continuous_vq_train_step": ...}``;
+  (y) the VAE on configs/training_config_large.yml (256x256x3, a 16x16x256
+      latent, the config's latent_size 32): the train CLI in --debug (the
+      reconstruction GIF, the samples and val grids, a checkpoint);
+      ``generate`` cold and warm (16 samples drawn at 32x32 decoding to
+      512x512, 16 val reconstructions); a warm ``train_step`` at batch 20
+      as ``{"vae_train_step": ...}``; one step at batch 2 on the card
+      against the CPU and float64 with the same ε, (q)'s rule.
 
-``--only r,s`` (any of o-x) runs (a), (b) and those phases alone, and
+``--only r,s`` (any of o-y) runs (a), (b) and those phases alone, and
 prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
-(p)-(s), each run of (t) and each run of (u)-(x), runs with every kernel's
+(p)-(s), each run of (t) and each run of (u)-(y), runs with every kernel's
 launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -279,6 +286,9 @@ PIXEL2D_CONFIG, PIXEL2D_SAMPLES = "configs/training_config_pixel2d.yml", 4
 CONTINUOUS_CONFIGS = {"c_vqdiffusion": "configs/training_config_cvq.yml",
                       "v_vqdiffusion": "configs/training_config_vvq.yml"}
 CONTINUOUS_STEPS = 500
+# the VAE family on training_config_large.yml: batch 20 of 256x256x3 (a 16x16
+# latent), 16 samples drawn at the config's latent_size 32, decoding to 512x512
+VAE_CONFIG, VAE_B, VAE_LATENT, VAE_SAMPLE_HW = "configs/training_config_large.yml", 20, 16, 512
 
 
 def phase_device() -> str:
@@ -2577,6 +2587,105 @@ def phase_continuous(card: str) -> dict:
     return numbers
 
 
+def vae_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(y) one VAE step from the same seeded weights, batch and ε on the card
+    and on the CPU in f32, and on the CPU in float64 as the reference of
+    both, by (q)'s rule: each metric within 1e-4 relative; gradients by
+    (o)'s rule; the card's float64 step within 1e-9 of each live leaf's
+    largest entry of the CPU's; every parameter within 2 lr of the CPU's,
+    and where one lies more than lr / 10 away, its float64 gradient within
+    its leaf's f32 rounding of zero (Adam's first step moves an entry by
+    lr times its gradient's sign)."""
+    from vq_vae_gan_diffusion_torch.train.vae_worker import VAEWorker
+
+    b = batch.shape[0]
+    eps = torch.randn(b, VAE_LATENT, VAE_LATENT, 256, generator=torch.Generator().manual_seed(41))
+    runs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64), ("cuda", torch.float64)):
+        w = VAEWorker(cfg, log_dir, device=device)
+        state = w.init_state()
+        state.vae.to(dtype)
+        x = torch.from_numpy(batch).to(device, dtype)
+        t0 = time.perf_counter()
+        _, metrics = w.train_step(state, x, eps=eps.to(device, dtype))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        runs[device, dtype] = (metrics, {k: v.cpu() for k, v in state.vae.state_dict().items()},
+                               {k: p.grad.cpu().double() for k, p in state.vae.named_parameters()},
+                               sec)
+        lr = w.lr
+        del w, state
+    (gm, gp, gg, _), (cm, cp, cg, csec) = runs["cuda", torch.float32], runs["cpu", torch.float32]
+    ref = runs["cpu", torch.float64][2]
+    live = gradients_against_float64("y", gg, [cg], ref)
+    card64 = runs["cuda", torch.float64][2]
+    gap64 = max(float((card64[k] - ref[k]).abs().max()) / float(ref[k].abs().max())
+                for k in live)
+    rel = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm}
+    rounding = {k: max(float((g[k] - ref[k]).abs().max()) for g in (gg, cg)) for k in live}
+    worst, p_worst, near, _ = params_card_against_cpu(gp, cp, live, lr)
+    far = {k: (gp[k].double() - cp[k].double()).abs() > lr / 10 for k in live}
+    unexplained = sum(int((ref[k].abs()[far[k]] > rounding[k]).sum()) for k in live)
+    print(f"(y) one step at batch {b} on the card against the CPU ({csec:.1f} s on the CPU, f32; "
+          f"{runs['cpu', torch.float64][3]:.1f} s in float64): metrics card {gm}, CPU {cm}; the "
+          f"card's float64 step within {gap64:.3e} of the CPU's (tol 1e-9); parameters max diff "
+          f"{worst:.3e} (2 lr = {2 * lr:.3e}); {sum(int(m.sum()) for m in far.values())} entries "
+          f"more than lr / 10 apart, {unexplained} of them with a float64 gradient beyond its "
+          f"leaf's f32 rounding; fewest within lr / 10 {p_worst} {100 * near[p_worst]:.3f}%; "
+          f"{card}")
+    if max(rel.values()) > 1e-4 or gap64 > 1e-9 or worst > 2 * lr + 1e-6 or unexplained:
+        raise AssertionError("(y) the card's VAE step departs from the CPU's")
+
+
+def phase_vae(card: str) -> dict:
+    """(y): the VAE on training_config_large.yml at full width; returns the
+    step's numbers with generate's seconds."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch import generate
+    from vq_vae_gan_diffusion_torch.train.vae_worker import VAEWorker
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_vae_")
+    run_train_cli("y", VAE_CONFIG, log_dir, {},
+                  ("reconstruction.gif", "samples_epoch0.jpg", "val_recon_epoch0.jpg"))
+    torch.cuda.empty_cache()
+    argv = ["--config", VAE_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    gen_s = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate.run(argv, overrides={"trainer.log_dir": log_dir})
+        gen_s[run] = time.perf_counter() - t0
+        no_launches("y")
+        images, recon, sec = out["images"], out["reconstructions"], out["seconds"]
+        if tuple(images.shape) != (B, VAE_SAMPLE_HW, VAE_SAMPLE_HW, 3) or \
+                not torch.isfinite(images).all():
+            raise AssertionError(f"(y) samples {tuple(images.shape)} not finite of "
+                                 f"[{B}, {VAE_SAMPLE_HW}, {VAE_SAMPLE_HW}, 3]")
+        if tuple(recon.shape) != (B, 256, 256, 3) or not torch.isfinite(recon).all():
+            raise AssertionError(f"(y) reconstructions {tuple(recon.shape)} not finite")
+        print(f"(y) generate {run}: {B} samples z ~ N(0, I) [{B}, 32, 32, 256] decoded to "
+              f"{VAE_SAMPLE_HW}x{VAE_SAMPLE_HW} in {sec['sample']:.3f} s, {B} val "
+              f"reconstructions in {sec['reconstruct']:.3f} s; total {gen_s[run]:.2f} s; max "
+              f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no kernel "
+              f"launch; {card}")
+    del out, images, recon
+    torch.cuda.empty_cache()
+    cfg, _, batch = stage2_batch("y", VAE_CONFIG, log_dir, (VAE_B, 256, 256, 3))
+    worker = VAEWorker(cfg, log_dir, device="cuda")
+    worker.init_state()
+    numbers = stage2_step_times("y", VAE_CONFIG, worker, torch.from_numpy(batch).cuda(), card)
+    numbers.update({"generate_s_cold": gen_s["cold"], "generate_s_warm": gen_s["warm"],
+                    "samples": B, "sample_hw": VAE_SAMPLE_HW})
+    del worker
+    torch.cuda.empty_cache()
+    vae_card_against_cpu(cfg, log_dir, batch[:2], card)
+    shutil.rmtree(log_dir)
+    return numbers
+
+
 def training_phases() -> dict:
     """The training phases and the Conv1d U-Net family's, each on its own, by
     label: each prints its JSON line."""
@@ -2591,7 +2700,8 @@ def training_phases() -> dict:
                                                 phase_vqofficial1d(card)})),
             "w": lambda card: print(json.dumps({"pixel2d_train_step": phase_pixel2d(card)})),
             "x": lambda card: print(json.dumps({"continuous_vq_train_step":
-                                                phase_continuous(card)}))}
+                                                phase_continuous(card)})),
+            "y": lambda card: print(json.dumps({"vae_train_step": phase_vae(card)}))}
 
 
 def main(argv=None) -> int:

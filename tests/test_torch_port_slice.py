@@ -130,14 +130,16 @@ def test_generate_cli_without_gpu_raises(tmp_path, tiny_config, monkeypatch):
 
 
 def test_generate_other_models_not_ported(tmp_path, tiny_config):
-    """A family the port does not serve yet raises, naming its ROADMAP
-    slice (stage 1, vqvae/vqgan, is served since its training slice)."""
+    """The VAE, the last family of the JAX package's generate the port
+    refused, is served: samples drawn at latent_size and the val split's
+    reconstructions, written under the run dir."""
     path = tmp_path / "vae.yml"
     data = _stage2(tiny_config, tmp_path / "logs")
     data["architecture"]["model_name"] = "vae"
     path.write_text(yaml.safe_dump(data))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 7"):
-        generate.main(["--config", str(path), "--device", "cpu"])
+    out = generate.run(["--config", str(path), "--device", "cpu", "--n-samples", "2"])
+    assert tuple(out["images"].shape) == (2, 32, 32, 3)
+    assert os.path.exists(out["path"]) and os.path.exists(out["recon_path"])
 
 
 @pytest.mark.parametrize("name", sorted(os.path.basename(p) for p in

@@ -260,9 +260,10 @@ def test_train_cli_debug_checkpoint_resume_and_generate(tmp_path, tiny_config):
 
 def test_train_cli_refusals(tmp_path, tiny_config, monkeypatch):
     """No GPU and no --device cpu: raises. The pixel-space gaussiandiffusion3d
-    worker and the VQ_Official prior, refused until ROADMAP A3 and A4 ported
-    them, now train (two --debug steps on the CPU); a family or a reader the
-    port does not train yet: NotImplementedError naming the ROADMAP item."""
+    worker, the VQ_Official prior and the VAE, each refused until a slice
+    ported it, now train (two --debug steps on the CPU); the cifar10 reader,
+    once refused, loads (the synthetic fallback where no data is on
+    disk)."""
     config = _cli_config(tmp_path, tiny_config)
 
     def write(name, model, diffusion_type):
@@ -279,8 +280,9 @@ def test_train_cli_refusals(tmp_path, tiny_config, monkeypatch):
         out = cli.run(["--config", write(name, model, diffusion_type), "--debug",
                        "--device", "cpu"])
         assert out["worker"].global_step == 2 and np.isfinite(out["metrics"][metric])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 7"):
-        cli.run(["--config", write("vae.yml", "vae", "gaussiandiffusion3d"), "--device", "cpu"])
+    out = cli.run(["--config", write("vae.yml", "vae", "gaussiandiffusion3d"), "--debug",
+                   "--device", "cpu"])
+    assert out["worker"].global_step == 2 and np.isfinite(out["metrics"]["vae_loss"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.run(["--config", config, "--debug"])

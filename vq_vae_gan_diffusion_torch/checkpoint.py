@@ -3,22 +3,24 @@
 Three forms, all files written by ``torch.save``:
 
 - the port's own bundle, ``{"vqvae": state_dict, "gpt" | "unet": state_dict}``
-  (either part may be left out);
+  (either part may be left out), or ``{"vae": state_dict}``;
 - a training checkpoint of the port, ``{"state": {...}, "step",
   "epoch"}``: stage 1's (``"vqvae"``, ``"disc"``, ``"opt_g"``, ...), the GPT
   prior's (``"vqvae"``, ``"gpt"``, ``"opt"``), the diffusion prior's
   (``"vqvae"``, ``"unet"``, ``"ema"``, ``"opt"``) or the pixel-space
   ``gaussiandiffusion3d`` worker's (``"unet"``, ``"ema"``, ``"opt"``, no
-  VQVAE), of which the serving workers read the VQVAE and the prior: the
-  GPT, or the U-Net's EMA copy with its statistics, the weights the JAX
-  worker samples with;
+  VQVAE) or the VAE worker's (``"vae"``, ``"opt"``), of which the serving
+  workers read the VQVAE and the prior (the GPT, or the U-Net's EMA copy
+  with its statistics, the weights the JAX worker samples with) or the VAE;
 - a bare ``state_dict`` of one module, as ``tools/export_torch_checkpoint.py``
   writes it from an Orbax checkpoint of the JAX package: the VQVAE
   (``vqvae``/``vqgan``), the minGPT prior (``*_transformer``) or the
   U-Net denoiser, ShuffleNet or Conv1d (``vqdiffusion``,
   ``gaussiandiffusion2d``, ``gaussiandiffusion3d``; with ``--ema``, the EMA
-  weights the JAX worker samples with). Their key names are the ones the
-  port's modules use; each module is told by a key only it has.
+  weights the JAX worker samples with) or the VAE (``vae``, which the
+  export tool writes as ``{"vae_state_dict": state_dict}``, the
+  reference's form). Their key names are the ones the port's modules use;
+  each module is told by a key only it has.
 
 A path where nothing exists is no checkpoint: the caller warns and keeps
 its seeded weights. A path that exists but is a directory (an Orbax
@@ -39,7 +41,8 @@ EXPORT_TOOL = "tools/export_torch_checkpoint.py"
 # the keys that tell each module's bare state_dict from the others (the
 # U-Net's: the ShuffleNet's, the Conv1d U-Net's)
 _MARKERS = {"vqvae": ("codebook.codebook.weight",), "gpt": ("tok_emb.weight",),
-            "unet": ("init_conv.module.0.weight", "mid_attn.fn.fn.to_qkv.weight")}
+            "unet": ("init_conv.module.0.weight", "mid_attn.fn.fn.to_qkv.weight"),
+            "vae": ("fc_mu.weight",)}
 
 State = Dict[str, torch.Tensor]
 
@@ -48,22 +51,25 @@ def _refuse(path: str, why: str) -> ValueError:
     return ValueError(
         f"checkpoint {path} {why}. The port reads a torch.save file: its own bundle "
         "{'vqvae': ..., 'gpt' | 'unet': ...}, its training checkpoint, or a bare "
-        f"VQVAE, minGPT or U-Net denoiser state_dict. Convert an Orbax checkpoint directory with python {EXPORT_TOOL} "
+        "VQVAE, minGPT, U-Net denoiser or VAE state_dict. Convert an Orbax checkpoint "
+        f"directory with python {EXPORT_TOOL} "
         "--config <yml> --ckpt <dir> --out <file>.pth (add --ema for a diffusion prior)")
 
 
 def _is_training(tree) -> bool:
-    """True for a training checkpoint of the port (stage 1's, a prior's or
-    the pixel-space worker's)."""
+    """True for a training checkpoint of the port (stage 1's, a prior's, the
+    pixel-space worker's or the VAE's)."""
     return (isinstance(tree, dict) and {"state", "step", "epoch"} <= set(tree)
             and isinstance(tree["state"], dict)
-            and any(isinstance(tree["state"].get(k), dict) for k in ("vqvae", "unet")))
+            and any(isinstance(tree["state"].get(k), dict) for k in ("vqvae", "unet", "vae")))
 
 
 def _prior_of(tree: dict) -> Optional[str]:
     """What a training checkpoint trains: ``gpt`` or ``unet`` (a prior over
-    a VQVAE's codes), ``pixel`` (the pixel-space U-Net, no VQVAE), None for
-    stage 1."""
+    a VQVAE's codes), ``pixel`` (the pixel-space U-Net, no VQVAE), ``vae``,
+    None for stage 1."""
+    if "vae" in tree["state"]:
+        return "vae"
     if "vqvae" not in tree["state"]:
         return "pixel"
     return next((kind for kind in ("gpt", "unet") if kind in tree["state"]), None)
@@ -71,8 +77,8 @@ def _prior_of(tree: dict) -> Optional[str]:
 
 def read_training_checkpoint(path: str, prior: Optional[str] = None) -> Optional[dict]:
     """The port's training checkpoint at ``path`` whole (optimizers, step,
-    EMA too) when it trains ``prior`` (``gpt``, ``unet``, ``pixel``; None:
-    stage 1), or None where ``path`` holds nothing or another form."""
+    EMA too) when it trains ``prior`` (``gpt``, ``unet``, ``pixel``,
+    ``vae``; None: stage 1), or None where ``path`` holds nothing or another form."""
     if not os.path.isfile(path):
         return None
     tree = _load(path)
@@ -88,7 +94,7 @@ def _load(path: str):
 
 def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
     """The module ``state_dict``s of the checkpoint at ``path`` by kind
-    (``vqvae``, ``gpt``, ``unet``), or None when nothing exists at ``path``.
+    (``vqvae``, ``gpt``, ``unet``, ``vae``), or None when nothing exists at ``path``.
     Raises ValueError for a directory or a file of no known form."""
     if not os.path.exists(path):
         return None
@@ -97,6 +103,8 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
     state = _load(path)
     if not isinstance(state, dict) or not state:
         raise _refuse(path, "holds no dict")
+    if set(state) == {"vae_state_dict"} and isinstance(state["vae_state_dict"], dict):
+        state = state["vae_state_dict"]
     if all(isinstance(v, torch.Tensor) for v in state.values()):
         kinds = [kind for kind, keys in _MARKERS.items() if any(k in state for k in keys)]
         if len(kinds) != 1:
@@ -104,7 +112,7 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
         return {kinds[0]: state}
     if _is_training(state):
         trained = state["state"]
-        found = {"vqvae": trained["vqvae"]} if "vqvae" in trained else {}
+        found = {k: trained[k] for k in ("vqvae", "vae") if k in trained}
         if "gpt" in trained:
             found["gpt"] = trained["gpt"]
         if "ema" in trained:

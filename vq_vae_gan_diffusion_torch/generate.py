@@ -28,7 +28,12 @@ them, six to a row, as ``samples_epoch0.jpg``; for ``gaussiandiffusion2d``
 it samples 4 images with the Conv1d U-Net (its EMA copy), as the JAX
 worker, and writes ``Generating_epoch000.jpg``; ``c_vqdiffusion`` and
 ``v_vqdiffusion`` sample index grids with their EMA U-Net as the
-``vqdiffusion`` priors do. ``--ckpt`` loads a port
+``vqdiffusion`` priors do. For ``vae`` it decodes ``--n-samples`` draws
+z ~ N(0, I) at ``latent_size`` (``samples_epoch0.jpg``) and writes the val
+split's reconstructions (``val_recon_epoch0.jpg``), the VAE from
+``--ckpt`` or ``architecture.vae.resume_path`` (the port's checkpoints, a
+bare VAE ``state_dict`` or the export tool's ``{"vae_state_dict":
+...}``). ``--ckpt`` loads a port
 checkpoint (``torch.save({"vqvae": ..., "gpt" or "unet": ...})``, a
 training checkpoint included) or a bare prior ``state_dict`` as
 ``tools/export_torch_checkpoint.py`` writes it from an Orbax checkpoint;
@@ -59,8 +64,8 @@ from typing import Dict, Optional, Sequence
 from .config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config,
                      validate)
 
-# the ROADMAP slice that ports each family's generation path
-_LATER_SLICES = {"vae": "slice 7 (other families)"}
+SERVED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
+    "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d", "vae")
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -89,11 +94,8 @@ def run(argv: Optional[Sequence[str]] = None,
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
-            "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d"):
-        where = _LATER_SLICES.get(model_name, "a later slice")
-        raise NotImplementedError(
-            f"model_name {model_name!r} is not ported yet: see ROADMAP.md, {where}")
+    if model_name not in SERVED:
+        raise ValueError(f"unknown model_name {model_name!r}; expected one of {SERVED}")
     if args.fused_sampler is not None:
         on = args.fused_sampler == "on"
         for family in ("gaussiandiffusion3d", "vqdiffusion"):
@@ -109,8 +111,10 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
+    from .data import load_dataloader
     from .train import (ContinuousVQDiffusionWorker, GaussianDiffusion2DWorker,
-                        GaussianDiffusion3DWorker, VQDiffusionWorker, VQTransformerWorker)
+                        GaussianDiffusion3DWorker, VAEWorker, VQDiffusionWorker,
+                        VQTransformerWorker)
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -124,8 +128,8 @@ def run(argv: Optional[Sequence[str]] = None,
                   "c_vqdiffusion": ContinuousVQDiffusionWorker,
                   "v_vqdiffusion": ContinuousVQDiffusionWorker,
                   "gaussiandiffusion2d": GaussianDiffusion2DWorker,
-                  "gaussiandiffusion3d": GaussianDiffusion3DWorker}.get(model_name,
-                                                                        VQTransformerWorker)
+                  "gaussiandiffusion3d": GaussianDiffusion3DWorker,
+                  "vae": VAEWorker}.get(model_name, VQTransformerWorker)
     worker = worker_cls(config, run_dir, logger, seed=args.seed, device=str(device))
     worker.init_state()
     ckpt = args.ckpt
@@ -134,7 +138,11 @@ def run(argv: Optional[Sequence[str]] = None,
         ckpt = config.architecture[mkey].get("resume_path")
     if ckpt:
         worker.load(str(ckpt))
-    result = worker.generate_images(None, n_samples=args.n_samples, epoch=0)
+    val_loader = None
+    if model_name == "vae":
+        # the val split's reconstructions, as the root generate.py writes them
+        val_loader, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
+    result = worker.generate_images(val_loader, n_samples=args.n_samples, epoch=0)
     logger.info("artifacts written to %s", run_dir)
     return dict(result, run_dir=run_dir)
 

@@ -36,13 +36,16 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
 - ``c_vqdiffusion`` / ``v_vqdiffusion``: the continuous priors over the
   frozen VQVAE's codes (indices / K, or codebook rows) with the Conv1d
   U-Net, Adam and an EMA at 0.999 every step; the EMA's
-  ``samples_epoch<e>.jpg``.
+  ``samples_epoch<e>.jpg``;
+- ``vae``: the plain VAE (MSE and the KL term, Adam), as
+  ``configs/training_config_large.yml`` trains it; the reconstruction GIF,
+  ``samples_epoch<e>.jpg`` and ``val_recon_epoch<e>.jpg``;
+  ``architecture.vae.resume_path`` resumes from such a checkpoint.
 
 A prior's training checkpoint at ``architecture.<model>.resume_path``
 resumes it at its step. ``--debug`` trains one epoch of two batches of 2
 images from the val split, as the root ``train.py`` does. It runs on CUDA
-unless ``--device cpu``; with no GPU it raises. The other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+unless ``--device cpu``; with no GPU it raises.
 """
 
 from __future__ import annotations
@@ -55,9 +58,7 @@ from ..config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, l
                       validate)
 
 TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
-    "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d")
-# the ROADMAP item that ports each family's training
-_LATER_SLICES = {"vae": "slice 7 (other families)"}
+    "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d", "vae")
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -80,9 +81,7 @@ def run(argv: Optional[Sequence[str]] = None,
     model_name = config.architecture.model_name
     dataset_name = config.dataset.dataset_name
     if model_name not in TRAINED:
-        where = _LATER_SLICES.get(model_name, "a later slice")
-        raise NotImplementedError(
-            f"training {model_name!r} is not ported yet: see ROADMAP.md, {where}")
+        raise ValueError(f"unknown model_name {model_name!r}; expected one of {TRAINED}")
     train_split = str(config.dataset.get("train_split", "train"))
     if args.debug:
         config = config.replace_path("trainer.num_epochs", 1)
@@ -96,6 +95,7 @@ def run(argv: Optional[Sequence[str]] = None,
     from ..utils import create_run_dir, resolve_device, setup_logging
     from .continuous_vq_worker import ContinuousVQDiffusionWorker
     from .gaussian_diffusion_workers import GaussianDiffusion2DWorker, GaussianDiffusion3DWorker
+    from .vae_worker import VAEWorker
     from .vq_diffusion_worker import VQDiffusionWorker
     from .vq_transformer_worker import VQTransformerWorker
     from .vqgan_worker import VQGANVQVAEWorker
@@ -116,6 +116,8 @@ def run(argv: Optional[Sequence[str]] = None,
         worker_cls = GaussianDiffusion2DWorker
     elif model_name in CONTINUOUS_MODELS:
         worker_cls = ContinuousVQDiffusionWorker
+    elif model_name == "vae":
+        worker_cls = VAEWorker
     else:
         # OneCycle's total steps: epochs x batches an epoch, as the root train.py
         worker_cls = (VQDiffusionWorker if model_name == "vqdiffusion"

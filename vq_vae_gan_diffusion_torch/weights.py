@@ -130,6 +130,23 @@ def vqvae_state_from_jax(params: Dict[str, Any], cfg: Config) -> State:
     return out
 
 
+def vae_state_from_jax(params: Dict[str, Any], cfg: Config) -> State:
+    """The JAX VAE's params -> the port VAE's ``state_dict`` (the export
+    tool's ``export_vae`` keys), its geometry from ``architecture.vae`` or
+    else ``architecture.vqvae``."""
+    vae = cfg.architecture.get("vae", cfg.architecture.get("vqvae"))
+    interm = list(vae.intermediate_channels)
+    attn_res = list(vae.attention_resolution)
+    out: State = {}
+    _encoder(out, "encoder.model", params["encoder"], img_size=resolve_img_size(cfg),
+             interm=interm, n_res=int(vae.num_residual_blocks_encoder), attn_res=attn_res)
+    _decoder(out, "decoder.model", params["decoder"], latent_size=int(vae.latent_size),
+             interm=interm, n_res=int(vae.num_residual_blocks_decoder), attn_res=attn_res)
+    _conv(out, "fc_mu", params["fc_mu"])
+    _conv(out, "fc_logvar", params["fc_logvar"])
+    return out
+
+
 def _bn(out: State, p: str, sub_p, sub_s) -> None:
     out[f"{p}.weight"] = _t(sub_p["scale"])
     out[f"{p}.bias"] = _t(sub_p["bias"])
