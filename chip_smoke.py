@@ -212,13 +212,20 @@ Phases, each printed as it runs; any failure exits non-zero:
       ``generate`` cold and warm (16 samples drawn at 32x32 decoding to
       512x512, 16 val reconstructions); a warm ``train_step`` at batch 20
       as ``{"vae_train_step": ...}``; one step at batch 2 on the card
-      against the CPU and float64 with the same ε, (q)'s rule.
+      against the CPU and float64 with the same ε, (q)'s rule;
+  (z) the pixel DDPM, ``python -m vq_vae_gan_diffusion_torch.train_diffusion``
+      (the Conv2d U-Net at dim 64, mults (1, 2, 4, 8)): the CLI in --debug
+      (11 steps, a checkpoint, 4 samples through 8 DDIM steps); a warm
+      ``train_step`` at batch 500 of 32x32x3 with dropout 0.1 as
+      ``{"pixel_ddpm_train_step": ...}``; the EMA's 64 samples through 500
+      DDIM steps; one step at batch 4 with dropout off on the card against
+      the CPU and float64, (q)'s rule.
 
-``--only r,s`` (any of o-y) runs (a), (b) and those phases alone, and
+``--only r,s`` (any of o-z) runs (a), (b) and those phases alone, and
 prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
-(p)-(s), each run of (t) and each run of (u)-(y), runs with every kernel's
+(p)-(s), each run of (t) and each run of (u)-(z), runs with every kernel's
 launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -289,6 +296,11 @@ CONTINUOUS_STEPS = 500
 # the VAE family on training_config_large.yml: batch 20 of 256x256x3 (a 16x16
 # latent), 16 samples drawn at the config's latent_size 32, decoding to 512x512
 VAE_CONFIG, VAE_B, VAE_LATENT, VAE_SAMPLE_HW = "configs/training_config_large.yml", 20, 16, 512
+# the pixel DDPM of the root train_diffusion.py at its defaults: batch 500 of
+# 32x32x3 (cifar10, synthetic where it is not on disk), the U-Net at dim 64
+# with mults (1, 2, 4, 8) and dropout 0.1; the EMA's 64 samples through 500
+# DDIM steps
+DDPM_B, DDPM_HW, DDPM_SAMPLES, DDPM_DDIM = 500, 32, 64, 500
 
 
 def phase_device() -> str:
@@ -2686,6 +2698,70 @@ def phase_vae(card: str) -> dict:
     return numbers
 
 
+def phase_pixel_ddpm(card: str) -> dict:
+    """(z): ``python -m vq_vae_gan_diffusion_torch.train_diffusion`` at its
+    defaults; returns the step's numbers with the CLI's and the samples'
+    seconds."""
+    import logging
+    import os
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch import train_diffusion as tdiff
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_ddpm_")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tdiff.run(["--debug", "--log-dir", log_dir, "--data-root", log_dir])
+    cli_s = time.perf_counter() - t0
+    no_launches("z")
+    state, save_dir, samples = out["state"], out["save_dir"], out["samples"]
+    ckpt = os.path.join(save_dir, "ckpt", f"step_{state.step:08d}.pth")
+    if state.step != 11 or not all(math.isfinite(v) for v in out["losses"]) or \
+            not os.path.exists(ckpt) or \
+            not os.path.exists(os.path.join(save_dir, "samples_epoch_0.png")):
+        raise AssertionError(f"(z) train_diffusion --debug: step {state.step}, losses "
+                             f"{out['losses']}, files {os.listdir(save_dir)}")
+    if tuple(samples.shape) != (4, DDPM_HW, DDPM_HW, 3) or not torch.isfinite(samples).all():
+        raise AssertionError(f"(z) --debug samples {tuple(samples.shape)} not finite")
+    print(f"(z) train_diffusion --debug on the card: {cli_s:.1f} s; 11 steps at batch 2, mean "
+          f"loss {out['losses'][0]:.4f}; {os.path.basename(ckpt)}; 4 samples through 8 DDIM "
+          f"steps; no kernel launch")
+    del out, state, samples
+    trainer = tdiff.PixelDDPM(3, DDPM_HW, device="cuda")
+    state = trainer.init_state()
+    loader = tdiff.load_images("cifar10", log_dir, DDPM_B, DDPM_HW, 3, 42,
+                               logging.getLogger("chip_smoke"))
+    batch = next(iter(loader))
+    if batch.shape != (DDPM_B, DDPM_HW, DDPM_HW, 3):
+        raise AssertionError(f"(z) batch {batch.shape}")
+    numbers = stage2_step_times("z", "train_diffusion.py defaults", trainer,
+                                torch.from_numpy(batch).cuda(), card)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    images = trainer.sample(state, DDPM_SAMPLES)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    no_launches("z")
+    if tuple(images.shape) != (DDPM_SAMPLES, DDPM_HW, DDPM_HW, 3) or \
+            not torch.isfinite(images).all():
+        raise AssertionError(f"(z) samples {tuple(images.shape)} not finite")
+    print(f"(z) the EMA's {DDPM_SAMPLES} samples: {DDPM_DDIM}-step DDIM chain {sample_s:.3f} s "
+          f"({1e3 * sample_s / DDPM_DDIM:.3f} ms a step); {card}")
+    numbers.update({"cli_debug_s": cli_s, "samples": DDPM_SAMPLES, "ddim_steps": DDPM_DDIM,
+                    "sample_s": sample_s, "ms_per_ddim_step": 1e3 * sample_s / DDPM_DDIM})
+    del trainer, state, images
+    torch.cuda.empty_cache()
+    b = 4
+    g = torch.Generator().manual_seed(51)
+    diffusion_step_against_cpu(
+        "z", lambda device: tdiff.PixelDDPM(3, DDPM_HW, dropout=0.0, device=device), batch[:b],
+        torch.randint(0, 1000, (b,), generator=g), torch.randn(b, DDPM_HW, DDPM_HW, 3, generator=g),
+        {"loss": 1e-4}, card)
+    shutil.rmtree(log_dir)
+    return numbers
+
+
 def training_phases() -> dict:
     """The training phases and the Conv1d U-Net family's, each on its own, by
     label: each prints its JSON line."""
@@ -2701,7 +2777,9 @@ def training_phases() -> dict:
             "w": lambda card: print(json.dumps({"pixel2d_train_step": phase_pixel2d(card)})),
             "x": lambda card: print(json.dumps({"continuous_vq_train_step":
                                                 phase_continuous(card)})),
-            "y": lambda card: print(json.dumps({"vae_train_step": phase_vae(card)}))}
+            "y": lambda card: print(json.dumps({"vae_train_step": phase_vae(card)})),
+            "z": lambda card: print(json.dumps({"pixel_ddpm_train_step":
+                                                phase_pixel_ddpm(card)}))}
 
 
 def main(argv=None) -> int:

@@ -315,6 +315,92 @@ def unet1d_state_from_jax(params: Dict[str, Any]) -> State:
     return out
 
 
+def _rms2d(out: State, p: str, sub) -> None:
+    out[f"{p}.g"] = _t(np.asarray(sub["g"]).reshape(1, -1, 1, 1))
+
+
+def _resnet2d(out: State, p: str, sub) -> None:
+    _dense(out, f"{p}.mlp.1", sub["time_proj"])
+    for block in ("block1", "block2"):
+        _conv(out, f"{p}.{block}.proj", sub[block]["proj"])
+        _rms2d(out, f"{p}.{block}.norm", sub[block]["RMSNorm2D_0"])
+    if "res_conv" in sub:
+        _conv(out, f"{p}.res_conv", sub["res_conv"])
+
+
+def _attn2d(out: State, p: str, sub) -> None:
+    _rms2d(out, f"{p}.norm", sub["norm"])
+    out[f"{p}.mem_kv"] = _t(sub["mem_kv"])
+    _conv(out, f"{p}.to_qkv", sub["to_qkv"])
+    if "out_norm" in sub:               # linear attention: to_out = (conv, RMSNorm)
+        _conv(out, f"{p}.to_out.0", sub["to_out"])
+        _rms2d(out, f"{p}.to_out.1", sub["out_norm"])
+    else:
+        _conv(out, f"{p}.to_out", sub["to_out"])
+
+
+def unet2d_state_from_jax(params: Dict[str, Any]) -> State:
+    """The JAX Unet2DPixel's params -> the port Unet2DPixel's ``state_dict``.
+    The JAX export tool has no family for this net, so the keys are the
+    port's own (the reference's module layout): a down stage's
+    space-to-depth conv sits at ``downs.{i}.3.conv``, the innermost's 3x3
+    conv at ``downs.{i}.3``; an up stage's conv behind the upsample at
+    ``ups.{i}.3.1``, the outermost's at ``ups.{i}.3``. A learned or random
+    sinusoid's weights go to ``time_mlp.0.weights``."""
+    out: State = {}
+    _conv(out, "init_conv", params["init_conv"])
+    if "sinu" in params:
+        out["time_mlp.0.weights"] = _t(params["sinu"]["weights"])
+    _dense(out, "time_mlp.1", params["time_fc1"])
+    _dense(out, "time_mlp.3", params["time_fc2"])
+    for kind, stages in (("down", "downs"), ("up", "ups")):
+        n = sum(1 for k in params if k.startswith(kind) and k.endswith("_res1"))
+        for i in range(n):
+            p = f"{stages}.{i}"
+            _resnet2d(out, f"{p}.0", params[f"{kind}{i}_res1"])
+            _resnet2d(out, f"{p}.1", params[f"{kind}{i}_res2"])
+            _attn2d(out, f"{p}.2", params[f"{kind}{i}_attn"])
+            last = i == n - 1
+            _conv(out, {("down", False): f"{p}.3.conv", ("down", True): f"{p}.3",
+                        ("up", False): f"{p}.3.1", ("up", True): f"{p}.3"}[kind, last],
+                  params[f"{kind}{i}_{kind}"])
+    _resnet2d(out, "mid_block1", params["mid_res1"])
+    _attn2d(out, "mid_attn", params["mid_attn"])
+    _resnet2d(out, "mid_block2", params["mid_res2"])
+    _resnet2d(out, "final_res_block", params["final_res"])
+    _conv(out, "final_conv", params["final_conv"])
+    return out
+
+
+def _conv_transpose(out: State, p: str, sub) -> None:
+    """flax ConvTranspose (no kernel transpose) [kh, kw, in, out] -> torch
+    ConvTranspose2d [in, out, kh, kw], the kernel flipped in space: flax
+    convolves the dilated input with the kernel as given, torch's transposed
+    convolution with it mirrored."""
+    kernel = np.asarray(sub["kernel"])[::-1, ::-1]
+    out[f"{p}.weight"] = _t(np.transpose(kernel, (2, 3, 0, 1)))
+    out[f"{p}.bias"] = _t(sub["bias"])
+
+
+def simple_unet_state_from_jax(params: Dict[str, Any]) -> State:
+    """The JAX SimpleUNet's params -> the port SimpleUNet's ``state_dict``
+    (the port's own keys, as for :func:`unet2d_state_from_jax`)."""
+    out: State = {}
+    _dense(out, "time_fc", params["time_fc"])
+    n = sum(1 for k in params if k.startswith("time_to_"))
+    for i in range(n):
+        _conv(out, f"downs.{i}.0", params[f"down{i}_c1"])
+        _conv(out, f"downs.{i}.2", params[f"down{i}_c2"])
+        _dense(out, f"time_to.{i}", params[f"time_to_{i}"])
+        _conv_transpose(out, f"ups_t.{i}", params[f"up{i}_t"])
+        _conv(out, f"ups.{i}.0", params[f"up{i}_c1"])
+        _conv(out, f"ups.{i}.2", params[f"up{i}_c2"])
+    _conv(out, "bottleneck.0", params["bottleneck_c1"])
+    _conv(out, "bottleneck.2", params["bottleneck_c2"])
+    _conv(out, "out", params["out"])
+    return out
+
+
 def discriminator_state_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> State:
     """The JAX Discriminator's params and batch statistics -> the port
     Discriminator's ``state_dict`` (``model.0``, ``model.2/3``, ``model.5/6``,
