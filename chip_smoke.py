@@ -1686,11 +1686,11 @@ def phase_train(card: str) -> dict:
 
 
 def stage2_step_times(label: str, key: str, worker, batch: torch.Tensor, card: str,
-                      tokens: int | None = None) -> dict:
+                      tokens: int | None = None, profiled: int = 3) -> dict:
     """(p), (q): a stage-2 worker's warm ``train_step`` at full width, f32:
     ms a step over STAGE2_STEPS after two, images/s (and tokens/s), peak
-    device memory, through torch.profiler over three steps the device's busy
-    share and the top kernels, the step's operations
+    device memory, through torch.profiler over ``profiled`` steps the
+    device's busy share and the top kernels, the step's operations
     (torch.utils.flop_counter) and its bound at the f32 peak."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1710,7 +1710,7 @@ def stage2_step_times(label: str, key: str, worker, batch: torch.Tensor, card: s
     metrics = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"({label}) metrics {metrics}")
-    dev_ms, busy, window_ms, kernels = profile_steps(step)
+    dev_ms, busy, window_ms, kernels = profile_steps(step, profiled)
     with FlopCounterMode(display=False) as flops:
         step()
     total = flops.get_total_flops()
@@ -1724,10 +1724,10 @@ def stage2_step_times(label: str, key: str, worker, batch: torch.Tensor, card: s
         numbers["tokens_per_s"] = 1e3 * b * tokens / ms
         rate += f", {numbers['tokens_per_s']:.0f} tokens/s"
     print(f"({label}) train_step {list(batch.shape)} f32 warm: {ms:.3f} ms a step ({rate}), peak "
-          f"{peak:.3f} GiB; profiled 3 steps: device {dev_ms:.3f} ms a step, busy "
+          f"{peak:.3f} GiB; profiled {profiled} steps: device {dev_ms:.3f} ms a step, busy "
           f"{100 * busy:.1f}% of {window_ms:.3f} ms; {total / 1e12:.4f} TFLOP a step, bound "
           f"{numbers['bound_ms']:.3f} ms at the f32 peak; metrics {metrics}; {card}")
-    print_kernels(label, kernels, 12)
+    print_kernels(label, kernels, 12, profiled)
     return numbers
 
 
@@ -2688,7 +2688,10 @@ def phase_vae(card: str) -> dict:
     cfg, _, batch = stage2_batch("y", VAE_CONFIG, log_dir, (VAE_B, 256, 256, 3))
     worker = VAEWorker(cfg, log_dir, device="cuda")
     worker.init_state()
-    numbers = stage2_step_times("y", VAE_CONFIG, worker, torch.from_numpy(batch).cuda(), card)
+    # one profiled step: its 9,000 kernel launches make the profiler's
+    # window slow to read back
+    numbers = stage2_step_times("y", VAE_CONFIG, worker, torch.from_numpy(batch).cuda(), card,
+                                profiled=1)
     numbers.update({"generate_s_cold": gen_s["cold"], "generate_s_warm": gen_s["warm"],
                     "samples": B, "sample_hw": VAE_SAMPLE_HW})
     del worker

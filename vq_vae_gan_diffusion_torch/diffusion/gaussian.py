@@ -9,8 +9,10 @@ scalars from them, so the step's arithmetic is float32 as in JAX.
 
 Noise comes from an explicit ``torch.Generator`` on the state's device, or
 is injected (``step_noise``, one tensor a reverse step), as the parity
-tests inject the JAX package's draws. The pixel-space ``GaussianDiffusion``
-class comes with a later slice.
+tests inject the JAX package's draws. These functions are the whole of the
+JAX module, which has no class: the pixel-space DDPM
+(``train_diffusion.py``) calls ``make_schedule``, ``diffusion_loss`` and
+``ddim_sample``.
 """
 
 from __future__ import annotations

@@ -61,11 +61,7 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from .config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config,
-                     validate)
-
-SERVED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
-    "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d", "vae")
+from .config import VQ_STAGE1_MODELS, load_config, validate
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -94,8 +90,6 @@ def run(argv: Optional[Sequence[str]] = None,
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if model_name not in SERVED:
-        raise ValueError(f"unknown model_name {model_name!r}; expected one of {SERVED}")
     if args.fused_sampler is not None:
         on = args.fused_sampler == "on"
         for family in ("gaussiandiffusion3d", "vqdiffusion"):

@@ -42,9 +42,11 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int):
+    """Over the channels of [B, C, *spatial] (``spatial_dims`` of them)."""
+
+    def __init__(self, dim: int, spatial_dims: int = 1):
         super().__init__()
-        self.g = nn.Parameter(torch.ones(1, dim, 1))
+        self.g = nn.Parameter(torch.ones(1, dim, *([1] * spatial_dims)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = _at_least_f32(x)
@@ -234,23 +236,10 @@ class Unet1D(nn.Module):
         self.final_res_block = res(init_dim * 2, init_dim)
         self.final_conv = nn.Conv1d(init_dim, self.out_dim, 1)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX package's (flax default) init, drawn from ``generator``:
-        lecun-normal (truncated) conv and dense kernels with zero biases,
-        RMSNorm gains of one, the learned sinusoid's weights N(0, 1)."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv1d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, RMSNorm):
-                nn.init.ones_(m.g)
-            elif isinstance(m, RandomOrLearnedSinusoidalPosEmb):
-                m.weights.normal_(0.0, 1.0, generator=generator)
+        """The JAX package's (flax default) init, drawn from ``generator``
+        (:func:`flax_init_`)."""
+        flax_init_(self, generator)
 
     def forward(self, x: torch.Tensor, x_self_cond: Optional[torch.Tensor] = None,
                 time: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -276,6 +265,28 @@ class Unet1D(nn.Module):
             x = up(attn(x))
         x = self.final_res_block(torch.cat([x, r], dim=1), t)
         return self.final_conv(x)
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default init of ``module``'s layers, drawn from ``generator`` in
+    module order: lecun-normal (truncated) kernels of convolutions,
+    transposed convolutions and dense layers (fan-in: input channels times
+    the window) with zero biases, RMSNorm gains of one, a learned
+    sinusoid's weights N(0, 1)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = m.weight
+            fan_in = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.ConvTranspose2d) \
+                else w[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, RMSNorm):
+            nn.init.ones_(m.g)
+        elif isinstance(m, RandomOrLearnedSinusoidalPosEmb):
+            m.weights.normal_(0.0, 1.0, generator=generator)
 
 
 # the reference's name ("2D" = the rank of its [B, C, L] input)

@@ -35,25 +35,19 @@ nets).
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet1d import RandomOrLearnedSinusoidalPosEmb, SinusoidalPosEmb, _at_least_f32
+from .unet1d import (RandomOrLearnedSinusoidalPosEmb, RMSNorm, SinusoidalPosEmb, _at_least_f32,
+                     flax_init_)
 
 
-class RMSNorm2D(nn.Module):
+class RMSNorm2D(RMSNorm):
     def __init__(self, dim: int):
-        super().__init__()
-        self.g = nn.Parameter(torch.ones(1, dim, 1, 1))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = _at_least_f32(x)
-        normed = x32 * torch.rsqrt(torch.sum(x32 * x32, dim=1, keepdim=True) + 1e-12)
-        return (normed * self.g * math.sqrt(x.shape[1])).to(x.dtype)
+        super().__init__(dim, spatial_dims=2)
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -167,32 +161,6 @@ class Attention2D(_Attention):
         return self.to_out(out)
 
 
-def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-
-@torch.no_grad()
-def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's (flax default) init of ``module``, drawn from
-    ``generator``: lecun-normal (truncated) conv, transposed-conv and dense
-    kernels with zero biases, RMSNorm gains of one, the memory keys and
-    values and a learned sinusoid's weights N(0, 1)."""
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-        elif isinstance(m, nn.ConvTranspose2d):
-            _lecun_normal_(m.weight, m.weight.shape[0] * m.weight[0, 0].numel(), generator)
-        elif isinstance(m, RMSNorm2D):
-            nn.init.ones_(m.g)
-        elif isinstance(m, _Attention):
-            m.mem_kv.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, RandomOrLearnedSinusoidalPosEmb):
-            m.weights.normal_(0.0, 1.0, generator=generator)
-        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)) and m.bias is not None:
-            nn.init.zeros_(m.bias)
-
-
 class Unet2DPixel(nn.Module):
     """x [B, channels, H, W], optional ``x_self_cond`` of x's shape, t [B] ->
     [B, out_dim, H, W]."""
@@ -252,10 +220,15 @@ class Unet2DPixel(nn.Module):
         self.final_res_block = res(init_dim * 2, init_dim)
         self.final_conv = nn.Conv2d(init_dim, self.out_dim, 1)
 
+    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's (flax default) init, drawn from ``generator``
-        (:func:`flax_init_`)."""
+        (:func:`.unet1d.flax_init_`), then the attentions' memory keys and
+        values N(0, 1)."""
         flax_init_(self, generator)
+        for m in self.modules():
+            if isinstance(m, _Attention):
+                m.mem_kv.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, x: torch.Tensor, x_self_cond: Optional[torch.Tensor] = None,
                 time: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -323,6 +296,7 @@ class SimpleUNet(nn.Module):
         self.out = nn.Conv2d(features[0], out_channels, 1)
 
     def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's (flax default) init, drawn from ``generator``."""
         flax_init_(self, generator)
 
     def forward(self, x: torch.Tensor, x_self_cond: Optional[torch.Tensor] = None,

@@ -18,7 +18,6 @@ image size.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -27,7 +26,7 @@ from torch import nn
 from ..config import Config, resolve_img_channels, resolve_img_size
 from .decoder import Decoder
 from .encoder import Encoder
-from .vqvae import _nchw, _nhwc
+from .vqvae import _nchw, _nhwc, flax_conv_init_
 
 
 class VAE(nn.Module):
@@ -67,20 +66,10 @@ class VAE(nn.Module):
             attention_resolution=tuple(vae.get("attention_resolution", (32,))),
         )
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's init, drawn from ``generator``: lecun-normal
         (truncated) conv kernels and zero biases, GroupNorm scales of one."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.GroupNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        flax_conv_init_(self, generator)
 
     def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):

@@ -77,16 +77,7 @@ class VQVAE(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's init, drawn from ``generator``: lecun-normal
         (truncated) conv kernels and zero biases; the codebook U(-1/K, 1/K)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.GroupNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        flax_conv_init_(self, generator)
         k = self.codebook.codebook.num_embeddings
         nn.init.uniform_(self.codebook.codebook.weight, -1.0 / k, 1.0 / k,
                          generator=generator)
@@ -109,6 +100,22 @@ class VQVAE(nn.Module):
         """Token indices [B, h, w] or [B, h*w] -> images [B, H, W, C]."""
         b, grid = indices.shape[0], self.latent_size
         return self.decode(self.codebook.lookup(indices.reshape(b, grid, grid)))
+
+
+@torch.no_grad()
+def flax_conv_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default init of ``module``'s convolutions and GroupNorms, drawn
+    from ``generator`` in module order: lecun-normal (truncated) kernels,
+    zero biases, GroupNorm scales of one."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.GroupNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
 
 
 def adopt_weight(disc_factor: float, step: int, threshold: int) -> float:

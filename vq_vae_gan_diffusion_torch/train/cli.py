@@ -57,9 +57,6 @@ from typing import Dict, Optional, Sequence
 from ..config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config,
                       validate)
 
-TRAINED = VQ_STAGE1_MODELS + TRANSFORMER_MODELS + CONTINUOUS_MODELS + (
-    "vqdiffusion", "gaussiandiffusion2d", "gaussiandiffusion3d", "vae")
-
 
 def run(argv: Optional[Sequence[str]] = None,
         overrides: Optional[Dict[str, object]] = None) -> Dict[str, object]:
@@ -80,8 +77,6 @@ def run(argv: Optional[Sequence[str]] = None,
     validate(config)
     model_name = config.architecture.model_name
     dataset_name = config.dataset.dataset_name
-    if model_name not in TRAINED:
-        raise ValueError(f"unknown model_name {model_name!r}; expected one of {TRAINED}")
     train_split = str(config.dataset.get("train_split", "train"))
     if args.debug:
         config = config.replace_path("trainer.num_epochs", 1)
