@@ -18,8 +18,8 @@ Three forms, all files written by ``torch.save``:
   U-Net denoiser, ShuffleNet or Conv1d (``vqdiffusion``,
   ``gaussiandiffusion2d``, ``gaussiandiffusion3d``; with ``--ema``, the EMA
   weights the JAX worker samples with) or the VAE (``vae``, which the
-  export tool writes as ``{"vae_state_dict": state_dict}``, the
-  reference's form). Their key names are the ones the port's modules use;
+  export tool writes as ``{"vae_state_dict": state_dict}``; the
+  reference's own file adds ``"optimizer_state_dict"``, which is left out). Their key names are the ones the port's modules use;
   each module is told by a key only it has.
 
 A path where nothing exists is no checkpoint: the caller warns and keeps
@@ -29,6 +29,7 @@ checkpoint) or a file of no known form raises, naming the export tool.
 
 from __future__ import annotations
 
+import glob
 import logging
 import os
 import pickle
@@ -103,7 +104,9 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
     state = _load(path)
     if not isinstance(state, dict) or not state:
         raise _refuse(path, "holds no dict")
-    if set(state) == {"vae_state_dict"} and isinstance(state["vae_state_dict"], dict):
+    if isinstance(state.get("vae_state_dict"), dict):
+        # the reference's {"vae_state_dict", "optimizer_state_dict"}: the VAE alone,
+        # as tools/import_torch_checkpoint.py reads it
         state = state["vae_state_dict"]
     if all(isinstance(v, torch.Tensor) for v in state.values()):
         kinds = [kind for kind, keys in _MARKERS.items() if any(k in state for k in keys)]
@@ -121,6 +124,20 @@ def read_checkpoint(path: str) -> Optional[Dict[str, State]]:
     if set(state) <= set(_MARKERS) and all(isinstance(v, dict) for v in state.values()):
         return dict(state)
     raise _refuse(path, f"has keys {sorted(map(str, state))[:6]} of no known form")
+
+
+def write_checkpoint(directory: str, step: int, tree: Dict[str, object], keep: int = 3) -> str:
+    """``torch.save(tree)`` to ``<directory>/step_<step>.pth`` through a
+    ``.tmp`` file and ``os.replace``, then remove all but the newest
+    ``keep`` ``step_*.pth`` files there (Orbax's ``max_to_keep``); returns
+    the path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"step_{step:08d}.pth")
+    torch.save(tree, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    for old in sorted(glob.glob(os.path.join(directory, "step_*.pth")))[:-keep]:
+        os.remove(old)
+    return path
 
 
 def restore(path: str, modules: Dict[str, nn.Module], logger: logging.Logger,

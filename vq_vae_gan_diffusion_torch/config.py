@@ -178,3 +178,35 @@ def validate(cfg: Config) -> None:
             "stage-2 models will use the actual encoder output size.",
             vq.latent_size, resolve_img_size(cfg), n_down, expected_latent,
         )
+
+
+# The command-line values of the root CLIs' --fused-sampler and
+# --fused-posterior. on/off become True/False; the others (the JAX package's
+# TPU modes) are written as given, and every truthy value selects the CUDA
+# kernels where the config is read (``shuffle_infer``, ``posterior_mode``).
+FUSED_SAMPLER_CHOICES = ("on", "off", "pallas", "packed")
+FUSED_POSTERIOR_CHOICES = ("on", "off", "interpret", "prng")
+
+
+def flag_value(flag: str) -> Any:
+    """A CLI's fused-route flag as the config stores it."""
+    return {"on": True, "off": False}.get(flag, flag)
+
+
+def apply_fused_flags(cfg: Config, fused_sampler: str | None = None,
+                      fused_posterior: str | None = None) -> Config:
+    """``cfg`` with the root ``train.py``'s and ``generate.py``'s overrides:
+    ``fused_sampler`` into ``trainer.{gaussiandiffusion3d,vqdiffusion}``
+    where the config has them and into ``architecture.vqdiffusion``;
+    ``fused_posterior`` into ``architecture.vqdiffusion`` where it exists."""
+    if fused_sampler is not None:
+        val = flag_value(fused_sampler)
+        for fam in ("gaussiandiffusion3d", "vqdiffusion"):
+            if fam in cfg.trainer:
+                cfg = cfg.replace_path(f"trainer.{fam}.fused_sampler", val)
+        if "vqdiffusion" in cfg.architecture:
+            cfg = cfg.replace_path("architecture.vqdiffusion.fused_sampler", val)
+    if fused_posterior is not None and "vqdiffusion" in cfg.architecture:
+        cfg = cfg.replace_path("architecture.vqdiffusion.fused_posterior",
+                               flag_value(fused_posterior))
+    return cfg

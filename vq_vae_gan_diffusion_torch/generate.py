@@ -5,9 +5,12 @@ stage-1 ``vqvae`` / ``vqgan`` models, the ``*_transformer`` models, the
 Usage::
 
     python -m vq_vae_gan_diffusion_torch.generate \\
-        --config configs/inference_config_small.yml [--n-samples 16] [--seed 42] \\
-        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off] \\
-        [--fused-posterior on|off|prng]
+        [--config configs/training_config_small.yml] [--n-samples 16] [--seed 42] \\
+        [--ckpt PATH] [--device cuda|cpu] [--fused-sampler on|off|pallas|packed] \\
+        [--fused-posterior on|off|interpret|prng]
+
+The default config is the root ``generate.py``'s; the GPT serving config
+is ``configs/inference_config_small.yml``.
 
 For ``vqvae`` / ``vqgan`` it writes ``val_recon_epoch0.jpg``: the first
 ``--n-samples`` images of the val split over the VQVAE's reconstructions
@@ -45,13 +48,14 @@ a directory or a file of no known form raises (``checkpoint.py``).
 ``--fused-sampler`` overrides ``architecture.vqdiffusion.fused_sampler``
 and, as the root ``generate.py`` does, ``trainer.{gaussiandiffusion3d,
 vqdiffusion}.fused_sampler`` where the config has them: ``on`` runs the
-CUDA kernels, ``off`` the unfused U-Net module (the config itself may also
-say ``pallas`` or ``packed``, which select the kernels too).
+CUDA kernels, ``off`` the unfused U-Net module; ``pallas`` and ``packed``
+(the JAX package's TPU modes) are written as given and select the kernels
+too (``config.apply_fused_flags``, shared with the train CLI).
 ``--fused-posterior`` overrides ``architecture.vqdiffusion.fused_posterior``
 for the discrete prior: ``on`` runs each structured reverse step's posterior
 and sample as one fused kernel reading Gumbel noise, ``prng`` as the fused
-kernel that draws its own, ``off`` as plain ops (the config may also say
-``interpret``, which counts as on; unset, it is on for CUDA). It runs on
+kernel that draws its own, ``off`` as plain ops (``interpret`` counts as
+on; unset, it is on for CUDA). It runs on
 CUDA unless ``--device cpu``.
 """
 
@@ -61,7 +65,8 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from .config import VQ_STAGE1_MODELS, load_config, validate
+from .config import (FUSED_POSTERIOR_CHOICES, FUSED_SAMPLER_CHOICES, VQ_STAGE1_MODELS,
+                     apply_fused_flags, load_config, validate)
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -71,7 +76,7 @@ def run(argv: Optional[Sequence[str]] = None,
     ``overrides`` maps dotted config paths to values set after the command
     line's (e.g. ``{"architecture.vqdiffusion.sampling_steps": 20}``)."""
     parser = argparse.ArgumentParser(description="PyTorch/CUDA generation")
-    parser.add_argument("--config", type=str, default="configs/inference_config_small.yml")
+    parser.add_argument("--config", type=str, default="configs/training_config_small.yml")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--n-samples", type=int, default=16)
     parser.add_argument("--ckpt", type=str, default=None,
@@ -80,27 +85,17 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
     parser.add_argument("--fused-sampler", type=str, default=None,
-                        choices=["on", "off"],
+                        choices=FUSED_SAMPLER_CHOICES,
                         help="override the config's fused_sampler keys")
     parser.add_argument("--fused-posterior", type=str, default=None,
-                        choices=["on", "off", "prng"],
+                        choices=FUSED_POSTERIOR_CHOICES,
                         help="override architecture.vqdiffusion.fused_posterior")
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
     validate(config)
     model_name = config.architecture.model_name
-    if args.fused_sampler is not None:
-        on = args.fused_sampler == "on"
-        for family in ("gaussiandiffusion3d", "vqdiffusion"):
-            if family in config.trainer:
-                config = config.replace_path(f"trainer.{family}.fused_sampler", on)
-        if "vqdiffusion" in config.architecture:
-            config = config.replace_path("architecture.vqdiffusion.fused_sampler", on)
-    if args.fused_posterior is not None and "vqdiffusion" in config.architecture:
-        config = config.replace_path("architecture.vqdiffusion.fused_posterior",
-                                     {"on": True, "off": False}.get(args.fused_posterior,
-                                                                    args.fused_posterior))
+    config = apply_fused_flags(config, args.fused_sampler, args.fused_posterior)
 
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)

@@ -16,7 +16,6 @@ nothing is left queued when the process ends.
 
 from __future__ import annotations
 
-import glob
 import logging
 import os
 import time
@@ -26,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..checkpoint import restore
+from ..checkpoint import restore, write_checkpoint
 from ..config import Config
 from ..utils import (MetricWriter, adaptive_save_step, make_grid, resolve_device, save_image,
                      to_uint8)
@@ -273,13 +272,9 @@ class TrainingWorker(Worker):
         """``torch.save({"state", "step", "epoch"})`` to
         ``<save_ckpt_dir>/step_<step>.pth``, keeping the newest
         ``keep_checkpoints``; returns the path."""
-        os.makedirs(self.save_ckpt_dir, exist_ok=True)
-        path = os.path.join(self.save_ckpt_dir, f"step_{self.global_step:08d}.pth")
-        torch.save({**self.checkpoint_tree(), "epoch": epoch}, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in sorted(glob.glob(os.path.join(self.save_ckpt_dir, "step_*.pth")))[
-                :-self.keep_checkpoints]:
-            os.remove(old)
+        path = write_checkpoint(self.save_ckpt_dir, self.global_step,
+                                {**self.checkpoint_tree(), "epoch": epoch},
+                                self.keep_checkpoints)
         self.logger.info("checkpoint %s", path)
         return path
 

@@ -5,7 +5,8 @@ Usage::
 
     python -m vq_vae_gan_diffusion_torch.train \\
         --config configs/training_config_mnist.yml [--seed 42] [--debug] \\
-        [--epochs N] [--device cuda|cpu]
+        [--epochs N] [--device cuda|cpu] [--fused-sampler on|off|pallas|packed] \\
+        [--fused-posterior on|off|interpret|prng]
 
 Builds ``<trainer.log_dir>/<dataset>/<model>/run_<time>/`` with a copy of
 the config and ``info.log``, loads the train and val splits (a synthetic
@@ -43,7 +44,10 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
   ``architecture.vae.resume_path`` resumes from such a checkpoint.
 
 A prior's training checkpoint at ``architecture.<model>.resume_path``
-resumes it at its step. ``--debug`` trains one epoch of two batches of 2
+resumes it at its step. ``--fused-sampler`` and ``--fused-posterior``
+write the keys the root ``train.py`` writes (``config.apply_fused_flags``,
+shared with ``generate``). When the val split does not load, a warning and
+no validation grid, as the root CLI. ``--debug`` trains one epoch of two batches of 2
 images from the val split, as the root ``train.py`` does. It runs on CUDA
 unless ``--device cpu``; with no GPU it raises.
 """
@@ -54,7 +58,8 @@ import argparse
 import sys
 from typing import Dict, Optional, Sequence
 
-from ..config import (CONTINUOUS_MODELS, TRANSFORMER_MODELS, VQ_STAGE1_MODELS, load_config,
+from ..config import (CONTINUOUS_MODELS, FUSED_POSTERIOR_CHOICES, FUSED_SAMPLER_CHOICES,
+                      TRANSFORMER_MODELS, VQ_STAGE1_MODELS, apply_fused_flags, load_config,
                       validate)
 
 
@@ -71,6 +76,12 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--epochs", type=int, default=None, help="override trainer.num_epochs")
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
+    parser.add_argument("--fused-sampler", type=str, default=None,
+                        choices=FUSED_SAMPLER_CHOICES,
+                        help="override the config's fused_sampler keys")
+    parser.add_argument("--fused-posterior", type=str, default=None,
+                        choices=FUSED_POSTERIOR_CHOICES,
+                        help="override architecture.vqdiffusion.fused_posterior")
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
@@ -83,6 +94,7 @@ def run(argv: Optional[Sequence[str]] = None,
         config = config.replace_path("trainer.num_workers", 1)
         config = config.replace_path(f"dataset.batch_size.{model_name}.{dataset_name}", 2)
         train_split = "val"
+    config = apply_fused_flags(config, args.fused_sampler, args.fused_posterior)
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
@@ -101,7 +113,11 @@ def run(argv: Optional[Sequence[str]] = None,
     logger.info("model=%s dataset=%s device=%s run_dir=%s", model_name, dataset_name,
                 device, run_dir)
     train_loader, _ = load_dataloader(dataset_name, train_split, logger, config, seed=args.seed)
-    val_loader, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
+    try:
+        val_loader, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
+    except Exception as e:  # the val split is optional, as in the root train.py
+        logger.warning("no val split: %s", e)
+        val_loader = None
     kwargs = dict(debug=args.debug, seed=args.seed, device=str(device))
     if model_name in VQ_STAGE1_MODELS:
         worker_cls = VQGANVQVAEWorker

@@ -18,7 +18,7 @@ otherwise, normalised by (0.5, 0.5); where the dataset is not under
 ``--data-root``, a warning and ``max(4 * batch, 64)`` synthetic images.
 Each epoch writes ``metrics.jsonl`` (the epoch's mean loss and seconds) and
 a checkpoint ``ckpt/step_<step>.pth`` (the U-Net, Adam, the EMA, the
-epoch) under ``<log-dir>/<dataset>/<time>_diffusion/``; every 5th epoch
+epoch; the newest 3 kept, as the root CLI's Orbax manager keeps them) under ``<log-dir>/<dataset>/<time>_diffusion/``; every 5th epoch
 the EMA samples 64 images through ``--sampling-timesteps`` DDIM steps at
 ``--eta``, written as ``samples_epoch_<e>.png``. ``--debug`` trains one
 epoch of 11 batches of 2 and samples 4 images through 8 DDIM steps.
@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .checkpoint import write_checkpoint
 from .diffusion.gaussian import ddim_sample, diffusion_loss, make_schedule
 from .models.unet2d import Unet2DPixel
 from .utils.ema import ema_update
@@ -239,10 +240,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
             logger.info("epoch %d: avg loss %.6f (%.1fs, %.1f img/s)", epoch, avg, dt,
                         count * args.batch_size / dt)
             metrics.write(state.step, {"loss": avg, "epoch_time_s": dt})
-            ckpt_dir = os.path.join(save_dir, "ckpt")
-            os.makedirs(ckpt_dir, exist_ok=True)
-            torch.save({**state.state_dict(), "epoch": epoch},
-                       os.path.join(ckpt_dir, f"step_{state.step:08d}.pth"))
+            write_checkpoint(os.path.join(save_dir, "ckpt"), state.step,
+                             {**state.state_dict(), "epoch": epoch})
             if epoch % 5 == 0 or args.debug:
                 samples = trainer.sample(state, 4 if args.debug else 64)
                 s = samples.float().cpu().numpy()
