@@ -112,5 +112,9 @@ def test_prng_route_runs_on_cpu():
 
 
 def test_text_condition_not_ported():
+    """The cross-attention is built (tests/test_torch_port_xattn.py holds it
+    to JAX); the CLIP text encoder is not in the repository, so
+    ``encode_text`` raises."""
+    tm = TorchTVQ(use_text_condition=True, **GEOMETRY)
     with pytest.raises(NotImplementedError, match="CLIP"):
-        TorchTVQ(use_text_condition=True, **GEOMETRY)
+        tm.encode_text(["a cat"])

@@ -13,8 +13,8 @@ reverse step runs through the fused posterior-and-sample kernel that reads
 its Gumbel noise (``on``, the default on CUDA), the one that draws it
 (``prng``), or plain ops (``off``), as ``generate --fused-posterior`` sets
 it. It runs on CUDA unless ``--device cpu``. Text conditioning needs CLIP
-weights, which the repository does not hold: ``--use-text-condition``
-raises.
+weights, which the repository does not hold: under ``--use-text-condition``
+``encode_text`` raises.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                         help="the samplers' posterior route (default: on for CUDA)")
     args = parser.parse_args(argv)
 
+    from .config import flag_value
     from .models.transformer_vq_diffusion import TransformerVQDiffusion
     from .utils import resolve_device
 
@@ -53,7 +54,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     m = TransformerVQDiffusion(codebook_size=args.codebook_size, seq_len=args.seq_len,
                                diffusion_steps=args.diffusion_steps,
                                use_text_condition=args.use_text_condition,
-                               fused_posterior={"on": True, "off": False}.get(mode, mode))
+                               fused_posterior=flag_value(mode))
+    m.encode_text(["a ramp of tokens"])                # raises under --use-text-condition
     m.predictor.init_weights(torch.Generator().manual_seed(args.seed))
     m = m.to(device)
     torch.manual_seed(args.seed)                       # the dropout masks

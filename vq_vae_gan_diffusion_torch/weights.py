@@ -224,6 +224,9 @@ def gpt_state_from_jax(params: Dict[str, Any]) -> State:
 
 
 def _mha(out: State, p: str, sub) -> None:
+    """flax ``MultiHeadDotProductAttention``: query, key and value kernels
+    [D_in, H, hd] (D_in the context's width for key and value), out [H, hd,
+    D]."""
     for name in ("query", "key", "value", "out"):
         kernel = np.asarray(sub[name]["kernel"])
         c_out = kernel.shape[-1] if name == "out" else kernel.shape[1] * kernel.shape[2]
@@ -244,6 +247,9 @@ def transformer_predictor_state_from_jax(params: Dict[str, Any]) -> State:
         _dense(out, f"{p}.ada_ln_scale", sub["ada_ln_scale"])
         _dense(out, f"{p}.ada_ln_bias", sub["ada_ln_bias"])
         _mha(out, f"{p}.self_attention", sub["self_attention"])
+        if "cross_attention" in sub:
+            _ln(out, f"{p}.norm_cross", sub["norm_cross"])
+            _mha(out, f"{p}.cross_attention", sub["cross_attention"])
         _ln(out, f"{p}.norm2", sub["norm2"])
         _dense(out, f"{p}.ffn1", sub["ffn1"])
         _dense(out, f"{p}.ffn2", sub["ffn2"])
