@@ -57,3 +57,11 @@ def save_gif(frames: Sequence[np.ndarray], path: str, fps: int = 2,
             for f in list(frames)[-max_frames:]]
     imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=1000 // fps,
                  loop=0)
+
+
+def psnr(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:
+    """Peak signal-to-noise ratio of two arrays in float64; inf when equal."""
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    if mse == 0:
+        return float("inf")
+    return 10.0 * np.log10(data_range ** 2 / mse)
