@@ -124,8 +124,9 @@ class GaussianDiffusion2D(nn.Module):
         b, n, d = gaussian.shape
         flat = gaussian.reshape(-1, d).float()
         table = self.lookup_table
-        dist = (torch.sum(flat ** 2, -1, keepdim=True) + torch.sum(table ** 2, -1)
-                - 2 * flat @ table.T)
+        with torch.autocast(flat.device.type, enabled=False):
+            dist = (torch.sum(flat ** 2, -1, keepdim=True) + torch.sum(table ** 2, -1)
+                    - 2 * flat @ table.T)
         return torch.argmin(dist, dim=-1).reshape(b, n)
 
     def to_continuous(self, indices: torch.Tensor) -> torch.Tensor:

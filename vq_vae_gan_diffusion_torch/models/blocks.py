@@ -31,7 +31,9 @@ class Swish(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """32-group GroupNorm (or the largest divisor of C that is <= 32), eps 1e-6."""
+    """32-group GroupNorm (or the largest divisor of C that is <= 32), eps 1e-6;
+    computed in f32 and returned in x's dtype (flax's norms under a bf16
+    ``dtype``)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -41,7 +43,8 @@ class GroupNorm(nn.Module):
         self.group_norm = nn.GroupNorm(num_groups, channels, eps=1e-6, affine=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.group_norm(x)
+        with torch.autocast(x.device.type, enabled=False):
+            return self.group_norm(x.float()).to(x.dtype)
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
@@ -108,6 +111,6 @@ class NonLocalBlock(nn.Module):
         q = self.q(xn).reshape(b, c, h * w).transpose(1, 2)       # [B, HW, C]
         k = self.k(xn).reshape(b, c, h * w)                       # [B, C, HW]
         v = self.v(xn).reshape(b, c, h * w).transpose(1, 2)       # [B, HW, C]
-        weights = torch.softmax(torch.bmm(q, k) * c ** -0.5, dim=-1)
+        weights = torch.softmax((torch.bmm(q, k) * c ** -0.5).float(), dim=-1).to(v.dtype)
         attn = torch.bmm(weights, v).transpose(1, 2).reshape(b, c, h, w)
         return xn + self.project_out(attn)

@@ -21,13 +21,15 @@ from torch import nn
 
 def nearest_codebook_indices(z_flat: torch.Tensor, codebook: torch.Tensor,
                              precision: str = "exact") -> torch.Tensor:
-    """argmin_k ||z - e_k||^2. [N, D] x [K, D] -> [N] int64."""
+    """argmin_k ||z - e_k||^2. [N, D] x [K, D] -> [N] int64. The distances are
+    f32 under any autocast, as the JAX package casts both operands to f32."""
     zf, cb = z_flat.float(), codebook.float()
     if precision == "bf16":
         zf, cb = zf.bfloat16().float(), cb.bfloat16().float()
     elif precision != "exact":
         raise ValueError(f"unknown codebook precision {precision!r}")
-    dist = -2.0 * (zf @ cb.T) + (codebook.float() ** 2).sum(1)[None, :]
+    with torch.autocast(z_flat.device.type, enabled=False):
+        dist = -2.0 * (zf @ cb.T) + (codebook.float() ** 2).sum(1)[None, :]
     return dist.argmin(1)
 
 

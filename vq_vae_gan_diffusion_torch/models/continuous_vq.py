@@ -32,6 +32,7 @@ from torch import nn
 from ..config import Config
 from ..diffusion.gaussian import _randn, ddim_sample, diffusion_loss, make_schedule
 from ..diffusion.gaussian3d import _draw_t_noise
+from ..utils.device import compute_autocast
 from .unet1d import Unet1D
 from .vqvae import VQVAE
 
@@ -96,13 +97,19 @@ class _ContinuousVQBase(nn.Module):
     @torch.no_grad()
     def sample(self, batch_size: int = 1, generator: Optional[torch.Generator] = None,
                unet: Optional[Unet1D] = None, *, x_T: Optional[torch.Tensor] = None,
-               step_noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+               step_noise: Optional[Sequence[torch.Tensor]] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Indices [batch_size, seq_length] from the DDIM chain of ``unet``
-        (default the composite's own, in eval mode) from x_T ~ N(0, I)."""
+        (default the composite's own, in eval mode, at compute type
+        ``dtype``) from x_T ~ N(0, I)."""
         unet = (self.unet if unet is None else unet).eval()
         if x_T is None:
             x_T = _randn((batch_size, self.channels, self.seq_length), generator, self._device())
-        state = ddim_sample(self.sched, lambda x, cond, t: unet(x, cond, t), x_T, None, 0.0,
+
+        def fwd(x, cond, t):
+            with compute_autocast(x.device, dtype):
+                return unet(x, cond, t)
+        state = ddim_sample(self.sched, fwd, x_T, None, 0.0,
                             min(self.sampling_timesteps, 500), self.objective,
                             generator=generator, step_noise=step_noise)
         return self.to_indices(state)
@@ -122,8 +129,9 @@ class V_VQDiffusion(_ContinuousVQBase):
 
     def to_indices(self, state: torch.Tensor) -> torch.Tensor:
         emb, codebook = state.transpose(1, 2).float(), self._codebook().float()
-        d = (torch.sum(emb ** 2, -1, keepdim=True) + torch.sum(codebook ** 2, -1)
-             - 2 * torch.einsum("bnd,kd->bnk", emb, codebook))
+        with torch.autocast(emb.device.type, enabled=False):
+            d = (torch.sum(emb ** 2, -1, keepdim=True) + torch.sum(codebook ** 2, -1)
+                 - 2 * torch.einsum("bnd,kd->bnk", emb, codebook))
         return torch.argmin(d, dim=-1)
 
 

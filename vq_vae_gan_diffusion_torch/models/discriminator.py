@@ -73,9 +73,11 @@ class Discriminator(nn.Module):
 
 
 def _batch_norm(bn: nn.BatchNorm2d, h: torch.Tensor, update_stats: bool) -> torch.Tensor:
+    hf = h.float()                           # f32 statistics and arithmetic, as flax's
     if update_stats:
         with torch.no_grad():
-            var, mean = torch.var_mean(h, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(hf, dim=(0, 2, 3), correction=0)
             bn.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
             bn.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
-    return F.batch_norm(h, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+    return F.batch_norm(hf, None, None, bn.weight, bn.bias, training=True,
+                        eps=bn.eps).to(h.dtype)

@@ -94,7 +94,8 @@ class LPIPS(nn.Module):
         taps = self._taps((torch.cat([x, y]) - self.shift) / self.scale)
         total = 0.0
         for i, t in enumerate(taps):
-            t = t / (torch.sqrt((t * t).sum(1, keepdim=True)) + 1e-10)
+            tf = t.float()
+            t = t / (torch.sqrt((tf * tf).sum(1, keepdim=True)) + 1e-10).to(t.dtype)
             diff = (t[:b] - t[b:]) ** 2
             lin = torch.einsum("bchw,c->bhw", diff, getattr(self, f"lin{i}").abs())
             total = total + lin.mean((1, 2))

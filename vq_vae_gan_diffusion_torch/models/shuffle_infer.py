@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..ops.shuffle import (bn_affine, fold_bottleneck_params, fold_downsample_params,
                            fused_bottleneck, fused_downsample)
+from ..utils.device import compute_autocast
 from .unet_shuffle import ShuffleUNet, upsample_to
 
 _OFF = ("off", "false", "none", "0", "")
@@ -57,12 +58,18 @@ def eval_forward(unet: ShuffleUNet, fused_sampler: Any,
                                                                  torch.Tensor]:
     """``unet``'s NHWC eval forward ``fn(x, t)`` for one sampling chain: the
     BN-folded kernel route under a truthy ``fused_sampler`` (the
-    BatchNorms folded here, once), else the module in eval mode."""
+    BatchNorms folded here, once, from the f32 parameters into ``dtype``),
+    else the module in eval mode at compute type ``dtype``. Either returns
+    x's dtype, as the JAX folded route does."""
     if resolve_sampler_mode(fused_sampler):
         folded = fold_unet(unet, dtype)
         return lambda x, t: apply_folded(folded, x, t).to(x.dtype)
     unet.eval()
-    return lambda x, t: unet(x, None, t)
+
+    def fwd(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        with compute_autocast(x.device, dtype):
+            return unet(x, None, t).to(x.dtype)
+    return fwd
 
 
 @torch.no_grad()

@@ -43,13 +43,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased batch variance. ``num_batches_tracked`` stays as it is."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()                       # f32 statistics and arithmetic, as flax's
         if not self.training:
-            return super().forward(x)
+            return super().forward(xf).to(x.dtype)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        return F.batch_norm(xf, None, None, self.weight, self.bias, training=True,
+                            eps=self.eps).to(x.dtype)
 
 
 class ConvBnSiLu(nn.Module):

@@ -50,6 +50,7 @@ from ..config import Config
 from ..diffusion.discrete import DiscreteDiffusion, LtState
 from ..diffusion.gaussian2d import GaussianDiffusion2D, GaussianDiffusion2DConfig
 from ..diffusion.gaussian3d import VQGaussianDiffusion3D
+from ..utils.device import compute_autocast
 from .shuffle_infer import eval_forward
 from .unet1d import Unet1D
 from .unet_shuffle import ShuffleUNet
@@ -117,7 +118,11 @@ class VQDiffusionComposite(nn.Module):
         unet = self.unet if unet is None else unet
         if isinstance(unet, Unet1D):
             unet.eval()
-            return self._bind(lambda x, t: unet(x, None, t))
+
+            def fwd(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+                with compute_autocast(x.device, self.dtype):      # flax's dtype: out in it
+                    return unet(x, None, t)
+            return self._bind(fwd)
         return self._bind(eval_forward(unet, self.fused_sampler, self.dtype))
 
     def _bind(self, fwd):

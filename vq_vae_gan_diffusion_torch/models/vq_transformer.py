@@ -87,20 +87,21 @@ class VQTransformer(nn.Module):
         return self.gpt(new_indices[:, :-1]), indices
 
     @torch.no_grad()
-    def log_images(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+    def log_images(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
         """The training grid's rows for x [B, H, W, C]: ``input``, ``rec``,
         ``half_sample`` (the first T // 2 indices given, the rest sampled)
-        and ``full_sample``, as NHWC images. The GPT samples in eval mode and
-        goes back to the mode it was in."""
+        and ``full_sample``, as NHWC images. The GPT samples in eval mode, at
+        compute type ``dtype``, and goes back to the mode it was in."""
         _, indices = self.encode_to_z(x)
         b, t = indices.shape
         half = indices[:, : t // 2]
         was_training = self.gpt.training
         self.gpt.eval()
         try:
-            half_new = self.sample(b, start_indices=half, steps=t - t // 2, generator=generator)
-            full = self.sample(b, steps=t, generator=generator)
+            half_new = self.sample(b, start_indices=half, steps=t - t // 2, generator=generator,
+                                   dtype=dtype)
+            full = self.sample(b, steps=t, generator=generator, dtype=dtype)
         finally:
             self.gpt.train(was_training)
         return {"input": x, "rec": self.z_to_image(indices),

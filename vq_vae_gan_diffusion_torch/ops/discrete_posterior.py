@@ -262,7 +262,8 @@ def fused_posterior_sample(logits: torch.Tensor, x_t: torch.Tensor, coefs: torch
     classes of each row (truncated top-r).
 
     CUDA tensors go through the CUDA kernel, which adds one to
-    ``fused_posterior_sample.launches`` per call; CPU tensors go through
+    ``fused_posterior_sample.launches`` per call (and, in bf16, to
+    ``.bf16_launches``); CPU tensors go through
     :func:`reference_posterior_sample`. Any other device raises.
     """
     if logits.device.type == "cpu":
@@ -278,10 +279,12 @@ def fused_posterior_sample(logits: torch.Tensor, x_t: torch.Tensor, coefs: torch
             gumbel.data_ptr(), out.data_ptr(), b, n, km1 + 1, int(trunc_k),
             torch.cuda.current_stream(logits.device).cuda_stream)
     fused_posterior_sample.launches += 1
+    fused_posterior_sample.bf16_launches += logits.dtype == torch.bfloat16
     return out
 
 
 fused_posterior_sample.launches = 0
+fused_posterior_sample.bf16_launches = 0  # the launches of the bf16 instantiation
 
 
 def fused_posterior_sample_prng(logits: torch.Tensor, x_t: torch.Tensor, coefs: torch.Tensor,
@@ -292,7 +295,8 @@ def fused_posterior_sample_prng(logits: torch.Tensor, x_t: torch.Tensor, coefs: 
     or read.
 
     CUDA tensors go through the CUDA kernel, which adds one to
-    ``fused_posterior_sample_prng.launches`` per call; CPU tensors go
+    ``fused_posterior_sample_prng.launches`` per call (and, in bf16, to
+    ``.bf16_launches``); CPU tensors go
     through :func:`reference_posterior_sample_prng`. Any other device raises.
     """
     if logits.device.type == "cpu":
@@ -309,10 +313,12 @@ def fused_posterior_sample_prng(logits: torch.Tensor, x_t: torch.Tensor, coefs: 
             seeds.data_ptr(), out.data_ptr(), b, n, km1 + 1, int(trunc_k),
             torch.cuda.current_stream(logits.device).cuda_stream)
     fused_posterior_sample_prng.launches += 1
+    fused_posterior_sample_prng.bf16_launches += logits.dtype == torch.bfloat16
     return out
 
 
 fused_posterior_sample_prng.launches = 0
+fused_posterior_sample_prng.bf16_launches = 0  # the launches of the bf16 instantiation
 
 
 def _bind() -> ctypes.CDLL:

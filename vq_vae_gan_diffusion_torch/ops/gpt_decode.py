@@ -344,7 +344,8 @@ def fused_decode_stack(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     Returns (x_out [B, C] f32 before ``ln_f``, kv_new [L, B, 2C] in kv's dtype).
 
     CUDA tensors go through the CUDA kernel, one cooperative launch that
-    adds one to ``fused_decode_stack.launches``; a failed launch (a grid
+    adds one to ``fused_decode_stack.launches`` (and, in bf16, to
+    ``.bf16_launches``); a failed launch (a grid
     that cannot be co-resident among them) raises. CPU tensors go through
     :func:`reference_decode_stack`. Any other device raises.
     """
@@ -372,10 +373,12 @@ def fused_decode_stack(x: torch.Tensor, packed: Dict[str, torch.Tensor],
     if err != 0:
         raise RuntimeError(f"gpt_decode_stack launch failed: cudaError {err}")
     fused_decode_stack.launches += 1
+    fused_decode_stack.bf16_launches += kv.dtype == torch.bfloat16
     return x_out, kv_new
 
 
 fused_decode_stack.launches = 0
+fused_decode_stack.bf16_launches = 0      # the launches of the bf16 instantiation
 
 
 def _launch_quant(x, packed, kv, kv_scales, t, n_head, dtype):

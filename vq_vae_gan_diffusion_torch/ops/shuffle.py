@@ -338,7 +338,7 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded) -> torch.Tensor:
 
     CUDA tensors go through the CUDA kernel, on the tile of
     :func:`bottleneck_plan`, which adds one to ``fused_bottleneck.launches``
-    per call; CPU tensors go through :func:`reference_bottleneck`. Any other
+    per call (and, in bf16, to ``.bf16_launches``); CPU tensors go through :func:`reference_bottleneck`. Any other
     device raises.
     """
     if x.device.type == "cpu":
@@ -359,10 +359,12 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded) -> torch.Tensor:
     _launch(fn, "shuffle_bottleneck", x.data_ptr(), out.data_ptr(), _params(folded), b, h, w,
             ch, co2, plan.th, plan.tw, plan.smem, torch.cuda.current_stream(x.device).cuda_stream)
     fused_bottleneck.launches += 1
+    fused_bottleneck.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.bf16_launches = 0        # the launches of the bf16 instantiation
 
 
 def fused_downsample(x: torch.Tensor, folded: Folded,
@@ -381,7 +383,7 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
 
     CUDA tensors go through the CUDA kernel, on the tile of
     :func:`downsample_plan`, which adds one to ``fused_downsample.launches``
-    per call; CPU tensors go through :func:`reference_downsample`. Any other
+    per call (and, in bf16, to ``.bf16_launches``); CPU tensors go through :func:`reference_downsample`. Any other
     device raises.
     """
     if x.device.type == "cpu":
@@ -410,10 +412,12 @@ def fused_downsample(x: torch.Tensor, folded: Folded,
             b, h, w, c, co2, plan.th, plan.tw, plan.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
     fused_downsample.launches += 1
+    fused_downsample.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 fused_downsample.launches = 0
+fused_downsample.bf16_launches = 0        # the launches of the bf16 instantiation
 
 
 def _bind() -> ctypes.CDLL:

@@ -27,8 +27,8 @@ from torch import nn
 
 from ..checkpoint import restore, write_checkpoint
 from ..config import Config
-from ..utils import (MetricWriter, adaptive_save_step, make_grid, resolve_device, save_image,
-                     to_uint8)
+from ..utils import (MetricWriter, adaptive_save_step, compute_autocast, make_grid,
+                     resolve_device, save_image, to_uint8)
 
 
 class Worker:
@@ -47,6 +47,13 @@ class Worker:
         self.mean = list(config.dataset.mean)[:ch] or [0.5]
         self.std = list(config.dataset.std)[:ch] or [0.5]
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def autocast(self):
+        """The context of the worker's forwards at its compute ``dtype``
+        (:func:`..utils.compute_autocast`): bf16 autocast under ``--bf16``,
+        nothing in f32. Parameters, optimizer moments, EMA copies and
+        BatchNorm statistics stay f32 either way."""
+        return compute_autocast(self.device, self.dtype)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -188,8 +195,9 @@ class TrainingWorker(Worker):
 
     def __init__(self, config: Config, run_dir: str,
                  logger: Optional[logging.Logger] = None, debug: bool = False, seed: int = 0,
-                 save_ckpt_dir: Optional[str] = None, device: Optional[str] = None):
-        super().__init__(config, run_dir, logger, seed, device)
+                 save_ckpt_dir: Optional[str] = None, device: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, seed, device, dtype)
         self.debug = debug
         self.save_ckpt_dir = save_ckpt_dir or os.path.join(run_dir, "ckpt")
         self.metrics: Optional[MetricWriter] = None

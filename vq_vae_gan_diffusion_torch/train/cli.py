@@ -6,7 +6,7 @@ Usage::
     python -m vq_vae_gan_diffusion_torch.train \\
         --config configs/training_config_mnist.yml [--seed 42] [--debug] \\
         [--epochs N] [--device cuda|cpu] [--fused-sampler on|off|pallas|packed] \\
-        [--fused-posterior on|off|interpret|prng]
+        [--fused-posterior on|off|interpret|prng] [--bf16]
 
 Builds ``<trainer.log_dir>/<dataset>/<model>/run_<time>/`` with a copy of
 the config and ``info.log``, loads the train and val splits (a synthetic
@@ -44,7 +44,13 @@ checkpoint an epoch (``ckpt/step_<step>.pth``):
   ``architecture.vae.resume_path`` resumes from such a checkpoint.
 
 A prior's training checkpoint at ``architecture.<model>.resume_path``
-resumes it at its step. ``--fused-sampler`` and ``--fused-posterior``
+resumes it at its step. ``--bf16`` trains in bfloat16 as the root CLI's
+flag does (flax's ``dtype=bfloat16`` with f32 parameters): each worker's
+forward runs under bf16 autocast with the JAX package's f32 islands kept
+f32, its sampling hooks sample in bf16 (the GPT's decode stack, the folded
+U-Net's units and the discrete posterior in their bf16 builds where the
+hook gives them bf16), and parameters, Adam's moments, EMA copies,
+BatchNorm statistics and checkpoints stay f32. ``--fused-sampler`` and ``--fused-posterior``
 write the keys the root ``train.py`` writes (``config.apply_fused_flags``,
 shared with ``generate``). When the val split does not load, a warning and
 no validation grid, as the root CLI. ``--debug`` trains one epoch of two batches of 2
@@ -76,6 +82,9 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--epochs", type=int, default=None, help="override trainer.num_epochs")
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (parameters, moments, EMA and checkpoints "
+                             "stay f32)")
     parser.add_argument("--fused-sampler", type=str, default=None,
                         choices=FUSED_SAMPLER_CHOICES,
                         help="override the config's fused_sampler keys")
@@ -98,6 +107,8 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
 
+    import torch
+
     from ..data import load_dataloader
     from ..utils import create_run_dir, resolve_device, setup_logging
     from .continuous_vq_worker import ContinuousVQDiffusionWorker
@@ -118,7 +129,8 @@ def run(argv: Optional[Sequence[str]] = None,
     except Exception as e:  # the val split is optional, as in the root train.py
         logger.warning("no val split: %s", e)
         val_loader = None
-    kwargs = dict(debug=args.debug, seed=args.seed, device=str(device))
+    kwargs = dict(debug=args.debug, seed=args.seed, device=str(device),
+                  dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if model_name in VQ_STAGE1_MODELS:
         worker_cls = VQGANVQVAEWorker
     elif model_name in TRANSFORMER_MODELS:

@@ -36,8 +36,8 @@ EMA_DECAY = 0.999
 class ContinuousVQDiffusionWorker(DiffusionTrainer, ServingWorker):
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         self.model_name = str(config.architecture.model_name)
         self.trainer_cfg = config.trainer.get(self.model_name, config.trainer.get("vqdiffusion"))
         self.composite: Optional[C_VQDiffusion] = None
@@ -104,7 +104,8 @@ class ContinuousVQDiffusionWorker(DiffusionTrainer, ServingWorker):
         """One step on ``batch`` [B, H, W, C] -> (state, metrics). ``t`` and
         ``noise`` come from ``generator`` unless given."""
         imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        loss = self.composite.loss(imgs, generator, t=t, noise=noise)
+        with self.autocast():
+            loss = self.composite.loss(imgs, generator, t=t, noise=noise)
         self._step(state, loss, EMA_DECAY, 1)
         return state, {"loss": loss.detach()}
 
@@ -117,7 +118,8 @@ class ContinuousVQDiffusionWorker(DiffusionTrainer, ServingWorker):
         ignored, as in the JAX worker. Returns the indices, the images, the
         grid's path and the seconds of each phase."""
         out = self._sample_and_decode(
-            lambda: self.composite.sample(n_samples, self.generator, self.state.ema),
+            lambda: self.composite.sample(n_samples, self.generator, self.state.ema,
+                                          dtype=self.dtype),
             self.composite.z_to_image, epoch)
         out["indices"] = out.pop("codes")
         return out

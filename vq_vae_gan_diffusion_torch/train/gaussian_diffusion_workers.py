@@ -77,8 +77,8 @@ class GaussianDiffusion2DWorker(DiffusionTrainer):
 
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         dcfg = config.architecture.gaussiandiffusion2d
         self.trainer_cfg = tr = config.trainer.gaussiandiffusion2d
         self.img_size = resolve_img_size(config)
@@ -141,7 +141,8 @@ class GaussianDiffusion2DWorker(DiffusionTrainer):
         x0 = imgs[..., 0] if imgs.dim() == 4 else imgs
         unet = state.unet.train()
         self.process.model_fn = lambda x, self_cond, tt: unet(x, self_cond, tt)
-        loss = self.process.loss(x0, generator, t=t, noise=noise)
+        with self.autocast():
+            loss = self.process.loss(x0, generator, t=t, noise=noise)
         self._step(state, loss, self.ema_decay, self.ema_every)
         return state, {"loss": loss.detach()}
 
@@ -153,7 +154,11 @@ class GaussianDiffusion2DWorker(DiffusionTrainer):
         copy) from uniform noise. Noise from ``generator`` (default the
         worker's) or injected (``xt``, ``step_noise``)."""
         unet = (self.state.ema if unet is None else unet).eval()
-        self.process.model_fn = lambda x, self_cond, t: unet(x, self_cond, t)
+
+        def model_fn(x, self_cond, t):
+            with self.autocast():
+                return unet(x, self_cond, t)
+        self.process.model_fn = model_fn
         gen = self.generator if generator is None else generator
         if xt is None:
             xt = torch.rand((self.n_samples, self.img_size, self.img_size), generator=gen,
@@ -186,8 +191,9 @@ class GaussianDiffusion3DWorker(DiffusionTrainer):
 
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None, num_iters_per_epoch: int = 100):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, num_iters_per_epoch: int = 100,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         dcfg = config.architecture.gaussiandiffusion3d
         tr = config.trainer.gaussiandiffusion3d
         self.img_size, self.channels = resolve_img_size(config), resolve_img_channels(config)
@@ -250,7 +256,8 @@ class GaussianDiffusion3DWorker(DiffusionTrainer):
         imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
         unet = state.unet.train()
         self.process.model_fn = lambda x, self_cond, tt: unet(x, None, tt)
-        loss = self.process.loss(imgs, generator, t=t, noise=noise)
+        with self.autocast():
+            loss = self.process.loss(imgs, generator, t=t, noise=noise)
         self._update(state, loss)
         return state, {"loss": loss.detach()}
 

@@ -58,8 +58,8 @@ class VAEWorker(TrainingWorker):
 
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         self.trainer_cfg = config.trainer.get("vae", config.trainer.get("vqvae"))
         tr = self.trainer_cfg
         self.lr = float(tr.get("learning_rate", 2.25e-5))
@@ -124,7 +124,8 @@ class VAEWorker(TrainingWorker):
         it) -> (state, metrics); ε from ``generator`` unless ``eps`` is given.
         The state's VAE and optimizer move in place."""
         imgs = self.batch_to_device(batch) if not isinstance(batch, torch.Tensor) else batch
-        loss, metrics = self.loss(state.vae.eval(), imgs, eps, generator)
+        with self.autocast():
+            loss, metrics = self.loss(state.vae.eval(), imgs, eps, generator)
         state.opt.zero_grad()
         loss.backward()
         state.opt.step()
@@ -157,7 +158,8 @@ class VAEWorker(TrainingWorker):
         g = vae.latent_size
         z = torch.randn(n_samples, g, g, vae.latent_channels, generator=self.generator,
                         device=self.device)
-        return vae.decode(z.to(next(vae.parameters()).dtype))
+        with self.autocast():
+            return vae.decode(z)
 
     def generate_images(self, val_loader=None, n_samples: int = 16,
                         epoch: int = 0) -> Dict[str, object]:

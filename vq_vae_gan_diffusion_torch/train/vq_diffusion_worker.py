@@ -46,8 +46,9 @@ class VQDiffusionWorker(DiffusionTrainer, ServingWorker):
 
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None, num_iters_per_epoch: int = 100):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, num_iters_per_epoch: int = 100,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         tr = config.trainer.vqdiffusion
         self._setup_schedule(tr, num_iters_per_epoch, float(tr.beta2))
 
@@ -114,8 +115,9 @@ class VQDiffusionWorker(DiffusionTrainer, ServingWorker):
         ``noise`` (gaussian3d: the Gaussian noise; VQ_Official: the Gumbel
         noise of q(x_t | x_0)) come from ``generator`` unless given."""
         imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        loss, metrics, state.lt = self.composite.loss(imgs, generator, t=t, noise=noise,
-                                                      lt=state.lt)
+        with self.autocast():
+            loss, metrics, state.lt = self.composite.loss(imgs, generator, t=t, noise=noise,
+                                                          lt=state.lt)
         self._update(state, loss)
         return state, {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
 

@@ -79,8 +79,8 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
 
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         self.model_name = config.architecture.model_name
         tr = config.trainer[self.model_name if self.model_name in config.trainer
                             else "vqvae_transformer"]
@@ -144,9 +144,10 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         corruption draws come from ``generator`` unless ``keep`` and
         ``random_indices`` [B, T] are given."""
         imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        logits, targets = self.composite(imgs, generator, keep=keep,
-                                         random_indices=random_indices)
-        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        with self.autocast():
+            logits, targets = self.composite(imgs, generator, keep=keep,
+                                             random_indices=random_indices)
+        logits = logits.float()
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
         acc = (logits.argmax(-1) == targets).float().mean()
         state.opt.zero_grad()
@@ -160,7 +161,7 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         """The first 4 images of ``batch``, their reconstructions, the
         completions of their first half and full samples, one row each, as
         ``transformer_epoch{epoch}_{index}.jpg``."""
-        logs = self.composite.log_images(batch[:4], self.generator)
+        logs = self.composite.log_images(batch[:4], self.generator, dtype=self.dtype)
         rows = [self.to_uint8(logs[k]) for k in ("input", "rec", "half_sample", "full_sample")]
         save_image(make_grid(np.concatenate(rows, axis=0), nrow=4),
                    os.path.join(self.run_dir, f"transformer_epoch{epoch}_{index}.jpg"))

@@ -29,6 +29,11 @@ One step, as the JAX step computes it:
   and the generator's Adam steps (eps 1e-8; ``gradient_accumulate_every``
   through :func:`.base.maybe_accumulate`).
 
+Under ``--bf16`` the forward runs under the worker's autocast (the
+VQVAE, LPIPS and the discriminator in bf16 on f32 parameters, the JAX
+step's ``dtype=bfloat16``); the codebook's distances, the BatchNorm
+statistics and the losses stay f32.
+
 The metrics are the JAX step's: ``vq_loss``, ``gan_loss``, ``q_loss``,
 ``perceptual_rec_loss``, ``lambda``, ``disc_factor``, as 0-d tensors on the
 worker's device.
@@ -90,8 +95,8 @@ class VQGANVQVAEWorker(TrainingWorker):
 
     def __init__(self, config: Config, run_dir: str, logger=None, debug: bool = False,
                  seed: int = 0, save_ckpt_dir: Optional[str] = None,
-                 device: Optional[str] = None):
-        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device)
+                 device: Optional[str] = None, dtype: torch.dtype = torch.float32):
+        super().__init__(config, run_dir, logger, debug, seed, save_ckpt_dir, device, dtype)
         self.model_name = config.architecture.model_name
         self.is_gan = "vqgan" in self.model_name
         tr = config.trainer.vqvae
@@ -159,9 +164,9 @@ class VQGANVQVAEWorker(TrainingWorker):
     # -- the step ------------------------------------------------------------
     def _perceptual_rec(self, imgs: torch.Tensor, decoded: torch.Tensor,
                         mask: Optional[torch.Tensor]) -> torch.Tensor:
-        prl = self.rec_factor * (imgs - decoded).abs()
+        prl = self.rec_factor * (imgs - decoded.float()).abs()
         if self.perceptual_factor != 0.0:
-            prl = prl + self.perceptual_factor * self.lpips(imgs, decoded)
+            prl = prl + self.perceptual_factor * self.lpips(imgs, decoded).float()
         if mask is not None:
             prl = prl * mask
         return prl.mean()
@@ -190,24 +195,25 @@ class VQGANVQVAEWorker(TrainingWorker):
         vqvae, disc = state.vqvae.eval(), state.disc
         df = adopt_weight(self.disc_factor, state.step, self.disc_start) if self.is_gan else 0.0
         mask = self._hand_mask(imgs)
-        if self.remat:
-            decoded, indices, q_loss = checkpoint(vqvae, imgs, use_reentrant=False)
-        else:
-            decoded, indices, q_loss = vqvae(imgs)
-        prl = self._perceptual_rec(imgs, decoded, mask)
-        zero = torch.zeros((), device=imgs.device)
-        if self.is_gan:
-            frozen = {k: v.detach() for k, v in disc.named_parameters()}
-            g_loss = -functional_call(disc, frozen, (decoded,)).mean()
-            lam = self._lambda(state, prl, g_loss)
-            vq_loss = prl + q_loss + df * lam * g_loss
-            d_real = disc(imgs, update_stats=True)
-            d_fake = disc(decoded, update_stats=True)
-            gan_loss = df * 0.5 * (F.relu(1.0 - d_real).mean() + F.relu(1.0 + d_fake).mean())
-            total = vq_loss + gan_loss
-        else:
-            lam, gan_loss = zero, zero
-            vq_loss = total = prl + q_loss
+        with self.autocast():
+            if self.remat:
+                decoded, indices, q_loss = checkpoint(vqvae, imgs, use_reentrant=False)
+            else:
+                decoded, indices, q_loss = vqvae(imgs)
+            prl = self._perceptual_rec(imgs, decoded, mask)
+            zero = torch.zeros((), device=imgs.device)
+            if self.is_gan:
+                frozen = {k: v.detach() for k, v in disc.named_parameters()}
+                g_loss = -functional_call(disc, frozen, (decoded,)).float().mean()
+                lam = self._lambda(state, prl, g_loss)
+                vq_loss = prl + q_loss + df * lam * g_loss
+                d_real = disc(imgs, update_stats=True).float()
+                d_fake = disc(decoded, update_stats=True).float()
+                gan_loss = df * 0.5 * (F.relu(1.0 - d_real).mean() + F.relu(1.0 + d_fake).mean())
+                total = vq_loss + gan_loss
+            else:
+                lam, gan_loss = zero, zero
+                vq_loss = total = prl + q_loss
         state.opt_g.zero_grad()
         if self.is_gan:
             state.opt_d.zero_grad()

@@ -6,7 +6,7 @@ trained as a DDPM on images, sampled with DDIM.
         [--batch-size 500] [--epochs 50] [--timesteps 1000] \\
         [--sampling-timesteps 500] [--eta 0] [--lr 2e-4] [--ema-decay 0.999] \\
         [--objective pred_noise|pred_x0|pred_v] [--dim 64] [--img-size N] \\
-        [--log-dir zlog] [--debug] [--seed 42] [--device cuda|cpu]
+        [--log-dir zlog] [--debug] [--seed 42] [--device cuda|cpu] [--bf16]
 
 The root CLI's defaults: the U-Net at ``--dim`` 64, mults (1, 2, 4, 8),
 dropout 0.1 while it trains, a linear schedule of ``--timesteps`` steps,
@@ -27,8 +27,11 @@ Weights come from a ``torch.Generator`` seeded by ``--seed`` (flax-style
 init), the steps' t, noise and the samples from a generator on the device
 seeded by it, dropout's masks from torch's global generator seeded by it.
 The public functions take and return NHWC images, as the root CLI's do;
-the U-Net runs NCHW. It runs on CUDA unless ``--device cpu``; with no GPU
-it raises. The root CLI's ``--bf16`` and ``--platform`` are not ported.
+the U-Net runs NCHW. ``--bf16`` runs the U-Net's training forward and its
+samples under bf16 autocast (the root CLI's ``dtype=bfloat16``; the loss
+in f32; the U-Net, Adam, the EMA and the checkpoints f32). It runs on CUDA
+unless ``--device cpu``; with no GPU it raises. The root CLI's
+``--platform`` (JAX-only) is not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 from .checkpoint import write_checkpoint
 from .diffusion.gaussian import ddim_sample, diffusion_loss, make_schedule
 from .models.unet2d import Unet2DPixel
+from .utils.device import compute_autocast
 from .utils.ema import ema_update
 
 
@@ -71,7 +75,8 @@ class PixelDDPM:
                  dim_mults: Tuple[int, ...] = (1, 2, 4, 8), dropout: float = 0.1,
                  timesteps: int = 1000, sampling_timesteps: int = 500, eta: float = 0.0,
                  lr: float = 2e-4, ema_decay: float = 0.999, objective: str = "pred_noise",
-                 seed: int = 42, device: Optional[str] = None):
+                 seed: int = 42, device: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
         from .utils import resolve_device
 
         self.channels, self.img_size = channels, img_size
@@ -81,6 +86,7 @@ class PixelDDPM:
         self.lr, self.ema_decay, self.objective = lr, ema_decay, objective
         self.seed = seed
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state: Optional[PixelDDPMState] = None
 
@@ -116,8 +122,9 @@ class PixelDDPM:
         x0 = imgs.permute(0, 3, 1, 2)
         noise = noise.to(x0.device, x0.dtype).permute(0, 3, 1, 2)
         unet = state.unet.train()
-        loss, _ = diffusion_loss(self.sched, lambda x, c, tt: unet(x, c, tt), x0, None,
-                                 t.to(x0.device), noise, self.objective)
+        with compute_autocast(x0.device, self.dtype):
+            loss, _ = diffusion_loss(self.sched, lambda x, c, tt: unet(x, c, tt), x0, None,
+                                     t.to(x0.device), noise, self.objective)
         state.opt.zero_grad()
         loss.backward()
         state.opt.step()
@@ -141,7 +148,10 @@ class PixelDDPM:
         x_t = x_t.to(self.device, dtype).permute(0, 3, 1, 2)
         if step_noise is not None:
             step_noise = [z.to(self.device, dtype).permute(0, 3, 1, 2) for z in step_noise]
-        out = ddim_sample(self.sched, lambda x, c, tt: ema(x, c, tt), x_t, eta=self.eta,
+        def fwd(x, c, tt):
+            with compute_autocast(x.device, self.dtype):
+                return ema(x, c, tt)
+        out = ddim_sample(self.sched, fwd, x_t, eta=self.eta,
                           sampling_timesteps=self.sampling_timesteps, objective=self.objective,
                           generator=gen, step_noise=step_noise)
         return out.permute(0, 2, 3, 1)
@@ -168,6 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (the U-Net's parameters stay f32)")
     return parser
 
 
@@ -210,7 +222,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     trainer = PixelDDPM(channels, img_size, dim=args.dim, timesteps=args.timesteps,
                         sampling_timesteps=args.sampling_timesteps, eta=args.eta, lr=args.lr,
                         ema_decay=args.ema_decay, objective=args.objective, seed=args.seed,
-                        device=args.device)
+                        device=args.device,
+                        dtype=torch.bfloat16 if args.bf16 else torch.float32)
     torch.manual_seed(args.seed)
     save_dir = os.path.join(args.log_dir, args.dataset,
                             f"{time.strftime('%Y%m%d-%H%M%S')}_diffusion")
