@@ -9,11 +9,17 @@ loop, at tests/conftest.py::tiny_config.
 - ``train_diffusion`` keeps the newest 3 checkpoints, as the root CLI's
   Orbax manager (``max_to_keep=3``) does;
 - ``generate`` serves the reference's own VAE file, ``{"vae_state_dict",
-  "optimizer_state_dict"}``.
+  "optimizer_state_dict"}``;
+- the loop's extras (``train/base.py``, ``utils/experiment.py``,
+  ``utils/profiling.py``): ``--profile``'s trace, the SIGTERM checkpoint,
+  TensorBoard events, and ``trainer.steps_per_dispatch`` K against K = 1
+  and the JAX loop's metric cadence.
 """
 
 import glob
+import json
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -26,7 +32,11 @@ from vq_vae_gan_diffusion_torch import generate
 from vq_vae_gan_diffusion_torch import train_diffusion as tdiff
 from vq_vae_gan_diffusion_torch.config import config_from_dict as t_config_from_dict
 from vq_vae_gan_diffusion_torch.data import load_dataloader as t_load_dataloader
+from vq_vae_gan_diffusion_torch.data.datasets import SyntheticDataset
+from vq_vae_gan_diffusion_torch.data.pipeline import DataLoader
+from vq_vae_gan_diffusion_torch.data.transforms import Preprocessor
 from vq_vae_gan_diffusion_torch.train import VQDiffusionWorker, cli
+from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
 from vq_vae_gan_diffusion_tpu.utils.torch_export import export_vae
 
 # (path, present) of every key either override may write
@@ -172,3 +182,110 @@ def test_generate_serves_the_reference_vae_file(tmp_path, tiny_config):
     with torch.no_grad():
         want = _port_vae(params, cfg)(imgs, generator=torch.Generator().manual_seed(0))[0]
     torch.testing.assert_close(out["reconstructions"], want, rtol=0, atol=0)
+
+
+# -- the loop's extras -----------------------------------------------------------------------
+
+def _vq_config(tiny_config, tmp_path, model="vqvae", **paths):
+    cfg = (tiny_config.replace_path("architecture.model_name", model)
+           .replace_path("trainer.log_dir", str(tmp_path / "zlog")))
+    for path, value in paths.items():
+        cfg = cfg.replace_path(path, value)
+    path = tmp_path / f"{model}.yml"
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+    return cfg, str(path)
+
+
+def _rows(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_profile_writes_a_chrome_trace(tmp_path, tiny_config):
+    """--profile: the first epoch under torch.profiler, its Chrome trace at
+    <run_dir>/profile/trace.json with the steps' operator events."""
+    _, path = _vq_config(tiny_config, tmp_path)
+    out = cli.run(["--config", path, "--debug", "--device", "cpu", "--profile"])
+    with open(os.path.join(out["run_dir"], "profile", "trace.json")) as f:
+        trace = json.load(f)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert any(n and n.startswith("aten::conv") for n in names)
+    assert out["worker"].global_step == 2
+
+
+def test_tensorboard_events_unless_opted_out(tmp_path, tiny_config, monkeypatch, caplog):
+    """tb/ holds an event file when tensorboardX imports; VQGD_NO_TB=1 leaves
+    jsonl only. Each writer says which at info level."""
+    import logging
+    caplog.set_level(logging.INFO, logger="vqgd_torch")
+    _, path = _vq_config(tiny_config, tmp_path)
+    on = cli.run(["--config", path, "--debug", "--device", "cpu"])
+    assert glob.glob(os.path.join(on["run_dir"], "tb", "events.out.tfevents.*"))
+    monkeypatch.setenv("VQGD_NO_TB", "1")
+    off = cli.run(["--config", path, "--debug", "--device", "cpu"])
+    assert not os.path.exists(os.path.join(off["run_dir"], "tb"))
+    assert len(_rows(off["run_dir"])) == 3
+    said = [r.getMessage() for r in caplog.records if "TensorBoard" in r.getMessage()]
+    assert len(said) == 2 and "VQGD_NO_TB" in said[1]
+
+
+def _loader(n_batches: int = 5):
+    """``n_batches`` batches of 8 synthetic 32^2 images, in order."""
+    ds = SyntheticDataset(8 * n_batches, 32, 3)
+    return DataLoader(ds, 8, Preprocessor(32, (0.5,) * 3, (0.5,) * 3), shuffle=False,
+                      drop_last=True, seed=0)
+
+
+def _worker(cfg, run_dir):
+    return VQGANVQVAEWorker(t_config_from_dict(cfg.to_dict()), str(run_dir), device="cpu")
+
+
+def test_sigterm_saves_at_the_step_boundary_and_exits_143(tmp_path, tiny_config, monkeypatch):
+    """SIGTERM sent from inside the third step: the step finishes, its
+    metrics row is written, a checkpoint at step 3 is saved, SystemExit(143);
+    the handler in place before is back; the checkpoint resumes at step 3."""
+    cfg, _ = _vq_config(tiny_config, tmp_path)
+    step = VQGANVQVAEWorker.train_step
+    handler = signal.getsignal(signal.SIGTERM)
+
+    def killing_step(self, state, batch, generator=None):
+        out = step(self, state, batch, generator)
+        if state.step == 3:
+            assert signal.getsignal(signal.SIGTERM) not in (handler, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+    monkeypatch.setattr(VQGANVQVAEWorker, "train_step", killing_step)
+    w = _worker(cfg, tmp_path / "run")
+    with pytest.raises(SystemExit) as exit_:
+        w.train(_loader(), 1)
+    assert exit_.value.code == 143 and w.global_step == 3
+    assert signal.getsignal(signal.SIGTERM) is handler
+    assert [r["step"] for r in _rows(tmp_path / "run")] == [1, 2, 3]
+    ckpt = tmp_path / "run" / "ckpt" / "step_00000003.pth"
+    assert sorted(os.listdir(tmp_path / "run" / "ckpt")) == [ckpt.name]
+    monkeypatch.setattr(VQGANVQVAEWorker, "train_step", step)
+    resumed = _worker(cfg.replace_path("architecture.vqvae.resume_path", str(ckpt)),
+                      tmp_path / "again")
+    resumed.init_state()
+    assert resumed.global_step == 3 and resumed.state.step == 3
+    want = w.state.vqvae.state_dict()
+    assert all(torch.equal(resumed.state.vqvae.state_dict()[k], v) for k, v in want.items())
+
+
+def test_steps_per_dispatch_matches_one_step_a_dispatch(tmp_path, tiny_config):
+    """K = 2 over 5 batches (two dispatches and a tail of one): the
+    parameters after the epoch equal K = 1's, and the metric rows fall where
+    the JAX loop writes them (tests/test_mesh_training.py's loop): at K = 2
+    every max(K, save_step // 5) = 2 steps from the first dispatch, none in
+    the tail; at K = 1 every step; then the epoch row."""
+    runs = {}
+    for k in (1, 2):
+        cfg, _ = _vq_config(tiny_config, tmp_path, **{"trainer.steps_per_dispatch": k})
+        w = _worker(cfg, tmp_path / f"k{k}")
+        metrics = w.train(_loader(), 1)
+        assert w.global_step == 5 and np.isfinite(metrics["vq_loss"])
+        runs[k] = (w, [r["step"] for r in _rows(tmp_path / f"k{k}")])
+    assert runs[2][1] == [2, 4, 5] and runs[1][1] == [1, 2, 3, 4, 5, 5]
+    want = runs[1][0].state.vqvae.state_dict()
+    got = runs[2][0].state.vqvae.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in want.items())

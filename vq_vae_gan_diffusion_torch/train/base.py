@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -201,6 +202,7 @@ class TrainingWorker(Worker):
         self.debug = debug
         self.save_ckpt_dir = save_ckpt_dir or os.path.join(run_dir, "ckpt")
         self.metrics: Optional[MetricWriter] = None
+        self._sigterm = False
         self.global_step = 0
         self.state: Any = None
 
@@ -208,8 +210,11 @@ class TrainingWorker(Worker):
         return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device, non_blocking=True)
 
     def train_multi_step(self, state, batches, generator: Optional[torch.Generator] = None):
-        """``train_step`` over each of ``batches`` ([K, B, ...]) in turn;
-        returns the state and the last step's metrics."""
+        """``train_step`` over each of ``batches`` (K batches, a list or
+        [K, B, ...]) in turn; returns the state and the last step's metrics.
+        The JAX worker scans K steps in one dispatch; here a Python loop
+        issues them, with no device data cache (the JAX cache freezes batch
+        composition after epoch 0)."""
         metrics: Dict[str, torch.Tensor] = {}
         for batch in batches:
             state, metrics = self.train_step(state, batch, generator)
@@ -218,48 +223,102 @@ class TrainingWorker(Worker):
     def train(self, dataloader: Iterable, epochs: int,
               val_loader: Optional[Iterable] = None) -> Dict[str, float]:
         """Train for ``epochs`` epochs (one, and two batches of it, under
-        ``debug``). Metrics go to ``metrics.jsonl`` on the first step and
-        every ``save_step // 5`` steps after, artifacts every ``save_step``
-        steps (:func:`..utils.adaptive_save_step` of the epoch's batches);
-        each epoch ends with its time and images/s, a checkpoint and the
-        validation grid. An epoch's time is split into the host's time in
-        the loader (reading, decoding, the copy to the device: ``loader_s``),
-        in the artifacts (``artifact_s``) and the rest, the steps and the
-        wait for the device at the epoch's end (``step_s``). Returns the last
-        metrics written."""
+        ``debug``). ``trainer.steps_per_dispatch`` K (1 under ``debug``)
+        hands K batches at a time to :meth:`train_multi_step`; an epoch's
+        tail of fewer than K batches runs one step at a time. Metrics go to
+        ``metrics.jsonl`` on the first dispatch and every ``max(K, save_step
+        // 5)`` steps after, artifacts every ``max(K, save_step)`` steps
+        (:func:`..utils.adaptive_save_step` of the epoch's batches), as the
+        JAX loop writes them; each epoch ends with its time and images/s, a
+        checkpoint and the validation grid. An epoch's time is split into
+        the host's time in the loader (reading, decoding, the copy to the
+        device: ``loader_s``), in the artifacts (``artifact_s``) and the
+        rest, the steps and the wait for the device at the epoch's end
+        (``step_s``). Returns the last metrics written.
+
+        SIGTERM (a preempted machine) is taken at the next step boundary,
+        never inside the handler, which only notes it: the loop writes the
+        step's metrics, saves a checkpoint and raises ``SystemExit(143)``.
+        The previous handler is restored on the way out."""
         if self.state is None:
             self.state = self.init_state()
-        with MetricWriter(self.run_dir) as self.metrics:
-            return self._epochs(dataloader, epochs, val_loader)
+        self._sigterm = False
+
+        def on_sigterm(signum, frame):
+            self._sigterm = True
+            self.logger.warning("SIGTERM: checkpoint and exit at the next step boundary")
+        try:
+            previous = signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:                       # not the main thread
+            previous = None
+        try:
+            with MetricWriter(self.run_dir, logger=self.logger) as self.metrics:
+                return self._epochs(dataloader, epochs, val_loader)
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+
+    def _exit_if_terminated(self, epoch: int, step_metrics: Dict[str, torch.Tensor],
+                            written: bool) -> None:
+        """After a step: on a noted SIGTERM, write the step's metrics (unless
+        they are written), save and raise ``SystemExit(143)``."""
+        if not self._sigterm:
+            return
+        if not written:
+            self.metrics.write(self.global_step, {k: float(v) for k, v in step_metrics.items()})
+        self.save(epoch)
+        raise SystemExit(143)
 
     def _epochs(self, dataloader: Iterable, epochs: int,
                 val_loader: Optional[Iterable]) -> Dict[str, float]:
+        k = 1 if self.debug else max(1, int(self.config.trainer.get("steps_per_dispatch", 1)
+                                            or 1))
         save_step = adaptive_save_step(len(dataloader))
-        metric_every, artifact_every = max(1, save_step // 5), save_step
+        metric_every, artifact_every = max(k, save_step // 5), max(k, save_step)
         next_metric = next_artifact = self.global_step
         last: Dict[str, float] = {}
         for epoch in range(epochs):
             t0 = t = time.perf_counter()
             images, steps, loader_s, artifact_s = 0, 0, 0.0, 0.0
+            pending: List[torch.Tensor] = []
             for index, batch in enumerate(dataloader):
-                batch = self.batch_to_device(batch)
+                pending.append(self.batch_to_device(batch))
                 loader_s += time.perf_counter() - t
-                self.state, metrics = self.train_step(self.state, batch, self.generator)
-                self.global_step += 1
-                steps += 1
-                images += batch.shape[0]
-                if self.global_step >= next_metric:
+                if len(pending) < k:
+                    t = time.perf_counter()
+                    continue
+                batches, pending = pending, []
+                if k > 1:
+                    self.state, metrics = self.train_multi_step(self.state, batches,
+                                                                self.generator)
+                else:
+                    self.state, metrics = self.train_step(self.state, batches[0],
+                                                          self.generator)
+                self.global_step += len(batches)
+                steps += len(batches)
+                images += sum(b.shape[0] for b in batches)
+                written = self.global_step >= next_metric
+                if written:
                     next_metric = self.global_step + metric_every
-                    last = {k: float(v) for k, v in metrics.items()}
+                    last = {name: float(v) for name, v in metrics.items()}
                     self.metrics.write(self.global_step, last)
+                self._exit_if_terminated(epoch, metrics, written)
                 if self.global_step >= next_artifact:
                     next_artifact = self.global_step + artifact_every
                     ta = time.perf_counter()
-                    self.log_artifacts(batch, epoch, index)
+                    self.log_artifacts(batches[-1], epoch, index)
                     artifact_s += time.perf_counter() - ta
                 if self.debug and index >= 1:
                     break
                 t = time.perf_counter()
+            for batch in pending:              # the tail, one step at a time, as JAX's
+                self.state, metrics = self.train_step(self.state, batch, self.generator)
+                self.global_step += 1
+                steps += 1
+                images += batch.shape[0]
+                self._exit_if_terminated(epoch, metrics, False)
+            if pending:
+                last = {name: float(v) for name, v in metrics.items()}
             self._sync()
             dt = time.perf_counter() - t0
             self.logger.info("epoch %d done in %.1fs (%.1f images/s; loader %.2fs, artifacts "

@@ -6,7 +6,7 @@ Usage::
     python -m vq_vae_gan_diffusion_torch.train \\
         --config configs/training_config_mnist.yml [--seed 42] [--debug] \\
         [--epochs N] [--device cuda|cpu] [--fused-sampler on|off|pallas|packed] \\
-        [--fused-posterior on|off|interpret|prng] [--bf16]
+        [--fused-posterior on|off|interpret|prng] [--bf16] [--profile]
 
 Builds ``<trainer.log_dir>/<dataset>/<model>/run_<time>/`` with a copy of
 the config and ``info.log``, loads the train and val splits (a synthetic
@@ -50,7 +50,11 @@ forward runs under bf16 autocast with the JAX package's f32 islands kept
 f32, its sampling hooks sample in bf16 (the GPT's decode stack, the folded
 U-Net's units and the discrete posterior in their bf16 builds where the
 hook gives them bf16), and parameters, Adam's moments, EMA copies,
-BatchNorm statistics and checkpoints stay f32. ``--fused-sampler`` and ``--fused-posterior``
+BatchNorm statistics and checkpoints stay f32. ``--profile`` writes a
+``torch.profiler`` trace of the first epoch (CPU and CUDA activity) as the
+Chrome trace ``<run_dir>/profile/trace.json``, then trains the other
+epochs, as the root CLI does. ``trainer.steps_per_dispatch``, SIGTERM and
+TensorBoard are the loop's (``train/base.py``). ``--fused-sampler`` and ``--fused-posterior``
 write the keys the root ``train.py`` writes (``config.apply_fused_flags``,
 shared with ``generate``). When the val split does not load, a warning and
 no validation grid, as the root CLI. ``--debug`` trains one epoch of two batches of 2
@@ -61,6 +65,7 @@ unless ``--device cpu``; with no GPU it raises.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Dict, Optional, Sequence
 
@@ -82,6 +87,9 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--epochs", type=int, default=None, help="override trainer.num_epochs")
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
+    parser.add_argument("--profile", action="store_true",
+                        help="a torch.profiler trace of the first epoch under "
+                             "<run_dir>/profile/trace.json")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (parameters, moments, EMA and checkpoints "
                              "stay f32)")
@@ -148,7 +156,14 @@ def run(argv: Optional[Sequence[str]] = None,
         kwargs["num_iters_per_epoch"] = max(len(train_loader), 1)
     worker = worker_cls(config, run_dir, logger, **kwargs)
     epochs = args.epochs or int(config.trainer.num_epochs)
-    metrics = worker.train(train_loader, epochs, val_loader)
+    if args.profile:
+        from ..utils.profiling import profile_steps
+
+        with profile_steps(os.path.join(run_dir, "profile")):
+            metrics = worker.train(train_loader, 1, val_loader)
+        epochs -= 1
+    if epochs > 0:
+        metrics = worker.train(train_loader, epochs, val_loader)
     logger.info("training done: %s", metrics)
     return {"worker": worker, "run_dir": run_dir, "metrics": metrics}
 

@@ -59,20 +59,41 @@ def adaptive_save_step(num_batches: int) -> int:
 
 class MetricWriter:
     """``metrics.jsonl`` in the run dir, one ``{"step": ..., **metrics}``
-    line a call, written and flushed before the call returns."""
+    line a call, written and flushed before the call returns; and, as the
+    JAX writer, the same scalars as TensorBoard events under ``tb/`` when
+    ``tensorboardX`` imports and ``VQGD_NO_TB`` is unset (the card
+    machine's packages need not hold it: then jsonl only). Whether ``tb/``
+    is written is logged once, at info level."""
 
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, use_tensorboard: bool = True,
+                 logger: Optional[logging.Logger] = None):
         os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, "metrics.jsonl")
         self._f = open(self.path, "a")
+        self._tb = None
+        why = "VQGD_NO_TB is set" if os.environ.get("VQGD_NO_TB") else "not asked for"
+        if use_tensorboard and not os.environ.get("VQGD_NO_TB"):
+            try:
+                from tensorboardX import SummaryWriter
+                self._tb = SummaryWriter(os.path.join(run_dir, "tb"))
+            except Exception as e:  # not installed, or unusable: jsonl only
+                why = f"tensorboardX unavailable ({type(e).__name__})"
+        (logger or logging.getLogger("vqgd_torch")).info(
+            "TensorBoard events: %s", os.path.join(run_dir, "tb") if self._tb else f"off, {why}")
 
     def write(self, step: int, metrics: Dict[str, float]) -> None:
-        self._f.write(json.dumps({"step": int(step), **{k: float(v) for k, v in
-                                                        metrics.items()}}) + "\n")
+        row = {k: float(v) for k, v in metrics.items()}
+        self._f.write(json.dumps({"step": int(step), **row}) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            for k, v in row.items():
+                self._tb.add_scalar(k, v, int(step))
+            self._tb.flush()
 
     def close(self) -> None:
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
     def __enter__(self) -> "MetricWriter":
         return self

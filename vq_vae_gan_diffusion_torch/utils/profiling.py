@@ -6,7 +6,9 @@ profiles and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import re
 import subprocess
 import time
@@ -17,6 +19,20 @@ from torch.profiler import ProfilerActivity, profile
 
 F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
+
+
+@contextlib.contextmanager
+def profile_steps(logdir: str):
+    """A ``torch.profiler`` trace of the block (CPU activity, and CUDA's
+    where a card is visible), written as the Chrome trace
+    ``<logdir>/trace.json`` when the block ends (the JAX package's
+    ``profile_steps`` writes a ``jax.profiler`` trace there)."""
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                                     else [])
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def smi_line() -> str:
