@@ -219,10 +219,31 @@ Phases, each printed as it runs; any failure exits non-zero:
       ``train_step`` at batch 500 of 32x32x3 with dropout 0.1 as
       ``{"pixel_ddpm_train_step": ...}``; the EMA's 64 samples through 500
       DDIM steps; one step at batch 4 with dropout off on the card against
-      the CPU and float64, (q)'s rule.
+      the CPU and float64, (q)'s rule;
+  (aa) ``--bf16`` on the card: the bf16 kernel calls at the training hooks'
+      shapes against their plain versions at (c)'s and (f)'s bf16
+      tolerances (the decode stack at batch 4 over 256 positions, K1/K2 at
+      the gaussian3d and VQ_Official U-Nets' unit shapes, B6 on [16, 256,
+      1023] bf16 logits); the train CLI in --debug --bf16 on (o), (p), (q),
+      (s) (hook cut to 20 steps) and (v), with the f32 phases' launches and
+      the launches of each kernel's bf16 instantiation (768 B1; 39000 K1
+      and 4000 K2; 780 K1 and 80 K2 with 19 B6 on f32 logits, as the JAX
+      hook casts the folded forward back to its input's dtype; 19 B6 on the
+      Conv1d U-Net's bf16 logits), every state and checkpoint tensor f32;
+      train_diffusion --debug --bf16 likewise; a warm bf16 step beside the
+      f32 one at each f32 phase's batch as ``{"<phase>_train_step_bf16":
+      ...}``; one bf16 stage-1 step card against CPU by the bf16 rule;
+  (ab) the cross-attention prior at (k)'s width on a random cond_emb [16,
+      77, 512] (99 B6 ``sample``, 24 ``fast_sample``, 99 B7 under prng;
+      kernel route and plain ops index for index under injected noise; a
+      training loss card against CPU within 1e-5); feature_fid card against
+      CPU within 1e-3 on 32 images at 64^2 and timed on 256 at 256^2;
+      --profile's trace with CUDA kernel events; SIGTERM to a train CLI
+      subprocess (exit 143, a checkpoint that resumes); the loop at
+      steps_per_dispatch 1 and 4.
 
-``--only r,s`` (any of o-z) runs (a), (b) and those phases alone, and
-prints no kernels line and no result line.
+``--only r,s`` (any of o-z, aa, ab) runs (a), (b) and those phases alone,
+and prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
 (p)-(s), each run of (t) and each run of (u)-(z), runs with every kernel's
@@ -475,6 +496,15 @@ def read_counts() -> dict:
 def reset_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
+
+
+def read_bf16_counts() -> dict:
+    """The launches of each kernel's bf16 instantiation since the last
+    :func:`reset_counts`, where any."""
+    return {name: fn.bf16_launches for name, fn in kernel_wrappers().items()
+            if getattr(fn, "bf16_launches", 0)}
 
 
 def phase_main() -> int:
@@ -550,7 +580,7 @@ def check_close(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
 
 def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
                 kernel_reps: int = 20, plain_reps: int = 3, mults: tuple = (1, 2, 4, 8),
-                batch: int = B) -> dict:
+                batch: int = B, dtypes: tuple = (torch.float32, torch.bfloat16)) -> dict:
     """The bottleneck and downsample kernels against reference_bottleneck /
     reference_downsample at every distinct unit shape of the U-Net forward
     (base 64, ``mults``) on a [batch, h, w, C] input (the gaussian3d state
@@ -585,6 +615,8 @@ def phase_units(card: str, h: int = N, w: int = GAUSSIAN_DIM, label: str = "f",
     gen = torch.Generator(device="cuda").manual_seed(3)
     result = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        if dtype not in dtypes:
+            continue
         tag = "f32" if dtype == torch.float32 else "bf16"
         acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
                    "ops_ms": 0.0, "bound_ms": 0.0, "calls": 0} for k in ("K1", "K2")}
@@ -1732,7 +1764,7 @@ def stage2_step_times(label: str, key: str, worker, batch: torch.Tensor, card: s
 
 
 def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
-                  files: tuple, overrides: dict | None = None) -> dict:
+                  files: tuple, overrides: dict | None = None, extra: tuple = ()) -> dict:
     """The train CLI in --debug on ``config`` (with ``overrides``) on the
     card, every kernel's launch count set to 0 just before it and read just
     after: two steps in metrics.jsonl, one checkpoint, ``files`` in the run
@@ -1745,7 +1777,7 @@ def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
 
     reset_counts()
     t0 = time.perf_counter()
-    out = cli.run(["--config", config, "--debug"],
+    out = cli.run(["--config", config, "--debug", *extra],
                   overrides={"trainer.log_dir": log_dir, **(overrides or {})})
     sec = time.perf_counter() - t0
     launches = read_counts()
@@ -1760,19 +1792,21 @@ def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
     if len(ckpts) != 1 or missing or launches != want:
         raise AssertionError(f"({label}) checkpoints {ckpts}, missing {missing}, launches "
                              f"{launches}, expected {want}")
-    print(f"({label}) train CLI --debug on {config}: {sec:.1f} s; launches "
+    print(f"({label}) train CLI --debug {' '.join(extra)} on {config}: {sec:.1f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }; metrics.jsonl step 2 {rows[1]}; "
           f"checkpoint {os.path.basename(ckpts[0])}; {', '.join(files)}")
     return out
 
 
-def gpt_decode_batch4(card: str) -> None:
+def gpt_decode_batch4(card: str, dtype: torch.dtype = torch.float32, label: str = "p") -> float:
     """(p) the decode stack at the batch the GPT's training grid samples at
     (LOG_B = 4, full width, seeded weights): every position of a 256-token
     run, teacher-forced over the PREFIX given positions (SOS and half the
     indices) and then free-running on the kernel's own samples, against
-    reference_decode_stack on the same cache, within (c)'s f32 tolerance
-    1e-4 of max(1, max |plain|)."""
+    reference_decode_stack on the same cache, within (c)'s tolerance of
+    max(1, max |plain|): 1e-4 in f32, 2e-2 in bf16 (the weights packed from
+    the f32 ones, as the training hook packs them). Returns the kernel's ms
+    a call over the run."""
     import torch.nn.functional as F
 
     from vq_vae_gan_diffusion_torch.models.mingpt import GPT, categorical, top_k_filter
@@ -1782,10 +1816,11 @@ def gpt_decode_batch4(card: str) -> None:
     gpt = GPT(vocab_size=1024, block_size=512, n_layer=L, n_head=H, n_embd=C)
     gpt.init_weights(torch.Generator().manual_seed(21))
     gpt = gpt.cuda().eval()
-    packed = pack_decode_params(gpt, torch.float32, None)
+    packed = pack_decode_params(gpt, dtype, None)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
     gen = torch.Generator(device="cuda").manual_seed(22)
     prefix = torch.randint(0, 1024, (LOG_B, PREFIX), generator=gen, device="cuda")
-    kv = torch.zeros(L, LOG_B, N, 2 * C, device="cuda")
+    kv = torch.zeros(L, LOG_B, N, 2 * C, device="cuda", dtype=dtype)
     worst = {"teacher-forced": 0.0, "free-running": 0.0}
     token = prefix[:, 0]
     with torch.no_grad():
@@ -1795,15 +1830,18 @@ def gpt_decode_batch4(card: str) -> None:
             h_k, kv_k = fused_decode_stack(x, packed, kv, t, n_head=H)
             h_r, kv_r = reference_decode_stack(x, packed, kv, t, n_head=H)
             for what, got, want in (("x_out", h_k, h_r), ("kv_new", kv_k, kv_r)):
-                err = check_close(f"(p) batch {LOG_B} t={t} {what}", got, want, 1e-4)
+                err = check_close(f"({label}) {dtype} batch {LOG_B} t={t} {what}", got, want, tol)
                 worst[phase] = max(worst[phase], err / max(1.0, want.abs().max().item()))
             kv[:, :, t] = kv_k
             logits = F.layer_norm(h_k, (C,), gpt.ln_f.weight, gpt.ln_f.bias, eps=1e-5) \
                 @ gpt.head.weight.T
             token = categorical(top_k_filter(logits, 100), gen)
-    print(f"(p) decode stack at batch {LOG_B}, {N} positions against plain: worst err / scale "
-          f"{worst['teacher-forced']:.3e} teacher-forced over {PREFIX}, "
-          f"{worst['free-running']:.3e} free-running after (tol 1e-4); {card}")
+    ms = cuda_ms(lambda: fused_decode_stack(x, packed, kv, N - 1, n_head=H), reps=20)
+    print(f"({label}) {dtype} decode stack at batch {LOG_B}, {N} positions against plain: worst "
+          f"err / scale {worst['teacher-forced']:.3e} teacher-forced over {PREFIX}, "
+          f"{worst['free-running']:.3e} free-running after (tol {tol}); kernel {ms:.4f} ms a "
+          f"call at t = {N - 1}; {card}")
+    return ms
 
 
 def gpt_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
@@ -2765,6 +2803,445 @@ def phase_pixel_ddpm(card: str) -> dict:
     return numbers
 
 
+def assert_all_f32(label: str, *objs) -> int:
+    """Fails unless every floating tensor of the modules, optimizers and
+    trees is f32; returns how many there were."""
+    seen = 0
+
+    def walk(node, path):
+        nonlocal seen
+        if isinstance(node, torch.Tensor):
+            if node.is_floating_point():
+                seen += 1
+                if node.dtype != torch.float32:
+                    raise AssertionError(f"({label}) {path} is {node.dtype}, not f32")
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+    for i, obj in enumerate(objs):
+        walk(obj.state_dict() if hasattr(obj, "state_dict") else obj, f"#{i}")
+    return seen
+
+
+def posterior_at_hook(card: str, dtype: torch.dtype) -> dict:
+    """(aa) B6 on the training hook's logits [16, 256, 1023] in ``dtype``
+    against its plain version by (i)'s rule, at three t; ms a call issued
+    one by one, plain ms and bound."""
+    from vq_vae_gan_diffusion_torch.diffusion.discrete import make_discrete_schedule
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
+        fused_posterior_sample, gather_posterior_coefs, gumbel_from_uniform, posterior_scores,
+        reference_posterior_sample)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    sched = make_discrete_schedule(VQO_T, VQO_K, 0.99999).to("cuda")
+    gumbel = gumbel_from_uniform(torch.rand(B, N, VQO_K, generator=gen, device="cuda"))
+    x_t = torch.randint(0, VQO_K, (B, N), generator=gen, device="cuda")
+    x_t[:, ::5] = VQO_K - 1
+    logits = (3 * torch.randn(B, N, VQO_K - 1, generator=gen, device="cuda")).to(dtype)
+    gap = 0.0
+    for t in (0, VQO_T // 2, VQO_T - 1):
+        coefs = gather_posterior_coefs(sched, torch.full((B,), t, device="cuda"), VQO_T)
+        got = fused_posterior_sample(logits, x_t, coefs, gumbel)
+        torch.cuda.synchronize()
+        gap = max(gap, check_indices(f"(aa) discrete_posterior {dtype} t={t}", got,
+                                     posterior_scores(logits, x_t, coefs, gumbel, 0)))
+    ms = cuda_ms(lambda: fused_posterior_sample(logits, x_t, coefs, gumbel), reps=50)
+    plain_ms = cuda_ms(lambda: reference_posterior_sample(logits, x_t, coefs, gumbel), reps=3)
+    bound = max(posterior_bound(B, N, VQO_K - 1, dtype, False, 0, card))
+    print(f"(aa) discrete_posterior logits [{B}, {N}, {VQO_K - 1}] {dtype}: checks at 3 t pass, "
+          f"max score gap {gap:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms; {card}")
+    return {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+
+
+def step_pair(label: str, key: str, worker, batch, card: str, step=None) -> dict:
+    """(aa) a warm training step at ``batch`` in f32, then in bf16, on one
+    worker: ms a step over 2 after one, images/s, peak GiB, and the device's
+    busy share over a profiled step. Prints ``{"<key>_bf16": ...}`` with
+    the f32 step beside it."""
+    step = step or (lambda: worker.train_step(worker.state, batch, worker.generator)[1])
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worker.dtype = dtype
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            metrics = step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 2
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"(aa/{label}) {dtype} metrics {metrics}")
+        _, busy, _, _ = profile_steps(step, 1)
+        rows[dtype] = {"ms_per_step": ms, "images_per_s": 1e3 * batch.shape[0] / ms,
+                       "peak_gib": peak, "device_busy_share": busy}
+    line = dict(rows[torch.bfloat16], batch=int(batch.shape[0]), dtype="bfloat16",
+                f32=rows[torch.float32], card=card)
+    print(json.dumps({f"{key}_bf16": line}))
+    return line
+
+
+def grads_against_cpu_bf16(label: str, card_g: dict, cpu_g: dict, cpu32_g: dict) -> tuple:
+    """(aa) the bf16 rule's gradient part, the card's bf16 step against the
+    CPU's: over the leaves whose norm is above 1e-3 of the largest, each
+    has cosine >= 0.99 with the CPU's bf16 gradient or lies no farther from
+    the CPU's f32 gradient than three times the CPU's bf16 one; together no
+    farther than twice (tests/test_torch_port_bf16.py: bf16 alone moves
+    many leaves by more than their size). Returns (leaves, least cosine,
+    the card's and the CPU's root summed squared distance from f32)."""
+    norms = {k: float(g.double().norm()) for k, g in cpu_g.items()}
+    top = max(norms.values())
+    live = [k for k in cpu_g if norms[k] > 1e-3 * top]
+    card_sq = cpu_sq = 0.0
+    least = 1.0
+    for k in live:
+        g, w, w32 = (d[k].double().flatten().cpu() for d in (card_g, cpu_g, cpu32_g))
+        cos = float(g @ w / (g.norm() * w.norm()))
+        dist, own = float((g - w32).norm()), float((w - w32).norm())
+        if cos < 0.99 and dist > 3 * own:
+            raise AssertionError(f"({label}) {k}: cosine {cos:.4f}, card {dist:.3e} from f32, "
+                                 f"CPU bf16 {own:.3e}")
+        least, card_sq, cpu_sq = min(least, cos), card_sq + dist ** 2, cpu_sq + own ** 2
+    if card_sq ** 0.5 > 2 * cpu_sq ** 0.5:
+        raise AssertionError(f"({label}) card bf16 gradients {card_sq ** 0.5:.3e} from f32, "
+                             f"CPU bf16 {cpu_sq ** 0.5:.3e}")
+    return len(live), least, card_sq ** 0.5, cpu_sq ** 0.5
+
+
+def vqgan_bf16_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
+    """(aa) one bf16 stage-1 step at batch 2 from the same seeded weights and
+    batch on the card and the CPU (with the CPU's f32 step as the
+    reference): metrics by the bf16 rule, gradients by its gradient part."""
+    from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+
+    runs = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                          ("cpu", torch.float32)):
+        w = VQGANVQVAEWorker(cfg, log_dir, device=device, dtype=dtype)
+        w.state = w.init_state()
+        _, m = w.train_step(w.state, torch.from_numpy(batch).to(device), w.generator)
+        grads = {f"vqvae.{k}": p.grad.detach().cpu() for k, p in w.state.vqvae.named_parameters()}
+        if w.state.disc is not None:
+            grads.update({f"disc.{k}": p.grad.detach().cpu()
+                          for k, p in w.state.disc.named_parameters()})
+        runs[(device, dtype)] = ({k: float(v) for k, v in m.items()}, grads)
+        del w
+    (mc, gc), (m16, g16), (m32, g32) = (runs[("cuda", torch.bfloat16)],
+                                        runs[("cpu", torch.bfloat16)],
+                                        runs[("cpu", torch.float32)])
+    for k in m16:
+        tol = max(2 * abs(m16[k] - m32[k]), 1e-2 * abs(m32[k]))
+        if abs(mc[k] - m16[k]) > tol:
+            raise AssertionError(f"(aa) {k}: card bf16 {mc[k]!r}, CPU bf16 {m16[k]!r}, "
+                                 f"CPU f32 {m32[k]!r}")
+    leaves, least, card_d, cpu_d = grads_against_cpu_bf16("aa", gc, g16, g32)
+    print(f"(aa) one bf16 step at batch {batch.shape[0]}, card against CPU: metrics within the "
+          f"bf16 rule ({mc}); {leaves} live gradient leaves, least cosine {least:.4f}, the "
+          f"card's bf16 {card_d:.3e} from the CPU's f32 gradients, the CPU's bf16 {cpu_d:.3e}; "
+          f"{card}")
+
+
+def phase_bf16(card: str) -> None:
+    """(aa) ``--bf16`` on the card: the hook-shaped bf16 kernel calls against
+    their plain versions; the train CLI in --debug --bf16 on (o), (p), (q),
+    (s) (hook cut to 20 steps) and (v), and train_diffusion --debug --bf16,
+    each with the f32 phase's launch counts and the launches of each
+    kernel's bf16 instantiation, then every parameter, optimizer state and
+    checkpoint tensor f32; a warm bf16 step beside the f32 one at each f32
+    phase's batch; one bf16 step card against CPU."""
+    import glob
+    import os
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch import train_diffusion as tdiff
+    from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
+    from vq_vae_gan_diffusion_torch.train.vq_transformer_worker import VQTransformerWorker
+    from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    gpt_decode_batch4(card, bf16, "aa")
+    phase_units(card, label="aa", kernel_reps=5, plain_reps=1, dtypes=(bf16,))
+    phase_units(card, h=VQO_K, w=N, label="aa", kernel_reps=5, plain_reps=1, dtypes=(bf16,))
+    posterior_at_hook(card, bf16)
+    torch.cuda.empty_cache()
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    steps_path = "architecture.vqdiffusion.sampling_steps"
+    k1, k2, b6 = "shuffle_bottleneck", "shuffle_downsample", "discrete_posterior"
+    # (label, config, the f32 phase's launches, of them in bf16, files, overrides): each
+    # hook hands its kernels the dtype the JAX hook gives them; VQ_Official's folded
+    # forward returns its input's dtype (the f32 log-onehot; JAX: .astype(x.dtype)), so
+    # its B6 reads f32 logits, where the Conv1d U-Net's (v) gives bf16 ones
+    runs = (("o", TRAIN_CONFIG, {}, {}, ("reconstruction.gif",), {}),
+            ("p", GPT_TRAIN_CONFIG, {"gpt_decode_stack": 3 * N}, {"gpt_decode_stack": 3 * N},
+             ("transformer_epoch0_0.jpg", "samples_epoch0.jpg"), {}),
+            ("q", VQD_TRAIN_CONFIG, {k1: 39 * STEPS, k2: 4 * STEPS},
+             {k1: 39 * STEPS, k2: 4 * STEPS}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"), {}),
+            ("s", VQO_TRAIN_CONFIG, {k1: 39 * VQO_STEPS, k2: 4 * VQO_STEPS, b6: VQO_STEPS - 1},
+             {k1: 39 * VQO_STEPS, k2: 4 * VQO_STEPS}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"),
+             {steps_path: VQO_STEPS}),
+            ("v", VQO1D_TRAIN_CONFIG, {b6: VQO_STEPS - 1}, {b6: VQO_STEPS - 1},
+             ("recon_epoch0_0.jpg", "samples_epoch0.jpg"), {steps_path: VQO_STEPS}))
+    for label, config, want, want_bf16, files, overrides in runs:
+        out = run_train_cli(f"aa/{label}", config, log_dir, want, files, overrides, ("--bf16",))
+        got_bf16 = read_bf16_counts()
+        if got_bf16 != want_bf16:
+            raise AssertionError(f"(aa/{label}) bf16 launches {got_bf16}, expected {want_bf16}")
+        worker = out["worker"]
+        if worker.dtype != bf16:
+            raise AssertionError(f"(aa/{label}) worker dtype {worker.dtype}")
+        ckpt = glob.glob(os.path.join(out["run_dir"], "ckpt", "step_*.pth"))[0]
+        n = assert_all_f32(f"aa/{label}", worker.checkpoint_tree(),
+                           torch.load(ckpt, weights_only=True))
+        print(f"(aa/{label}) launches in bf16: {got_bf16}; {n} floating tensors of the state "
+              "and the checkpoint, every one f32")
+        del out, worker
+        torch.cuda.empty_cache()
+    reset_counts()
+    out = tdiff.run(["--debug", "--bf16", "--log-dir", log_dir, "--data-root", log_dir])
+    no_launches("aa/z")
+    state = out["state"]
+    ckpt = os.path.join(out["save_dir"], "ckpt", f"step_{state.step:08d}.pth")
+    n = assert_all_f32("aa/z", state.unet, state.ema, state.opt,
+                       torch.load(ckpt, weights_only=True))
+    if out["trainer"].dtype != bf16 or not all(math.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"(aa/z) dtype {out['trainer'].dtype}, losses {out['losses']}")
+    print(f"(aa/z) train_diffusion --debug --bf16: mean loss {out['losses'][0]:.4f}; {n} "
+          "floating tensors of the U-Net, its EMA, Adam and the checkpoint, every one f32")
+    del out, state
+    torch.cuda.empty_cache()
+
+    cfg, _, batch = stage2_batch("aa/o", TRAIN_CONFIG, log_dir, (TRAIN_B, 28, 28, 1))
+    w = VQGANVQVAEWorker(cfg, log_dir, device="cuda")
+    w.state = w.init_state()
+    step_pair("o", "vqgan_train_step", w, torch.from_numpy(batch).cuda(), card)
+    del w
+    for label, key, config, cls in (("p", "gpt_train_step", GPT_TRAIN_CONFIG, VQTransformerWorker),
+                                    ("q", "vqd_train_step", VQD_TRAIN_CONFIG, VQDiffusionWorker),
+                                    ("s", "vqofficial_train_step", VQO_TRAIN_CONFIG,
+                                     VQDiffusionWorker)):
+        torch.cuda.empty_cache()
+        cfg_l, _, b_l = stage2_batch(f"aa/{label}", config, log_dir,
+                                     (STAGE2_B if label != "s" else 11, 256, 256, 3))
+        w = cls(cfg_l, log_dir, device="cuda")
+        w.init_state()
+        step_pair(label, key, w, torch.from_numpy(b_l).cuda(), card)
+        del w
+    torch.cuda.empty_cache()
+    trainer = tdiff.PixelDDPM(3, DDPM_HW, device="cuda")
+    st = trainer.init_state()
+    imgs = torch.rand(DDPM_B, DDPM_HW, DDPM_HW, 3, device="cuda") * 2 - 1
+    step_pair("z", "pixel_ddpm_train_step", trainer, imgs, card,
+              step=lambda: trainer.train_step(st, imgs)[1])
+    del trainer, st, imgs
+    torch.cuda.empty_cache()
+    vqgan_bf16_card_against_cpu(cfg, log_dir, batch[:2], card)
+    shutil.rmtree(log_dir)
+    print(f"(aa) phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+def phase_rest(card: str) -> None:
+    """(ab) the rest of the slice: the cross-attention prior at (k)'s width
+    on a random cond_emb [16, 77, 512] (CLIP ViT-B/32's text states' shape),
+    its launches, the kernel route against plain ops under injected noise,
+    one training loss card against CPU; feature_fid card against CPU and
+    timed; --profile's trace; SIGTERM to a train CLI subprocess; the loop at
+    steps_per_dispatch 1 and 4."""
+    import glob
+    import os
+    import signal
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data.datasets import SyntheticDataset
+    from vq_vae_gan_diffusion_torch.data.pipeline import DataLoader
+    from vq_vae_gan_diffusion_torch.data.transforms import Preprocessor
+    from vq_vae_gan_diffusion_torch.models import transformer_vq_diffusion as tvq_mod
+    from vq_vae_gan_diffusion_torch.models.lpips import load_lpips
+    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import gumbel_from_uniform
+    from vq_vae_gan_diffusion_torch.train import cli
+    from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+    from vq_vae_gan_diffusion_torch.utils.eval_metrics import feature_fid
+
+    t_phase = time.perf_counter()
+    geometry = dict(codebook_size=1024, seq_len=N, diffusion_steps=TVQ_T, embedding_dim=512,
+                    num_layers=4, num_heads=8, use_text_condition=True)
+    tvq = tvq_mod.TransformerVQDiffusion(**geometry)
+    tvq.predictor.init_weights(torch.Generator().manual_seed(13))
+    tvq = tvq.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cond = torch.randn(B, 77, 512, generator=gen, device="cuda")
+    none = {name: 0 for name in kernel_wrappers()}
+    for label, method, mode, expect in (
+            ("sample, B6", "sample", True, {"discrete_posterior": TVQ_T - 1}),
+            ("fast_sample, B6 at trunc_k 881", "fast_sample", True,
+             {"discrete_posterior": (TVQ_T - 1) // 4}),
+            ("sample, prng (B7)", "sample", "prng", {"discrete_posterior_prng": TVQ_T - 1})):
+        tvq.diffusion.fused_posterior = mode
+        reset_counts()
+        t0 = time.perf_counter()
+        idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(12),
+                                   cond_emb=cond)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != dict(none, **expect):
+            raise AssertionError(f"(ab) {label}: launches {launches}, expected {expect}")
+        if tuple(idx.shape) != (B, 16, 16) or int(idx.min()) < 0 or int(idx.max()) > 1023:
+            raise AssertionError(f"(ab) {label}: indices {tuple(idx.shape)}")
+        print(f"(ab) cross-attention prior {label} on cond_emb {list(cond.shape)}: "
+              f"{sum(launches.values())} launches, {sec:.3f} s; {card}")
+    for method, n_noise in (("sample", TVQ_T), ("fast_sample", (TVQ_T - 1) // 4 + 1)):
+        noise = [gumbel_from_uniform(torch.rand(B, N, TVQ_K, generator=gen, device="cuda"))
+                 for _ in range(n_noise)]
+        idx = {}
+        for fused in (True, False):
+            tvq.diffusion.fused_posterior = fused
+            idx[fused] = getattr(tvq, method)(B, step_gumbel=noise, cond_emb=cond)
+        same = int((idx[True] == idx[False]).sum())
+        print(f"(ab) {method} on cond_emb, same noise, kernel route against plain ops: {same} "
+              f"of {idx[True].numel()} indices equal")
+        if same != idx[True].numel():
+            raise AssertionError(f"(ab) {method}: the kernel route and plain ops part")
+        del noise
+    state = {k: v.detach().cpu() for k, v in tvq.predictor.state_dict().items()}
+    del tvq
+    torch.cuda.empty_cache()
+    dropout = tvq_mod.DROPOUT
+    tvq_mod.DROPOUT = 0.0                   # dropout off: its masks differ by device
+    try:
+        losses = {}
+        rs = np.random.RandomState(15)
+        x0 = torch.from_numpy(rs.randint(0, 1024, (2, N)))
+        c2 = torch.from_numpy(rs.standard_normal((2, 77, 512)).astype(np.float32))
+        t = torch.from_numpy(rs.randint(0, TVQ_T, (2,)))
+        g = gumbel_from_uniform(torch.from_numpy(rs.uniform(size=(2, N, TVQ_K))
+                                                 .astype(np.float32)))
+        for device in ("cuda", "cpu"):
+            m = tvq_mod.TransformerVQDiffusion(**geometry)
+            m.predictor.load_state_dict(state, strict=True)
+            m = m.to(device)
+            loss, _, _ = m.loss(x0.to(device), m.init_lt_state(), t=t.to(device),
+                                gumbel=g.to(device), cond_emb=c2.to(device))
+            losses[device] = float(loss)
+            del m
+    finally:
+        tvq_mod.DROPOUT = dropout
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"(ab) cross-attention prior's training loss at batch 2, dropout off: card "
+          f"{losses['cuda']!r}, CPU {losses['cpu']!r}, {rel:.2e} relative (tol 1e-5)")
+    if rel > 1e-5:
+        raise AssertionError("(ab) the cross-attention loss differs between card and CPU")
+
+    rs = np.random.RandomState(16)
+    real = rs.random_sample((32, 64, 64, 3)).astype(np.float32)
+    fake = (rs.random_sample((32, 64, 64, 3)) ** 2).astype(np.float32)
+    lpips = load_lpips()
+    fid_cpu = feature_fid(real, fake, lpips, device="cpu")
+    fid_card = feature_fid(real, fake, lpips, device="cuda")
+    rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+    print(f"(ab) feature_fid of 2 x 32 images at 64^2: card {fid_card!r}, CPU {fid_cpu!r}, "
+          f"{rel:.2e} relative (tol 1e-3)")
+    if rel > 1e-3 or not math.isfinite(fid_card):
+        raise AssertionError("(ab) feature_fid differs between card and CPU")
+    real = rs.random_sample((256, 256, 256, 3)).astype(np.float32)
+    fake = rs.random_sample((256, 256, 256, 3)).astype(np.float32)
+    feature_fid(real[:64], fake[:64], lpips, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fid = feature_fid(real, fake, lpips, device="cuda")
+    sec = time.perf_counter() - t0
+    print(f"(ab) feature_fid of 2 x 256 images at 256^2 on the card: {fid!r} in {sec:.3f} s "
+          f"(batches of 64, the copies to the card and the 512x512 sqrtm on the host "
+          f"included); {card}")
+    del real, fake, lpips
+    torch.cuda.empty_cache()
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    out = cli.run(["--config", TRAIN_CONFIG, "--debug", "--profile"],
+                  overrides={"trainer.log_dir": log_dir})
+    with open(os.path.join(out["run_dir"], "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("(ab) --profile's trace holds no CUDA kernel events")
+    print(f"(ab) --profile: {len(events)} trace events, {len(kernels)} CUDA kernel events")
+    del out
+
+    sig_dir = os.path.join(log_dir, "sigterm")
+    with open(TRAIN_CONFIG) as f:
+        data = yaml.safe_load(f)
+    data["trainer"]["log_dir"] = sig_dir
+    sig_cfg = os.path.join(log_dir, "sigterm.yml")
+    with open(sig_cfg, "w") as f:
+        yaml.safe_dump(data, f)
+    cmd = [sys.executable, "-m", "vq_vae_gan_diffusion_torch.train", "--config", sig_cfg,
+           "--epochs", "50"]
+    t0 = time.perf_counter()
+    with open(os.path.join(log_dir, "sigterm.log"), "w") as logf:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            rows = []
+            while not rows and time.perf_counter() - t0 < 180 and proc.poll() is None:
+                time.sleep(0.5)
+                for path in glob.glob(os.path.join(sig_dir, "*", "*", "run_*",
+                                                   "metrics.jsonl")):
+                    with open(path) as f:
+                        rows = [json.loads(line) for line in f if line.strip()]
+            if not rows:
+                raise AssertionError(f"(ab) no metrics row from the train CLI subprocess "
+                                     f"(exit {proc.poll()})")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    run_dir = os.path.dirname(path)
+    ckpts = sorted(glob.glob(os.path.join(run_dir, "ckpt", "step_*.pth")))
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    if rc != 143 or not ckpts:
+        raise AssertionError(f"(ab) SIGTERM: exit {rc}, checkpoints {ckpts}")
+    step = torch.load(ckpts[-1], weights_only=True)["step"]
+    resumed = cli.run(["--config", sig_cfg, "--debug"],
+                      overrides={"architecture.vqvae.resume_path": ckpts[-1]})
+    if resumed["worker"].global_step != step + 2 or rows[-1]["step"] != step:
+        raise AssertionError(f"(ab) SIGTERM checkpoint at step {step}, last metrics row "
+                             f"{rows[-1]}, resumed to {resumed['worker'].global_step}")
+    print(f"(ab) SIGTERM to the train CLI after its first metrics row: exit {rc} after "
+          f"{time.perf_counter() - t0:.1f} s, the newest checkpoint at step {step} (of "
+          f"{len(ckpts)}: one an epoch, then the SIGTERM's) with its metrics row; "
+          f"resumed there, two --debug steps to {resumed['worker'].global_step}")
+    del resumed
+
+    cfg = load_config(TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
+    loader = DataLoader(SyntheticDataset(TRAIN_B * 20, 28, 1), TRAIN_B,
+                        Preprocessor(28, list(cfg.dataset.mean)[:1], list(cfg.dataset.std)[:1],
+                                     grayscale=True),
+                        shuffle=True, drop_last=True, seed=0)
+    for k in (1, 4, 1, 4):
+        w = VQGANVQVAEWorker(cfg.replace_path("trainer.steps_per_dispatch", k),
+                             os.path.join(log_dir, f"k{k}"), device="cuda")
+        w.train(loader, 1)
+        with open(os.path.join(log_dir, f"k{k}", "metrics.jsonl")) as f:
+            epoch = [r for r in map(json.loads, f) if "epoch_time_s" in r][-1]
+        print(f"(ab) steps_per_dispatch {k}: {epoch['steps']:.0f} steps at batch {TRAIN_B}, "
+              f"{epoch['images_per_sec']:.1f} images/s; {card}")
+        del w
+    shutil.rmtree(log_dir)
+    print(f"(ab) phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def training_phases() -> dict:
     """The training phases and the Conv1d U-Net family's, each on its own, by
     label: each prints its JSON line."""
@@ -2782,7 +3259,17 @@ def training_phases() -> dict:
                                                 phase_continuous(card)})),
             "y": lambda card: print(json.dumps({"vae_train_step": phase_vae(card)})),
             "z": lambda card: print(json.dumps({"pixel_ddpm_train_step":
-                                                phase_pixel_ddpm(card)}))}
+                                                phase_pixel_ddpm(card)})),
+            "aa": phase_bf16,
+            "ab": phase_rest}
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, then a line with the phase's seconds on the host's clock."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"chip_smoke: phase ({label}) {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2794,30 +3281,31 @@ def main(argv=None) -> int:
                              f"of {','.join(training_phases())}; prints no kernels line and no "
                              "result line")
     args = parser.parse_args(argv)
+    t_script = time.perf_counter()
     card = phase_device()
-    phase_build()
+    timed("b", phase_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.only:
         for label in args.only.split(","):
-            training_phases()[label](card)
+            timed(label, training_phases()[label], card)
         print(f"chip_smoke: phases {args.only} alone; no kernels line, no result line")
         return 0
-    timing = phase_kernel(card)
-    launches = phase_main()
-    phase_routes()
-    units = phase_units(card)
-    phase_other_shapes()
-    vqd_launches = phase_vqdiffusion()
-    phase_vqd_routes()
-    posterior = phase_posterior(card)
-    vqo_launches = phase_vqofficial(card)
-    tvq_launches = phase_transformer(card)
-    quant = phase_quant_kernels(card)
-    quant_launches = phase_int8kv_path()
-    phase_int8kv_routes()
-    for phase in training_phases().values():
-        phase(card)
+    timing = timed("c", phase_kernel, card)
+    launches = timed("d", phase_main)
+    timed("e", phase_routes)
+    units = timed("f", phase_units, card)
+    timed("f, off-path shapes", phase_other_shapes)
+    vqd_launches = timed("g", phase_vqdiffusion)
+    timed("h", phase_vqd_routes)
+    posterior = timed("i", phase_posterior, card)
+    vqo_launches = timed("j", phase_vqofficial, card)
+    tvq_launches = timed("k", phase_transformer, card)
+    quant = timed("l", phase_quant_kernels, card)
+    quant_launches = timed("m", phase_int8kv_path)
+    timed("n", phase_int8kv_routes)
+    for label, phase in training_phases().items():
+        timed(label, phase, card)
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",
@@ -2869,6 +3357,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{k['name']} was not launched on its path")
         if not all(math.isfinite(k[key]) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite numbers for {k['name']}")
+    print(f"chip_smoke: all phases {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

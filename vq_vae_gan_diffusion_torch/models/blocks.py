@@ -30,6 +30,12 @@ class Swish(nn.Module):
         return swish(x)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32 where it is in a narrower float type (bf16 under autocast),
+    else as it is (f32, float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class GroupNorm(nn.Module):
     """32-group GroupNorm (or the largest divisor of C that is <= 32), eps 1e-6;
     computed in f32 and returned in x's dtype (flax's norms under a bf16
@@ -44,7 +50,7 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.autocast(x.device.type, enabled=False):
-            return self.group_norm(x.float()).to(x.dtype)
+            return self.group_norm(at_least_f32(x)).to(x.dtype)
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:

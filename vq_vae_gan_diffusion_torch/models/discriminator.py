@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .blocks import at_least_f32
+
 MOMENTUM = 0.9      # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
 EPS = 1e-5
 
@@ -73,7 +75,7 @@ class Discriminator(nn.Module):
 
 
 def _batch_norm(bn: nn.BatchNorm2d, h: torch.Tensor, update_stats: bool) -> torch.Tensor:
-    hf = h.float()                           # f32 statistics and arithmetic, as flax's
+    hf = at_least_f32(h)                     # f32 statistics and arithmetic, as flax's
     if update_stats:
         with torch.no_grad():
             var, mean = torch.var_mean(hf, dim=(0, 2, 3), correction=0)

@@ -36,9 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+from .blocks import at_least_f32
 
 
 class RMSNorm(nn.Module):
@@ -49,7 +47,7 @@ class RMSNorm(nn.Module):
         self.g = nn.Parameter(torch.ones(1, dim, *([1] * spatial_dims)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = _at_least_f32(x)
+        x32 = at_least_f32(x)
         normed = x32 * torch.rsqrt(torch.sum(x32 * x32, dim=1, keepdim=True) + 1e-12)
         return (normed * self.g * math.sqrt(x.shape[1])).to(x.dtype)
 
@@ -130,8 +128,8 @@ class LinearAttention1D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, n = x.shape
         q, k, v = (_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=1))
-        q = torch.softmax(_at_least_f32(q), dim=2).to(x.dtype) * self.scale
-        k = torch.softmax(_at_least_f32(k), dim=3).to(x.dtype)
+        q = torch.softmax(at_least_f32(q), dim=2).to(x.dtype) * self.scale
+        k = torch.softmax(at_least_f32(k), dim=3).to(x.dtype)
         context = torch.einsum("bhdn,bhen->bhde", k, v)
         out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(b, -1, n)
         return self.to_out(out)
@@ -149,7 +147,7 @@ class Attention1D(nn.Module):
         b, _, n = x.shape
         q, k, v = (_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=1))
         sim = torch.einsum("bhdi,bhdj->bhij", q * self.scale, k)
-        attn = torch.softmax(_at_least_f32(sim), dim=-1).to(x.dtype)
+        attn = torch.softmax(at_least_f32(sim), dim=-1).to(x.dtype)
         out = torch.einsum("bhij,bhdj->bhdi", attn, v).reshape(b, -1, n)
         return self.to_out(out)
 

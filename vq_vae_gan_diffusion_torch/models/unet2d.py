@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet1d import (RandomOrLearnedSinusoidalPosEmb, RMSNorm, SinusoidalPosEmb, _at_least_f32,
+from .blocks import at_least_f32
+from .unet1d import (RandomOrLearnedSinusoidalPosEmb, RMSNorm, SinusoidalPosEmb,
                      flax_init_)
 
 
@@ -140,8 +141,8 @@ class LinearAttention2D(_Attention):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
         q, k, v = self.qkv(x)
-        q = torch.softmax(_at_least_f32(q), dim=2).to(x.dtype) * self.scale
-        k = torch.softmax(_at_least_f32(k), dim=3).to(x.dtype)
+        q = torch.softmax(at_least_f32(q), dim=2).to(x.dtype) * self.scale
+        k = torch.softmax(at_least_f32(k), dim=3).to(x.dtype)
         context = torch.einsum("bhdn,bhen->bhde", k, v)
         out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(b, -1, h, w)
         return self.to_out(out)
@@ -156,7 +157,7 @@ class Attention2D(_Attention):
         b, _, h, w = x.shape
         q, k, v = self.qkv(x)
         sim = torch.einsum("bhdi,bhdj->bhij", q * self.scale, k)
-        attn = torch.softmax(_at_least_f32(sim), dim=-1).to(x.dtype)
+        attn = torch.softmax(at_least_f32(sim), dim=-1).to(x.dtype)
         out = torch.einsum("bhij,bhdj->bhdi", attn, v).reshape(b, -1, h, w)
         return self.to_out(out)
 

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .blocks import at_least_f32
+
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2, dim: int = -1) -> torch.Tensor:
     """The groups-transpose permutation of the channels on axis ``dim``:
@@ -43,7 +45,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased batch variance. ``num_batches_tracked`` stays as it is."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()                       # f32 statistics and arithmetic, as flax's
+        xf = at_least_f32(x)                 # f32 statistics and arithmetic, as flax's
         if not self.training:
             return super().forward(xf).to(x.dtype)
         with torch.no_grad():
