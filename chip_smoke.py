@@ -287,7 +287,7 @@ TVQ_K, TVQ_T, TRUNC_K = 1025, 100, int(1025 * 0.86)
 WIDE_K = 2049
 # stage-1 training: the benchmark workload of the root bench.py
 TRAIN_CONFIG, TRAIN_B, TRAIN_STEPS = "configs/training_config_mnist.yml", 200, 10
-TRAIN_EPOCHS = 4
+TRAIN_EPOCHS = 2
 # stage-2 training at full width: the GPT prior and the gaussian3d prior of
 # training_config_small.yml on synthetic data, batch 20 @ 256x256x3; the
 # GPT's training grid samples LOG_B images, half given (PREFIX positions
@@ -311,9 +311,11 @@ G2D_CONFIG, G2D_TRAIN_CONFIG = ("configs/inference_config_gaussian2d.yml",
 VQO1D_CONFIG, VQO1D_TRAIN_CONFIG = ("configs/inference_config_vqofficial1d.yml",
                                     "configs/training_config_vqofficial1d.yml")
 PIXEL2D_CONFIG, PIXEL2D_SAMPLES = "configs/training_config_pixel2d.yml", 4
+# (u)'s card-against-CPU chain, cut from the config's 1000 DDIM steps
+G2D_CPU_STEPS = 250
 CONTINUOUS_CONFIGS = {"c_vqdiffusion": "configs/training_config_cvq.yml",
                       "v_vqdiffusion": "configs/training_config_vvq.yml"}
-CONTINUOUS_STEPS = 500
+CONTINUOUS_STEPS = 250          # the configs' 500 DDIM steps, cut to fit the script's time
 # the VAE family on training_config_large.yml: batch 20 of 256x256x3 (a 16x16
 # latent), 16 samples drawn at the config's latent_size 32, decoding to 512x512
 VAE_CONFIG, VAE_B, VAE_LATENT, VAE_SAMPLE_HW = "configs/training_config_large.yml", 20, 16, 512
@@ -2411,7 +2413,9 @@ def phase_gaussian2d(card: str) -> dict:
     comp.unet.init_weights(torch.Generator().manual_seed(31))
     gen = torch.Generator().manual_seed(32)
     init = torch.randint(0, 1024, (1, N), generator=gen)
-    noise = [torch.randn(1, N, GAUSSIAN_DIM, generator=gen) for _ in range(STEPS)]
+    # the chain on the CPU, cut to G2D_CPU_STEPS of the config's DDIM steps
+    comp.prior.cfg = comp.prior.cfg._replace(sampling_timesteps=G2D_CPU_STEPS)
+    noise = [torch.randn(1, N, GAUSSIAN_DIM, generator=gen) for _ in range(G2D_CPU_STEPS)]
     idx, secs = {}, {}
     for device in ("cuda", "cpu"):
         comp.unet.to(device)
@@ -2421,7 +2425,7 @@ def phase_gaussian2d(card: str) -> dict:
                                   step_noise=[n.to(device) for n in noise]).cpu()
         secs[device] = time.perf_counter() - t0
     agree = (idx["cuda"] == idx["cpu"]).float().mean().item()
-    print(f"(u) one sample's {STEPS}-step chain from the same indices and noise, card "
+    print(f"(u) one sample's {G2D_CPU_STEPS}-step chain from the same indices and noise, card "
           f"{secs['cuda']:.2f} s against CPU {secs['cpu']:.2f} s: {100 * agree:.2f}% of {N} "
           f"indices equal")
     if agree < 0.99:
@@ -2610,9 +2614,9 @@ def phase_continuous(card: str) -> dict:
         cfg, _, batch = stage2_batch("x", config, log_dir, (STAGE2_B, 256, 256, 3))
         worker = ContinuousVQDiffusionWorker(cfg, log_dir, device="cuda")
         worker.init_state()
-        steps = min(worker.composite.sampling_timesteps, CONTINUOUS_STEPS)
-        if steps != CONTINUOUS_STEPS:
-            raise AssertionError(f"(x) {model}: {steps} DDIM steps")
+        if worker.composite.sampling_timesteps < CONTINUOUS_STEPS:
+            raise AssertionError(f"(x) {model}: {worker.composite.sampling_timesteps} DDIM steps")
+        worker.composite.sampling_timesteps = CONTINUOUS_STEPS
         numbers[model] = stage2_step_times("x", config, worker, torch.from_numpy(batch).cuda(),
                                            card)
         reset_counts()

@@ -89,14 +89,16 @@ def _tiny_vqd(tiny_config, tmp_path, drop_pixel: bool):
     return str(path), data
 
 
-@pytest.mark.parametrize("flag,value", [("sampler", v) for v in ("on", "off", "pallas", "packed")]
-                         + [("posterior", v) for v in ("on", "off", "interpret", "prng")])
-@pytest.mark.parametrize("drop_pixel", [False, True])
+@pytest.mark.parametrize("flag,value,drop_pixel",
+                         [("sampler", v, False) for v in ("on", "off", "pallas", "packed")]
+                         + [("posterior", v, False) for v in ("on", "off", "interpret", "prng")]
+                         + [("sampler", "pallas", True), ("posterior", "off", True)])
 def test_fused_flags_write_the_root_keys(tmp_path, tiny_config, monkeypatch, flag, value,
                                          drop_pixel):
     """Each value of the root CLIs' choices, through ``train.run`` and
     ``generate.run``: the config the worker gets has the fused keys (present
-    or absent, and their values) that the root's lines give the same YAML."""
+    or absent, and their values) that the root's lines give the same YAML;
+    also on a config without the ``trainer.gaussiandiffusion3d`` section."""
     from vq_vae_gan_diffusion_tpu.config import config_from_dict as j_config_from_dict
 
     seen = []

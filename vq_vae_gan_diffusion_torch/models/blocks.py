@@ -117,6 +117,6 @@ class NonLocalBlock(nn.Module):
         q = self.q(xn).reshape(b, c, h * w).transpose(1, 2)       # [B, HW, C]
         k = self.k(xn).reshape(b, c, h * w)                       # [B, C, HW]
         v = self.v(xn).reshape(b, c, h * w).transpose(1, 2)       # [B, HW, C]
-        weights = torch.softmax((torch.bmm(q, k) * c ** -0.5).float(), dim=-1).to(v.dtype)
+        weights = torch.softmax(at_least_f32(torch.bmm(q, k) * c ** -0.5), dim=-1).to(v.dtype)
         attn = torch.bmm(weights, v).transpose(1, 2).reshape(b, c, h, w)
         return xn + self.project_out(attn)

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .blocks import at_least_f32
+
 log = logging.getLogger(__name__)
 
 # (channels, convs) a stage; a tap after each stage's last ReLU
@@ -94,7 +96,7 @@ class LPIPS(nn.Module):
         taps = self._taps((torch.cat([x, y]) - self.shift) / self.scale)
         total = 0.0
         for i, t in enumerate(taps):
-            tf = t.float()
+            tf = at_least_f32(t)
             t = t / (torch.sqrt((tf * tf).sum(1, keepdim=True)) + 1e-10).to(t.dtype)
             diff = (t[:b] - t[b:]) ** 2
             lin = torch.einsum("bchw,c->bhw", diff, getattr(self, f"lin{i}").abs())

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.gpt_decode import (QUANT_MODES, fused_decode_stack, fused_decode_stack_q,
                               fused_decode_stack_qkv, pack_decode_params)
+from .blocks import at_least_f32
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -54,7 +55,7 @@ class CausalSelfAttention(nn.Module):
         q, k, v = self._heads(self.query(x)), self._heads(self.key(x)), self._heads(self.value(x))
         att = (q @ k.transpose(-2, -1)) * (c // self.n_head) ** -0.5
         att = att.masked_fill(self.mask[:, :, :t, :t] == 0, float("-inf"))
-        y = torch.softmax(att.float(), dim=-1).to(v.dtype) @ v   # [B, H, T, D]
+        y = torch.softmax(at_least_f32(att), dim=-1).to(v.dtype) @ v   # [B, H, T, D]
         return self.proj(y.transpose(1, 2).reshape(b, t, c))
 
     def decode_step(self, x: torch.Tensor, pos: int,
@@ -69,7 +70,7 @@ class CausalSelfAttention(nn.Module):
         att = (q @ k_cache.transpose(-2, -1)) * (c // self.n_head) ** -0.5
         valid = torch.arange(k_cache.shape[2], device=x.device) <= pos
         att = att.masked_fill(~valid, float("-inf"))
-        y = torch.softmax(att.float(), dim=-1).to(v_cache.dtype) @ v_cache
+        y = torch.softmax(at_least_f32(att), dim=-1).to(v_cache.dtype) @ v_cache
         return self.proj(y.transpose(1, 2).reshape(b, 1, c))
 
 

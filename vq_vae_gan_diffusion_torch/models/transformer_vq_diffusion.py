@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.discrete import DiscreteDiffusion, LtState, log_onehot_to_index
+from .blocks import at_least_f32
 
 DROPOUT = 0.1          # the flax blocks' default, read when a block is built
 CLIP_TEXT_DIM = 512    # CLIP ViT-B/32's text states, the JAX encode_text's cond_emb width
@@ -77,7 +78,7 @@ class Attention(nn.Module):
         q = self.query(x).view(b, n, h, c // h) / math.sqrt(c // h)
         k, v = (proj(ctx).view(b, s, h, c // h) for proj in (self.key, self.value))
         sim = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        att = torch.softmax(sim.float(), dim=-1).to(v.dtype)
+        att = torch.softmax(at_least_f32(sim), dim=-1).to(v.dtype)
         if self.training and self.dropout > 0:
             keep = 1.0 - self.dropout
             mask = torch.bernoulli(torch.full((1, 1, n, s), keep, device=x.device))

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..checkpoint import read_training_checkpoint
 from ..config import Config
+from ..models.blocks import at_least_f32
 from ..models.mingpt import GPT
 from ..models.vq_transformer import VQTransformer
 from ..utils import make_grid, save_image
@@ -147,7 +148,7 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         with self.autocast():
             logits, targets = self.composite(imgs, generator, keep=keep,
                                              random_indices=random_indices)
-        logits = logits.float()
+        logits = at_least_f32(logits)
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
         acc = (logits.argmax(-1) == targets).float().mean()
         state.opt.zero_grad()

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..checkpoint import read_training_checkpoint, restore
 from ..config import Config, resolve_img_channels
+from ..models.blocks import at_least_f32
 from ..models.discriminator import Discriminator
 from ..models.lpips import load_lpips
 from ..models.vqvae import VQVAE, adopt_weight
@@ -164,9 +165,9 @@ class VQGANVQVAEWorker(TrainingWorker):
     # -- the step ------------------------------------------------------------
     def _perceptual_rec(self, imgs: torch.Tensor, decoded: torch.Tensor,
                         mask: Optional[torch.Tensor]) -> torch.Tensor:
-        prl = self.rec_factor * (imgs - decoded.float()).abs()
+        prl = self.rec_factor * (imgs - at_least_f32(decoded)).abs()
         if self.perceptual_factor != 0.0:
-            prl = prl + self.perceptual_factor * self.lpips(imgs, decoded).float()
+            prl = prl + self.perceptual_factor * at_least_f32(self.lpips(imgs, decoded))
         if mask is not None:
             prl = prl * mask
         return prl.mean()
@@ -204,11 +205,11 @@ class VQGANVQVAEWorker(TrainingWorker):
             zero = torch.zeros((), device=imgs.device)
             if self.is_gan:
                 frozen = {k: v.detach() for k, v in disc.named_parameters()}
-                g_loss = -functional_call(disc, frozen, (decoded,)).float().mean()
+                g_loss = -at_least_f32(functional_call(disc, frozen, (decoded,))).mean()
                 lam = self._lambda(state, prl, g_loss)
                 vq_loss = prl + q_loss + df * lam * g_loss
-                d_real = disc(imgs, update_stats=True).float()
-                d_fake = disc(decoded, update_stats=True).float()
+                d_real = at_least_f32(disc(imgs, update_stats=True))
+                d_fake = at_least_f32(disc(decoded, update_stats=True))
                 gan_loss = df * 0.5 * (F.relu(1.0 - d_real).mean() + F.relu(1.0 + d_fake).mean())
                 total = vq_loss + gan_loss
             else:
