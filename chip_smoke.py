@@ -311,8 +311,9 @@ G2D_CONFIG, G2D_TRAIN_CONFIG = ("configs/inference_config_gaussian2d.yml",
 VQO1D_CONFIG, VQO1D_TRAIN_CONFIG = ("configs/inference_config_vqofficial1d.yml",
                                     "configs/training_config_vqofficial1d.yml")
 PIXEL2D_CONFIG, PIXEL2D_SAMPLES = "configs/training_config_pixel2d.yml", 4
-# (u)'s card-against-CPU chain, cut from the config's 1000 DDIM steps
-G2D_CPU_STEPS = 250
+# the gaussian2d prior's and the pixel gaussiandiffusion2d worker's chains in
+# (u) and (w), cut from the configs' 1000 DDIM steps to fit the script's time
+G2D_STEPS = 250
 CONTINUOUS_CONFIGS = {"c_vqdiffusion": "configs/training_config_cvq.yml",
                       "v_vqdiffusion": "configs/training_config_vvq.yml"}
 CONTINUOUS_STEPS = 250          # the configs' 500 DDIM steps, cut to fit the script's time
@@ -2388,12 +2389,13 @@ def phase_gaussian2d(card: str) -> dict:
     from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker
 
     argv = ["--config", G2D_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
+    g2d_steps = {"architecture.vqdiffusion.sampling_steps": G2D_STEPS}
     chain = {}
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        out = generate.run(argv)
+        out = generate.run(argv, overrides=g2d_steps)
         total = time.perf_counter() - t0
         no_launches("u")
         idx, images = out["indices"], out["images"]
@@ -2403,8 +2405,8 @@ def phase_gaussian2d(card: str) -> dict:
             raise AssertionError(f"(u) images {tuple(images.shape)} not finite of [16,256,256,3]")
         sec = out["seconds"]
         chain[run] = sec["sample"]
-        print(f"(u) {run}: {STEPS}-step DDIM chain of 16 {sec['sample']:.3f} s "
-              f"({1e3 * sec['sample'] / STEPS:.3f} ms a reverse step: one U-Net forward and the "
+        print(f"(u) {run}: {G2D_STEPS}-step DDIM chain of 16 {sec['sample']:.3f} s "
+              f"({1e3 * sec['sample'] / G2D_STEPS:.3f} ms a reverse step: one U-Net forward and the "
               f"update); VQVAE decode {sec['decode']:.3f} s; total {total:.2f} s; max memory "
               f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"{len(set(idx.flatten().tolist()))} distinct indices; no kernel launch; {card}")
@@ -2414,8 +2416,8 @@ def phase_gaussian2d(card: str) -> dict:
     gen = torch.Generator().manual_seed(32)
     init = torch.randint(0, 1024, (1, N), generator=gen)
     # the chain on the CPU, cut to G2D_CPU_STEPS of the config's DDIM steps
-    comp.prior.cfg = comp.prior.cfg._replace(sampling_timesteps=G2D_CPU_STEPS)
-    noise = [torch.randn(1, N, GAUSSIAN_DIM, generator=gen) for _ in range(G2D_CPU_STEPS)]
+    comp.prior.cfg = comp.prior.cfg._replace(sampling_timesteps=G2D_STEPS)
+    noise = [torch.randn(1, N, GAUSSIAN_DIM, generator=gen) for _ in range(G2D_STEPS)]
     idx, secs = {}, {}
     for device in ("cuda", "cpu"):
         comp.unet.to(device)
@@ -2425,7 +2427,7 @@ def phase_gaussian2d(card: str) -> dict:
                                   step_noise=[n.to(device) for n in noise]).cpu()
         secs[device] = time.perf_counter() - t0
     agree = (idx["cuda"] == idx["cpu"]).float().mean().item()
-    print(f"(u) one sample's {G2D_CPU_STEPS}-step chain from the same indices and noise, card "
+    print(f"(u) one sample's {G2D_STEPS}-step chain from the same indices and noise, card "
           f"{secs['cuda']:.2f} s against CPU {secs['cpu']:.2f} s: {100 * agree:.2f}% of {N} "
           f"indices equal")
     if agree < 0.99:
@@ -2433,7 +2435,8 @@ def phase_gaussian2d(card: str) -> dict:
     del comp
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_g2d_")
-    run_train_cli("u", G2D_TRAIN_CONFIG, log_dir, {}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"))
+    run_train_cli("u", G2D_TRAIN_CONFIG, log_dir, {}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"),
+                  overrides=g2d_steps)
     torch.cuda.empty_cache()
     cfg, loader, batch = stage2_batch("u", G2D_TRAIN_CONFIG, log_dir, (STAGE2_B, 256, 256, 3))
     worker = VQDiffusionWorker(cfg, log_dir, device="cuda", num_iters_per_epoch=len(loader))
@@ -2441,7 +2444,7 @@ def phase_gaussian2d(card: str) -> dict:
     numbers = stage2_step_times("u", G2D_TRAIN_CONFIG, worker, torch.from_numpy(batch).cuda(),
                                 card)
     numbers.update({"chain_s_cold": chain["cold"], "chain_s_warm": chain["warm"],
-                    "samples": B, "ddim_steps": STEPS})
+                    "samples": B, "ddim_steps": G2D_STEPS})
     del worker
     torch.cuda.empty_cache()
     b = 2
@@ -2570,7 +2573,8 @@ def phase_pixel2d(card: str) -> dict:
         GaussianDiffusion2DWorker)
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_pixel2d_")
-    out = run_train_cli("w", PIXEL2D_CONFIG, log_dir, {}, ("Generating_epoch000.jpg",))
+    out = run_train_cli("w", PIXEL2D_CONFIG, log_dir, {}, ("Generating_epoch000.jpg",),
+                        overrides={"architecture.gaussiandiffusion2d.sampling_steps": G2D_STEPS})
     worker = out["worker"]
     torch.cuda.synchronize()
     reset_counts()
@@ -2583,8 +2587,8 @@ def phase_pixel2d(card: str) -> dict:
             not torch.isfinite(images).all():
         raise AssertionError(f"(w) samples {tuple(images.shape)} not finite of "
                              f"[{PIXEL2D_SAMPLES}, {PIXEL_HW}, {PIXEL_HW}]")
-    print(f"(w) the EMA's {PIXEL2D_SAMPLES} samples: {STEPS}-step DDIM chain {sample_s:.3f} s "
-          f"({1e3 * sample_s / STEPS:.3f} ms a reverse step); values in "
+    print(f"(w) the EMA's {PIXEL2D_SAMPLES} samples: {G2D_STEPS}-step DDIM chain {sample_s:.3f} s "
+          f"({1e3 * sample_s / G2D_STEPS:.3f} ms a reverse step); values in "
           f"[{images.min().item():.3f}, {images.max().item():.3f}]; {card}")
     del out, worker
     torch.cuda.empty_cache()
@@ -2593,7 +2597,7 @@ def phase_pixel2d(card: str) -> dict:
     worker.init_state()
     numbers = stage2_step_times("w", PIXEL2D_CONFIG, worker, torch.from_numpy(batch).cuda(),
                                 card)
-    numbers.update({"samples": PIXEL2D_SAMPLES, "sample_s": sample_s, "ddim_steps": STEPS})
+    numbers.update({"samples": PIXEL2D_SAMPLES, "sample_s": sample_s, "ddim_steps": G2D_STEPS})
     del worker
     torch.cuda.empty_cache()
     shutil.rmtree(log_dir)
@@ -2629,6 +2633,7 @@ def phase_continuous(card: str) -> dict:
         if tuple(images.shape) != (B, 256, 256, 3) or not torch.isfinite(images).all():
             raise AssertionError(f"(x) {model}: images {tuple(images.shape)} not finite")
         sec = out["seconds"]
+        steps = CONTINUOUS_STEPS
         numbers[model].update({"samples": B, "ddim_steps": steps, "sample_s": sec["sample"],
                                "decode_s": sec["decode"]})
         print(f"(x) {model}: the EMA's {B} samples, {steps}-step DDIM chain {sec['sample']:.3f} s "
@@ -3233,7 +3238,7 @@ def phase_rest(card: str) -> None:
                         Preprocessor(28, list(cfg.dataset.mean)[:1], list(cfg.dataset.std)[:1],
                                      grayscale=True),
                         shuffle=True, drop_last=True, seed=0)
-    for k in (1, 4, 1, 4):
+    for k in (1, 4):
         w = VQGANVQVAEWorker(cfg.replace_path("trainer.steps_per_dispatch", k),
                              os.path.join(log_dir, f"k{k}"), device="cuda")
         w.train(loader, 1)

@@ -80,7 +80,6 @@ from vq_vae_gan_diffusion_tpu.models.vq_diffusion_composite import (
 from vq_vae_gan_diffusion_tpu.models.vq_transformer import VQTransformer as JaxVQT
 from vq_vae_gan_diffusion_tpu.models.vqvae import VQVAE as JaxVQVAE
 from vq_vae_gan_diffusion_tpu.train.vq_diffusion_worker import VQDiffusionWorker as JaxVQD
-from vq_vae_gan_diffusion_tpu.train.vq_transformer_worker import VQTransformerWorker as JaxGPTW
 from vq_vae_gan_diffusion_tpu.train.vqgan_worker import VQGANState, make_train_step
 
 BF16, BATCH, ITERS = torch.bfloat16, 4, 5
@@ -232,8 +231,10 @@ def _gpt_jax(composite, state, batch, rng):
 
 def test_gpt_step_by_the_bf16_rule(tiny_config):
     cfg = tiny_config.replace_path("architecture.model_name", "vqvae_transformer")
-    js = jax.device_get(JaxGPTW(cfg, tempfile.mkdtemp()).init_state())
     j16 = SimpleNamespace(composite=JaxVQT(cfg, dtype=jnp.bfloat16))
+    c = j16.composite
+    js = SimpleNamespace(vq_params=_numpy_params(c.vqvae, jnp.zeros((1, 32, 32, 3)), seed=0),
+                         gpt_params=_numpy_params(c.gpt, jnp.zeros((1, c.seq_len), jnp.int32)))
     b, key = _batch(2), jax.random.PRNGKey(3)
     m16, g16 = _gpt_jax(j16.composite, js, jnp.asarray(b), key)
     keep, rand = gpt_draws(j16, b, key)

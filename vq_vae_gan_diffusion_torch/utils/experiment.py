@@ -65,14 +65,13 @@ class MetricWriter:
     machine's packages need not hold it: then jsonl only). Whether ``tb/``
     is written is logged once, at info level."""
 
-    def __init__(self, run_dir: str, use_tensorboard: bool = True,
-                 logger: Optional[logging.Logger] = None):
+    def __init__(self, run_dir: str, logger: Optional[logging.Logger] = None):
         os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, "metrics.jsonl")
         self._f = open(self.path, "a")
         self._tb = None
-        why = "VQGD_NO_TB is set" if os.environ.get("VQGD_NO_TB") else "not asked for"
-        if use_tensorboard and not os.environ.get("VQGD_NO_TB"):
+        why = "VQGD_NO_TB is set"
+        if not os.environ.get("VQGD_NO_TB"):
             try:
                 from tensorboardX import SummaryWriter
                 self._tb = SummaryWriter(os.path.join(run_dir, "tb"))
