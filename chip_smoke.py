@@ -2415,7 +2415,7 @@ def phase_gaussian2d(card: str) -> dict:
     comp.unet.init_weights(torch.Generator().manual_seed(31))
     gen = torch.Generator().manual_seed(32)
     init = torch.randint(0, 1024, (1, N), generator=gen)
-    # the chain on the CPU, cut to G2D_CPU_STEPS of the config's DDIM steps
+    # the chain on the CPU, cut to G2D_STEPS of the config's DDIM steps
     comp.prior.cfg = comp.prior.cfg._replace(sampling_timesteps=G2D_STEPS)
     noise = [torch.randn(1, N, GAUSSIAN_DIM, generator=gen) for _ in range(G2D_STEPS)]
     idx, secs = {}, {}

@@ -274,6 +274,38 @@ def test_sigterm_saves_at_the_step_boundary_and_exits_143(tmp_path, tiny_config,
     assert all(torch.equal(resumed.state.vqvae.state_dict()[k], v) for k, v in want.items())
 
 
+@pytest.mark.parametrize("hook", ["log_artifacts", "save"])
+def test_sigterm_in_a_profile_epoch_exits_with_its_trace(tmp_path, tiny_config, monkeypatch,
+                                                          hook):
+    """--profile --epochs 2 in --debug, SIGTERM sent from the profiled
+    epoch's first ``hook`` call: during its artifacts (taken after step 2,
+    inside the profiled call) or after its checkpoint (taken by the second
+    call before its first step). Either way: exit 143 at step 2, a
+    checkpoint at step 2, the trace written, the handler restored."""
+    _, path = _vq_config(tiny_config, tmp_path)
+    original = getattr(VQGANVQVAEWorker, hook)
+    handler = signal.getsignal(signal.SIGTERM)
+    calls = []
+
+    def killing_hook(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        calls.append(self.global_step)
+        if len(calls) == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+    monkeypatch.setattr(VQGANVQVAEWorker, hook, killing_hook)
+    with pytest.raises(SystemExit) as exit_:
+        cli.run(["--config", path, "--debug", "--device", "cpu", "--profile", "--epochs", "2"])
+    assert exit_.value.code == 143
+    assert signal.getsignal(signal.SIGTERM) is handler
+    (run_dir,) = glob.glob(str(tmp_path / "zlog" / "*" / "*" / "run_*"))
+    assert sorted(os.listdir(os.path.join(run_dir, "ckpt"))) == ["step_00000002.pth"]
+    with open(os.path.join(run_dir, "profile", "trace.json")) as f:
+        assert json.load(f)["traceEvents"]
+    steps = [r["step"] for r in _rows(run_dir)]
+    assert steps == ([1, 2, 2] if hook == "save" else [1, 2])
+
+
 def test_steps_per_dispatch_matches_one_step_a_dispatch(tmp_path, tiny_config):
     """K = 2 over 5 batches (two dispatches and a tail of one): the
     parameters after the epoch equal K = 1's, and the metric rows fall where

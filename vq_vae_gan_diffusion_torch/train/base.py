@@ -236,13 +236,14 @@ class TrainingWorker(Worker):
         rest, the steps and the wait for the device at the epoch's end
         (``step_s``). Returns the last metrics written.
 
-        SIGTERM (a preempted machine) is taken at the next step boundary,
-        never inside the handler, which only notes it: the loop writes the
-        step's metrics, saves a checkpoint and raises ``SystemExit(143)``.
-        The previous handler is restored on the way out."""
+        SIGTERM (a preempted machine) is taken at the next dispatch's end or
+        the next epoch's start, never inside the handler, which only notes
+        it: the loop writes the step's metrics, saves a checkpoint and raises
+        ``SystemExit(143)``. A SIGTERM noted in an earlier call (during a
+        ``--profile`` epoch's checkpoint or grid) is taken before this call's
+        first step. The previous handler is restored on the way out."""
         if self.state is None:
             self.state = self.init_state()
-        self._sigterm = False
 
         def on_sigterm(signum, frame):
             self._sigterm = True
@@ -258,16 +259,11 @@ class TrainingWorker(Worker):
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
 
-    def _exit_if_terminated(self, epoch: int, step_metrics: Dict[str, torch.Tensor],
-                            written: bool) -> None:
-        """After a step: on a noted SIGTERM, write the step's metrics (unless
-        they are written), save and raise ``SystemExit(143)``."""
-        if not self._sigterm:
-            return
-        if not written:
-            self.metrics.write(self.global_step, {k: float(v) for k, v in step_metrics.items()})
-        self.save(epoch)
-        raise SystemExit(143)
+    def _exit_if_terminated(self, epoch: int) -> None:
+        """On a noted SIGTERM: save and raise ``SystemExit(143)``."""
+        if self._sigterm:
+            self.save(epoch)
+            raise SystemExit(143)
 
     def _epochs(self, dataloader: Iterable, epochs: int,
                 val_loader: Optional[Iterable]) -> Dict[str, float]:
@@ -277,48 +273,46 @@ class TrainingWorker(Worker):
         metric_every, artifact_every = max(k, save_step // 5), max(k, save_step)
         next_metric = next_artifact = self.global_step
         last: Dict[str, float] = {}
+        steps = images = 0
+
+        def dispatch(batches: List[torch.Tensor], epoch: int, on_cadence: bool) -> None:
+            """``train_multi_step`` over ``batches``, the step counters, the
+            metrics row (where ``on_cadence`` and due, or on a noted SIGTERM)
+            and the SIGTERM exit."""
+            nonlocal next_metric, last, steps, images
+            self.state, metrics = self.train_multi_step(self.state, batches, self.generator)
+            self.global_step += len(batches)
+            steps += len(batches)
+            images += sum(b.shape[0] for b in batches)
+            write = (on_cadence and self.global_step >= next_metric) or self._sigterm
+            if write or not on_cadence:
+                last = {name: float(v) for name, v in metrics.items()}
+            if write:
+                next_metric = self.global_step + metric_every
+                self.metrics.write(self.global_step, last)
+            self._exit_if_terminated(epoch)
+
         for epoch in range(epochs):
+            self._exit_if_terminated(epoch)
             t0 = t = time.perf_counter()
             images, steps, loader_s, artifact_s = 0, 0, 0.0, 0.0
             pending: List[torch.Tensor] = []
             for index, batch in enumerate(dataloader):
                 pending.append(self.batch_to_device(batch))
                 loader_s += time.perf_counter() - t
-                if len(pending) < k:
-                    t = time.perf_counter()
-                    continue
-                batches, pending = pending, []
-                if k > 1:
-                    self.state, metrics = self.train_multi_step(self.state, batches,
-                                                                self.generator)
-                else:
-                    self.state, metrics = self.train_step(self.state, batches[0],
-                                                          self.generator)
-                self.global_step += len(batches)
-                steps += len(batches)
-                images += sum(b.shape[0] for b in batches)
-                written = self.global_step >= next_metric
-                if written:
-                    next_metric = self.global_step + metric_every
-                    last = {name: float(v) for name, v in metrics.items()}
-                    self.metrics.write(self.global_step, last)
-                self._exit_if_terminated(epoch, metrics, written)
-                if self.global_step >= next_artifact:
-                    next_artifact = self.global_step + artifact_every
-                    ta = time.perf_counter()
-                    self.log_artifacts(batches[-1], epoch, index)
-                    artifact_s += time.perf_counter() - ta
+                if len(pending) == k:
+                    batches, pending = pending, []
+                    dispatch(batches, epoch, on_cadence=True)
+                    if self.global_step >= next_artifact:
+                        next_artifact = self.global_step + artifact_every
+                        ta = time.perf_counter()
+                        self.log_artifacts(batches[-1], epoch, index)
+                        artifact_s += time.perf_counter() - ta
                 if self.debug and index >= 1:
                     break
                 t = time.perf_counter()
-            for batch in pending:              # the tail, one step at a time, as JAX's
-                self.state, metrics = self.train_step(self.state, batch, self.generator)
-                self.global_step += 1
-                steps += 1
-                images += batch.shape[0]
-                self._exit_if_terminated(epoch, metrics, False)
-            if pending:
-                last = {name: float(v) for name, v in metrics.items()}
+            if pending:                        # the tail of fewer than K: no row, as JAX's
+                dispatch(pending, epoch, on_cadence=False)
             self._sync()
             dt = time.perf_counter() - t0
             self.logger.info("epoch %d done in %.1fs (%.1f images/s; loader %.2fs, artifacts "

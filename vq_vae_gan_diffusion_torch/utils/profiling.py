@@ -25,14 +25,18 @@ BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense bf16 tensor cores
 def profile_steps(logdir: str):
     """A ``torch.profiler`` trace of the block (CPU activity, and CUDA's
     where a card is visible), written as the Chrome trace
-    ``<logdir>/trace.json`` when the block ends (the JAX package's
-    ``profile_steps`` writes a ``jax.profiler`` trace there)."""
+    ``<logdir>/trace.json`` when the block ends, also by an exception such
+    as a SIGTERM's ``SystemExit(143)`` (the JAX package's ``profile_steps``
+    writes a ``jax.profiler`` trace there)."""
     os.makedirs(logdir, exist_ok=True)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
                                      else [])
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    prof = profile(activities=acts)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def smi_line() -> str:
