@@ -95,10 +95,10 @@ Phases, each printed as it runs; any failure exits non-zero:
       (VQVAE latent 64 at 7x7, channels [64, 128, 128], 1024 codes; PatchGAN
       64-128-256-512; LPIPS VGG16; synthetic data, as the card's machine
       holds no data/): ``python -m vq_vae_gan_diffusion_torch.train
-      --debug`` writes metrics.jsonl and a checkpoint, then four epochs at
+      --debug`` writes metrics.jsonl and a checkpoint, then two epochs at
       batch 200, each split into the host's time in the loader, in the
       artifacts and the steps, give the loop's images/s (the first epoch
-      with its setup, the other three warm); ``train_step`` at
+      with its setup, the second warm); ``train_step`` at
       batch 200 @ 28x28x1, f32, warm, before disc_start (disc_factor 0) and
       after it (disc_factor 1, lambda > 0 and finite): ms a step, images/s,
       peak device memory, through torch.profiler the device's busy share
@@ -173,10 +173,11 @@ Phases, each printed as it runs; any failure exits non-zero:
   (u) the gaussiandiffusion2d VQ-diffusion prior on
       configs/inference_config_gaussian2d.yml at full width (the Conv1d
       U-Net, base 64, mults (1, 2, 4, 8), on the [16, 256, 96] lookup-table
-      state: 256 channels over length 96; 1000 DDIM steps; seeded weights):
+      state: 256 channels over length 96; the config's 1000 DDIM steps cut
+      to 250; seeded weights):
       ``generate`` cold then warm (s a chain, ms a step, peak memory; no
       hand-written kernel runs on this path: its convolutions are cuDNN's,
-      its products cuBLAS's); one sample's 1000-step chain on the card and
+      its products cuBLAS's); one sample's 250-step chain on the card and
       on the CPU from the same indices and noise (at least 99% of indices
       equal); the train CLI in --debug on
       configs/training_config_gaussian2d.yml; a warm ``train_step`` at
@@ -199,13 +200,13 @@ Phases, each printed as it runs; any failure exits non-zero:
       configs/training_config_pixel2d.yml (28x28x1 images, rows as the
       Conv1d U-Net's 28 channels, mults (1, 2, 4)): the train CLI in
       --debug (metrics, a checkpoint, the EMA's 4 samples), the 4 samples'
-      1000-step DDIM chain timed, a warm ``train_step`` at batch 500 as
+      DDIM chain, cut from 1000 steps to 250, timed, a warm ``train_step`` at batch 500 as
       ``{"pixel2d_train_step": ...}``;
   (x) ``c_vqdiffusion`` and ``v_vqdiffusion`` on
       configs/training_config_{cvq,vvq}.yml (batch 20 @ 256x256x3, the
       Conv1d U-Net over 8 or 256 channels and 256 positions): a warm
-      ``train_step`` each and the EMA's 16 samples through the 500-step
-      DDIM chain, decoded, as ``{"continuous_vq_train_step": ...}``;
+      ``train_step`` each and the EMA's 16 samples through the DDIM chain,
+      cut from 500 steps to 250, decoded, as ``{"continuous_vq_train_step": ...}``;
   (y) the VAE on configs/training_config_large.yml (256x256x3, a 16x16x256
       latent, the config's latent_size 32): the train CLI in --debug (the
       reconstruction GIF, the samples and val grids, a checkpoint);
@@ -3175,17 +3176,9 @@ def phase_rest(card: str) -> None:
     del real, fake, lpips
     torch.cuda.empty_cache()
 
+    # the SIGTERM subprocess starts (interpreter, card, first epoch) while
+    # --profile runs here; nothing of either is timed
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
-    out = cli.run(["--config", TRAIN_CONFIG, "--debug", "--profile"],
-                  overrides={"trainer.log_dir": log_dir})
-    with open(os.path.join(out["run_dir"], "profile", "trace.json")) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    if not kernels:
-        raise AssertionError("(ab) --profile's trace holds no CUDA kernel events")
-    print(f"(ab) --profile: {len(events)} trace events, {len(kernels)} CUDA kernel events")
-    del out
-
     sig_dir = os.path.join(log_dir, "sigterm")
     with open(TRAIN_CONFIG) as f:
         data = yaml.safe_load(f)
@@ -3199,6 +3192,16 @@ def phase_rest(card: str) -> None:
     with open(os.path.join(log_dir, "sigterm.log"), "w") as logf:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
         try:
+            out = cli.run(["--config", TRAIN_CONFIG, "--debug", "--profile"],
+                          overrides={"trainer.log_dir": log_dir})
+            with open(os.path.join(out["run_dir"], "profile", "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if not kernels:
+                raise AssertionError("(ab) --profile's trace holds no CUDA kernel events")
+            print(f"(ab) --profile: {len(events)} trace events, {len(kernels)} CUDA kernel "
+                  f"events")
+            del out
             rows = []
             while not rows and time.perf_counter() - t0 < 180 and proc.poll() is None:
                 time.sleep(0.5)
@@ -3229,12 +3232,12 @@ def phase_rest(card: str) -> None:
                              f"{rows[-1]}, resumed to {resumed['worker'].global_step}")
     print(f"(ab) SIGTERM to the train CLI after its first metrics row: exit {rc} after "
           f"{time.perf_counter() - t0:.1f} s, the newest checkpoint at step {step} (of "
-          f"{len(ckpts)}: one an epoch, then the SIGTERM's) with its metrics row; "
+          f"{len(ckpts)} in all) with its metrics row; "
           f"resumed there, two --debug steps to {resumed['worker'].global_step}")
     del resumed
 
     cfg = load_config(TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
-    loader = DataLoader(SyntheticDataset(TRAIN_B * 20, 28, 1), TRAIN_B,
+    loader = DataLoader(SyntheticDataset(TRAIN_B * 12, 28, 1), TRAIN_B,
                         Preprocessor(28, list(cfg.dataset.mean)[:1], list(cfg.dataset.std)[:1],
                                      grayscale=True),
                         shuffle=True, drop_last=True, seed=0)

@@ -12,17 +12,20 @@ JAX step twice; at forward level flax's f32 forward. **The bf16 rule**
 - each logged metric: |port - JAX_bf16| <= max(2 |JAX_bf16 - JAX_f32|,
   1e-2 |JAX_f32|);
 - each gradient leaf whose norm is above 1e-3 of the largest leaf's: the
-  cosine between the port's bf16 gradient and JAX's is at least 0.99, or
-  else the port's bf16 gradient is no farther from the f32 gradient than
-  four times JAX's bf16 gradient is; and over those leaves together the
-  port's bf16 gradients lie no farther from f32 than twice JAX's do. The
-  second clause is needed: at these geometries bf16 alone moves many
-  leaves by more than their size (JAX's own bf16 leaves have cosines down
-  to 0.01-0.7 with its f32 ones at the stage-1 step, the random-VGG LPIPS
-  and the GAN term the most), so no second bf16 computation meets 0.99
-  there, and each such leaf's distance is a draw of rounding noise whose
-  size, not direction, two implementations share: leaf by leaf the port's
-  draw came out up to 3.1 times JAX's, in the sum within 1.3 times;
+  cosine between the port's bf16 gradient and JAX's is at least 0.99; only
+  where bf16 itself moves the leaf, that is where JAX's bf16 leaf lies
+  farther than 2% of the f32 leaf's norm from it, may the leaf pass instead
+  by lying no farther from the f32 gradient than four times JAX's bf16
+  gradient does. Over those leaves together the port's bf16 gradients lie
+  no farther from f32 than twice JAX's do, and no nearer than a quarter of
+  JAX's: an f32 step (autocast never engaged) reads 0 there and fails. The
+  escape is needed: at these geometries bf16 alone moves many leaves by
+  more than their size (JAX's own bf16 leaves have cosines down to
+  0.01-0.7 with its f32 ones at the stage-1 step, the random-VGG LPIPS and
+  the GAN term the most), so no second bf16 computation meets 0.99 there,
+  and each such leaf's distance is a draw of rounding noise whose size, not
+  direction, two implementations share: leaf by leaf the port's draw came
+  out up to 3.1 times JAX's, in the sum from 0.59 to 1.19 times;
 - after 2 steps every parameter, optimizer moment, EMA leaf and BatchNorm
   statistic is f32, and so is every floating tensor of the checkpoint.
 
@@ -31,8 +34,13 @@ Step level (one step's metrics and gradients): stage 1 (``vqgan``,
 gaussian3d prior and VQ_Official (its U-Net at base 16, mults (1,), as
 tests/test_torch_port_discrete_train.py shrinks it). Forward level (the
 metric rule on the output's norm: ||port - JAX_bf16|| <= max(2
-||JAX_bf16 - JAX_f32||, 1e-2 ||JAX_f32||)): ``Unet1D``, ``Unet2DPixel``, the
-VAE, and the continuous priors' loss. Then the codebook's indices under
+||JAX_bf16 - JAX_f32||, 1e-2 ||JAX_f32||), and ||port - JAX_f32|| at least a
+quarter of ||JAX_bf16 - JAX_f32||): ``Unet1D``, ``Unet2DPixel``, the VAE,
+and the continuous priors' loss.
+
+Controls: the rules fail the port's f32 gradients and forwards (autocast
+off), and ``Unet2DPixel`` with its sinusoidal time embedding computed in
+bf16 (the f32 cast JAX makes, dropped: t = 870 rounds to 872). Then the codebook's indices under
 bf16 autocast against f32, and both CLIs' ``--bf16`` runs resuming from
 their f32 checkpoints.
 """
@@ -69,6 +77,7 @@ from vq_vae_gan_diffusion_torch.train import cli
 from vq_vae_gan_diffusion_torch.train.vq_diffusion_worker import VQDiffusionWorker as TorchVQD
 from vq_vae_gan_diffusion_torch.train.vq_transformer_worker import VQTransformerWorker as TorchGPTW
 from vq_vae_gan_diffusion_torch.utils import compute_autocast
+from vq_vae_gan_diffusion_tpu.diffusion import LtState
 from vq_vae_gan_diffusion_tpu.models import continuous_vq as jcv
 from vq_vae_gan_diffusion_tpu.models import unet1d as ju1
 from vq_vae_gan_diffusion_tpu.models import unet2d as ju2
@@ -79,7 +88,6 @@ from vq_vae_gan_diffusion_tpu.models.vq_diffusion_composite import (
     VQDiffusionComposite as JaxComposite)
 from vq_vae_gan_diffusion_tpu.models.vq_transformer import VQTransformer as JaxVQT
 from vq_vae_gan_diffusion_tpu.models.vqvae import VQVAE as JaxVQVAE
-from vq_vae_gan_diffusion_tpu.train.vq_diffusion_worker import VQDiffusionWorker as JaxVQD
 from vq_vae_gan_diffusion_tpu.train.vqgan_worker import VQGANState, make_train_step
 
 BF16, BATCH, ITERS = torch.bfloat16, 4, 5
@@ -110,11 +118,8 @@ def assert_metrics_rule(port: dict, bf16: dict, f32: dict) -> None:
 
 
 def assert_grads_rule(got: dict, want: dict, want32: dict) -> None:
-    """Over the leaves whose norm is above 1e-3 of the largest leaf's: each
-    has cosine >= 0.99 between the port's and JAX's bf16 gradients, or lies
-    no farther from the f32 gradient than four times JAX's bf16 one does;
-    and together the port's bf16 leaves lie no farther from f32 than twice
-    JAX's (root of the summed squared distances)."""
+    """The bf16 rule on gradients (module docstring), over the leaves whose
+    norm is above 1e-3 of the largest leaf's."""
     assert set(got) == set(want)
     norms = {k: float(torch.linalg.vector_norm(torch.as_tensor(v).double())) for k, v in
              want.items()}
@@ -126,10 +131,12 @@ def assert_grads_rule(got: dict, want: dict, want32: dict) -> None:
         w32 = torch.as_tensor(want32[k]).double().flatten()
         cos = float(g @ w / (torch.linalg.vector_norm(g) * torch.linalg.vector_norm(w)))
         port, own = (float(torch.linalg.vector_norm(a - w32)) for a in (g, w))
-        assert cos >= 0.99 or port <= 4 * own, \
-            f"{k}: cosine {cos:.4f}; port {port:.3e} from JAX f32, JAX bf16 {own:.3e}"
+        moved = own > 0.02 * float(torch.linalg.vector_norm(w32))
+        assert cos >= 0.99 or (moved and port <= 4 * own), \
+            f"{k}: cosine {cos:.4f}; port {port:.3e} from f32, JAX bf16 {own:.3e}"
         port_sq, own_sq = port_sq + port ** 2, own_sq + own ** 2
-    assert port_sq ** 0.5 <= 2 * own_sq ** 0.5, (port_sq ** 0.5, own_sq ** 0.5)
+    port_all, own_all = port_sq ** 0.5, own_sq ** 0.5
+    assert own_all / 4 <= port_all <= 2 * own_all, (port_all, own_all)
     assert len(live) > len(want) / 4
 
 
@@ -137,8 +144,10 @@ def assert_forward_rule(port, bf16, f32) -> None:
     p, jb, jf = (np.asarray(torch.as_tensor(np.asarray(v, np.float32)).double())
                  if not isinstance(v, torch.Tensor) else v.double().numpy()
                  for v in (port, bf16, f32))
-    tol = max(2 * np.linalg.norm(jb - jf), 1e-2 * np.linalg.norm(jf))
-    assert np.linalg.norm(p - jb) <= tol, (np.linalg.norm(p - jb), tol)
+    own = np.linalg.norm(jb - jf)
+    assert np.linalg.norm(p - jb) <= max(2 * own, 1e-2 * np.linalg.norm(jf)), \
+        (np.linalg.norm(p - jb), own)
+    assert np.linalg.norm(p - jf) >= own / 4, (np.linalg.norm(p - jf), own)
 
 
 def assert_all_f32(*objs) -> None:
@@ -249,7 +258,10 @@ def test_gpt_step_by_the_bf16_rule(tiny_config):
         runs[dtype] = (tw, tm, {k: p.grad for k, p in ts.gpt.named_parameters()})
     (_, m32, g32), (tw, tm, got) = runs[torch.float32], runs[BF16]
     assert_metrics_rule(tm, m16, m32)
-    assert_grads_rule(got, {k: v for k, v in g16.items() if "mask" not in k}, g32)
+    g16 = {k: v for k, v in g16.items() if "mask" not in k}
+    assert_grads_rule(got, g16, g32)
+    with pytest.raises(AssertionError):                  # control: autocast off
+        assert_grads_rule(g32, g16, g32)
     ts, _ = tw.train_step(tw.state, torch.from_numpy(_batch(4)))
     assert_all_f32(ts.gpt, ts.opt, tw.checkpoint_tree())
 
@@ -263,6 +275,26 @@ def _vqd_config(tiny_config, diffusion_type: str):
         cfg = (cfg.replace_path("architecture.vqdiffusion.unet_base_dim", 16)
                .replace_path("architecture.vqdiffusion.unet_dim_mults", [1, 2]))
     return cfg
+
+
+def _vqd_state(c):
+    """The JAX worker's state fields that the step reads, for composite
+    ``c``: the VQVAE and the U-Net drawn with numpy on ``jax.eval_shape``'s
+    shapes (no init to run), fresh BatchNorm statistics, the EMA a copy and
+    a fresh LtState, as ``VQDiffusionWorker.init_state`` starts them."""
+    vq_params = _numpy_params(c.vqvae, jnp.zeros((1, 32, 32, 3)), seed=0)
+    k, n, d = c.codebook_size, c.seq_len, c.gaussian_dim
+    dummy = jnp.zeros((1, k, n, 1) if c.diffusion_type == "VQ_Official" else (1, n, d, 1))
+    shapes = jax.eval_shape(lambda: c.unet.init(jax.random.PRNGKey(0), dummy, None,
+                                                jnp.zeros((1,), jnp.int32), train=False))
+    params = _draw(shapes["params"], 1)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: np.full(leaf.shape, path[-1].key == "var", np.float32),
+        shapes["batch_stats"])
+    return SimpleNamespace(vq_params=vq_params, unet_params=params, unet_batch_stats=stats,
+                           ema_params=params, ema_batch_stats=stats,
+                           lt_state=(LtState.init(c.timesteps)
+                                     if c.diffusion_type == "VQ_Official" else ()))
 
 
 def _vqd_jax(c, state, batch, rng):
@@ -291,7 +323,7 @@ def _vqd_port(cfg, js, dtype):
 @pytest.mark.parametrize("diffusion_type", ["gaussiandiffusion3d", "VQ_Official"])
 def test_diffusion_step_by_the_bf16_rule(tiny_config, small_unets, diffusion_type):
     cfg = _vqd_config(tiny_config, diffusion_type)
-    js = JaxVQD(cfg, tempfile.mkdtemp(), num_iters_per_epoch=ITERS).init_state()
+    js = _vqd_state(JaxComposite(cfg))
     c = JaxComposite(cfg, dtype=jnp.bfloat16)
     j16 = SimpleNamespace(composite=c)
     b, key = _batch(5), jax.random.PRNGKey(6)
@@ -360,9 +392,20 @@ def test_unet2d_forward_by_the_bf16_rule():
     params, want32, want16 = _flax_pair(ju2.Unet2DPixel, kw, x, t)
     unet = tu2.Unet2DPixel(**kw)
     unet.load_state_dict(W.unet2d_state_from_jax(params), strict=True)
-    with torch.no_grad(), compute_autocast("cpu", BF16):
-        got = unet.eval()(_t(x).permute(0, 3, 1, 2), None, _t(t).long())
-    assert_forward_rule(got.float().permute(0, 2, 3, 1), want16, want32)
+
+    def forward(dtype):
+        with torch.no_grad(), compute_autocast("cpu", dtype):
+            got = unet.eval()(_t(x).permute(0, 3, 1, 2), None, _t(t).long())
+        return got.float().permute(0, 2, 3, 1)
+    assert_forward_rule(forward(BF16), want16, want32)
+    with pytest.raises(AssertionError):                  # control: autocast off
+        assert_forward_rule(forward(torch.float32), want16, want32)
+    f32_args = tu1.SinusoidalPosEmb.forward
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(AssertionError):
+        # control: the time embedding's f32 island dropped
+        mp.setattr(tu1.SinusoidalPosEmb, "forward",
+                   lambda self, time, dtype=None: f32_args(self, time, BF16))
+        assert_forward_rule(forward(BF16), want16, want32)
 
 
 def test_vae_forward_by_the_bf16_rule(tiny_config):

@@ -21,12 +21,15 @@ import json
 import os
 import signal
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import yaml
 
-from test_torch_port_vae import _geometry, _jax_params, _port_vae, _vae_config
+from test_torch_port_ckpt import _draw
+from test_torch_port_vae import _geometry, _port_vae, _vae_config
 from vq_vae_gan_diffusion_torch import data as t_data
 from vq_vae_gan_diffusion_torch import generate
 from vq_vae_gan_diffusion_torch import train_diffusion as tdiff
@@ -37,6 +40,7 @@ from vq_vae_gan_diffusion_torch.data.pipeline import DataLoader
 from vq_vae_gan_diffusion_torch.data.transforms import Preprocessor
 from vq_vae_gan_diffusion_torch.train import VQDiffusionWorker, cli
 from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+from vq_vae_gan_diffusion_tpu.models.vae import VAE as JaxVAE
 from vq_vae_gan_diffusion_tpu.utils.torch_export import export_vae
 
 # (path, present) of every key either override may write
@@ -170,7 +174,9 @@ def test_generate_serves_the_reference_vae_file(tmp_path, tiny_config):
     path = tmp_path / "vae.yml"
     path.write_text(yaml.safe_dump(cfg.replace_path("trainer.log_dir", str(tmp_path / "zlog"))
                                    .to_dict()))
-    _, params = _jax_params(cfg, seed=4)
+    # the weights drawn with numpy on the init's shapes: no init to run
+    params = _draw(jax.eval_shape(lambda: JaxVAE.from_config(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), jax.random.PRNGKey(1)))["params"], 4)
     state = {k: torch.from_numpy(np.array(v)) for k, v in
              export_vae(params, **_geometry(cfg)).items()}
     ref = str(tmp_path / "reference_vae.pth")
