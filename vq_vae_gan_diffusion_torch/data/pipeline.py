@@ -15,6 +15,13 @@ As the JAX package's:
   of 64 (train) or 16 (val) x max(1, batch // 8) images, or the config's
   ``max_{train,val}_samples``.
 
+With ``dataset.use_native_loader``, the split is decoded once into a sample
+store under ``dataset.cache_dir`` (default ``cache``) and served by the C++
+prefetcher of :mod:`.native_loader` (the folder datasets' train split with
+the same flips and rotation, drawn in C++). Unlike the JAX package, which
+falls back to the Python loader with a warning on any error there, the port
+raises: once the key is set, the native loader serves or nothing does.
+
 There is no device prefetch and no device-resident dataset cache: the
 training loop copies each batch to the device as it takes it.
 """
@@ -22,6 +29,7 @@ training loop copies each batch to the device as it takes it.
 from __future__ import annotations
 
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
@@ -130,8 +138,37 @@ def load_dataloader(name: Optional[str] = None, split: str = "train",
     if isinstance(cfg_max, (int, float)) and np.isfinite(cfg_max):
         max_samples = min(int(cfg_max), max_samples or int(cfg_max))
     shuffle = bool(config.dataset.get("train_shuffle", True)) if train else False
+    if bool(config.dataset.get("use_native_loader", False)):
+        return _native_loader(config, name, split, dataset, prep, batch_size, shuffle, train,
+                              seed, max_samples, logger), dataset
     loader = DataLoader(dataset, batch_size, prep, shuffle=shuffle, drop_last=train, seed=seed,
                         num_threads=num_threads, max_samples=max_samples)
     logger.info("Number of %s samples: %d (batch %d, %d batches)",
                 split, loader.n, batch_size, len(loader))
     return loader, dataset
+
+
+def _native_loader(config: Config, name: str, split: str, dataset: ArrayDataset,
+                   prep: Preprocessor, batch_size: int, shuffle: bool, train: bool, seed: int,
+                   max_samples: Optional[int], logger: logging.Logger):
+    """The JAX package's native route: the store
+    ``{cache_dir}/{name}_{split}_{img_size}{_g}_n{len}.sdb``, built where it
+    is missing (its name holds the dataset's length, so a store of another
+    instantiation is never reused), and a :class:`.native_loader.NativeDataLoader`
+    over it with the Python loader's recipe, shuffle, ``drop_last`` and
+    ``max_samples``."""
+    from .native_loader import NativeDataLoader, build_sample_store
+
+    g = "_g" if prep.grayscale else ""
+    cache = os.path.join(str(config.dataset.get("cache_dir", "cache")),
+                         f"{name}_{split}_{prep.img_size}{g}_n{len(dataset)}.sdb")
+    if not os.path.exists(cache):
+        logger.info("building native sample store %s", cache)
+        build_sample_store(dataset, cache, img_size=prep.img_size, grayscale=prep.grayscale)
+    # transforms.random_flips_and_rotation's defaults
+    aug = dict(p_hflip=0.2, p_vflip=0.2, p_rot=0.3, max_deg=25.0) if prep.augment else {}
+    loader = NativeDataLoader(cache, batch_size, mean=prep.mean, std=prep.std, shuffle=shuffle,
+                              drop_last=train, seed=seed, max_samples=max_samples, **aug)
+    logger.info("native loader: %d %s samples (%d batches)%s", loader.n, split, len(loader),
+                " [native augmentation]" if prep.augment else "")
+    return loader

@@ -1,10 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. Libraries go
-to ``vq_vae_gan_diffusion_torch/_build/`` (ignored by git), named by a hash of
-the source and the flags, so an edited source rebuilds. Nothing here runs at
-import time: a library is built at its first use, or by :func:`build_all`.
+shared library with a plain C interface, loaded with ``ctypes``; each host
+source ``csrc/<name>.cpp`` (the sample store of ``data/native_loader.py``)
+compiles with the host compiler (``$CXX``, else ``c++``) by
+:func:`host_library`. Libraries go to ``vq_vae_gan_diffusion_torch/_build/``
+(ignored by git), named by a hash of the source and the flags, so an edited
+source rebuilds; each is written under a temporary name and moved into place,
+so processes that build at once do not read a half-written file. Nothing here
+runs at import time: a library is built at its first use, or by
+:func:`build_all` (the ``.cu`` sources).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the JAX package's native/Makefile flags
+HOST_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread", "-shared"]
 
 
 def nvcc_path() -> str:
@@ -41,9 +48,9 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, suffix: str = ".cu", flags: List[str] = NVCC_FLAGS) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / f"{name}{suffix}").read_bytes())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -88,3 +95,32 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     _finish(name, _start(name))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def host_compiler() -> str:
+    return os.environ.get("CXX") or "c++"
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library for the host source ``csrc/<name>.cpp``, built
+    first with :func:`host_compiler` and ``HOST_FLAGS`` if needed; a failed
+    build raises with the compiler's log."""
+    flags = [host_compiler(), *HOST_FLAGS]
+    # -march=native code runs only on the machine that built it: its name
+    # keys the library too, so a tree copied to another machine rebuilds
+    out = library_path(name, ".cpp", flags + [os.uname().nodename, os.uname().machine])
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            proc = subprocess.run([*flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cpp")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{flags[0]} failed for csrc/{name}.cpp: {e}") from e
+        out.with_suffix(".log").write_text(proc.stdout)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{flags[0]} failed for csrc/{name}.cpp:\n{proc.stdout}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
