@@ -25,6 +25,11 @@ Three forms, all files written by ``torch.save``:
 A path where nothing exists is no checkpoint: the caller warns and keeps
 its seeded weights. A path that exists but is a directory (an Orbax
 checkpoint) or a file of no known form raises, naming the export tool.
+
+The reference's own training files are read by :func:`reference_parts`, the
+port's side of ``tools/import_torch_checkpoint.py``, for
+``import_checkpoint.py``, which writes them as a training checkpoint of the
+port.
 """
 
 from __future__ import annotations
@@ -33,10 +38,12 @@ import glob
 import logging
 import os
 import pickle
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .config import TRANSFORMER_MODELS, VQ_STAGE1_MODELS
 
 EXPORT_TOOL = "tools/export_torch_checkpoint.py"
 # the keys that tell each module's bare state_dict from the others (the
@@ -158,3 +165,93 @@ def restore(path: str, modules: Dict[str, nn.Module], logger: logging.Logger,
         modules[kind].load_state_dict(found[kind], strict=True)
     logger.info("%s: restored %s from %s", what, " and ".join(parts), path)
     return True
+
+
+# -- the reference's training files ---------------------------------------------------------
+
+#: the schedule buffers the reference's discrete diffusion registers, which
+#: the port recomputes from the config (the JAX package's
+#: ``utils/torch_import._DISCRETE_SCHEDULE_BUFFERS``)
+DISCRETE_SCHEDULE_BUFFERS = (
+    "log_at", "log_bt", "log_ct", "log_cumprod_at", "log_cumprod_bt",
+    "log_cumprod_ct", "log_1_min_ct", "log_1_min_cumprod_ct",
+    "zero_vector", "prior_ps", "prior_weight",
+)
+#: the families the reference saves no file for, which the import refuses
+UNIMPORTABLE = ("c_vqdiffusion", "v_vqdiffusion")
+
+
+def strip_prefix(state: State, prefix: str) -> State:
+    """The entries of ``state`` under ``prefix``, with it taken off; the rest
+    is dropped."""
+    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def unwrap_ema(state: State) -> State:
+    """An EMA wrapper's ``state_dict`` -> the averaged module's: ema_pytorch's
+    ``ema_model.*`` (its ``online_model.*``, ``initted`` and ``step``
+    dropped), torch's ``AveragedModel``'s ``module.*`` (its ``n_averaged``
+    dropped); any other dict as it is."""
+    for prefix in ("ema_model.", "module."):
+        if any(k.startswith(prefix) for k in state):
+            return strip_prefix(state, prefix)
+    return state
+
+
+def denoiser_kind(state: State) -> str:
+    """``shuffle`` for the ShuffleNet U-Net's keys, else ``unet1d`` (the two
+    denoisers the reference's diffusion wrappers hold)."""
+    return "shuffle" if any(k.startswith("encoder_blocks.") for k in state) else "unet1d"
+
+
+def discrete_diffusion_parts(state: State) -> Tuple[State, torch.Tensor, torch.Tensor]:
+    """The reference's discrete diffusion ``state_dict`` -> (the denoiser
+    under ``model.``, ``Lt_history``, ``Lt_count``); its schedule buffers
+    are dropped. Raises where the Lt buffers are missing or another buffer
+    is there, as ``torch_import.convert_discrete_diffusion`` does."""
+    rest = {k: v for k, v in state.items() if not k.startswith("model.")}
+    lt_history, lt_count = rest.pop("Lt_history", None), rest.pop("Lt_count", None)
+    if lt_history is None or lt_count is None:
+        raise ValueError("diffusion state_dict lacks Lt_history/Lt_count buffers: not a "
+                         "reference vq-diffusion checkpoint?")
+    unknown = [k for k in rest if k not in DISCRETE_SCHEDULE_BUFFERS]
+    if unknown:
+        raise ValueError(f"unrecognized diffusion buffers: {unknown}")
+    return strip_prefix(state, "model."), lt_history, lt_count
+
+
+def reference_parts(raw: Dict[str, Any], family: str) -> Dict[str, Any]:
+    """The parts of a reference training file ``raw`` of ``family``, as
+    ``tools/import_torch_checkpoint.py`` takes them, by the port's names:
+
+    - ``vqvae`` / ``vqgan``: the bare VQVAE ``state_dict`` -> ``vqvae``;
+    - ``vae``: ``{"vae_state_dict", ...}`` or a bare one -> ``vae``;
+    - ``*_transformer``: the bare minGPT ``state_dict`` -> ``gpt``;
+    - ``vqdiffusion``: ``{"diffusion", "optimizer", "scheduler"[,
+      "model_ema"]}`` (or the diffusion alone) -> ``unet`` and ``ema`` (the
+      EMA wrapper's, else the online denoiser) and ``lt`` (``Lt_history``,
+      ``Lt_count``), every file through :func:`discrete_diffusion_parts`;
+    - ``gaussiandiffusion2d`` / ``gaussiandiffusion3d``: ``{"model", "opt",
+      "ema", ...}`` or ``{"model", "model_ema"}`` -> the denoisers under
+      ``model.`` as ``unet`` and ``ema``, the diffusion's buffers dropped.
+
+    Raises for a family the reference saves no file for."""
+    if family in VQ_STAGE1_MODELS:
+        return {"vqvae": raw}
+    if family == "vae":
+        return {"vae": raw.get("vae_state_dict", raw)}
+    if family in TRANSFORMER_MODELS:
+        return {"gpt": raw}
+    if family == "vqdiffusion":
+        unet, lt_history, lt_count = discrete_diffusion_parts(raw.get("diffusion", raw))
+        ema = unet
+        if "model_ema" in raw:
+            ema, _, _ = discrete_diffusion_parts(unwrap_ema(raw["model_ema"]))
+        return {"unet": unet, "ema": ema, "lt": (lt_history, lt_count)}
+    if family in ("gaussiandiffusion2d", "gaussiandiffusion3d"):
+        unet = strip_prefix(raw.get("model", raw), "model.")
+        ema_sd = raw.get("ema") or raw.get("model_ema")
+        ema = unet if ema_sd is None else strip_prefix(unwrap_ema(ema_sd), "model.")
+        return {"unet": unet, "ema": ema}
+    raise ValueError(f"unsupported family {family!r}: the reference has no checkpoint "
+                     "format for it")

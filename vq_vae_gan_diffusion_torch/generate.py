@@ -101,9 +101,7 @@ def run(argv: Optional[Sequence[str]] = None,
         config = config.replace_path(path, value)
 
     from .data import load_dataloader
-    from .train import (ContinuousVQDiffusionWorker, GaussianDiffusion2DWorker,
-                        GaussianDiffusion3DWorker, VAEWorker, VQDiffusionWorker,
-                        VQTransformerWorker)
+    from .train import worker_class
     from .utils import create_run_dir, resolve_device, setup_logging
 
     device = resolve_device(args.device)
@@ -113,13 +111,8 @@ def run(argv: Optional[Sequence[str]] = None,
     logger = setup_logging(run_dir)
     if model_name in VQ_STAGE1_MODELS:
         return dict(_reconstruct(config, run_dir, logger, args, str(device)), run_dir=run_dir)
-    worker_cls = {"vqdiffusion": VQDiffusionWorker,
-                  "c_vqdiffusion": ContinuousVQDiffusionWorker,
-                  "v_vqdiffusion": ContinuousVQDiffusionWorker,
-                  "gaussiandiffusion2d": GaussianDiffusion2DWorker,
-                  "gaussiandiffusion3d": GaussianDiffusion3DWorker,
-                  "vae": VAEWorker}.get(model_name, VQTransformerWorker)
-    worker = worker_cls(config, run_dir, logger, seed=args.seed, device=str(device))
+    worker = worker_class(model_name)(config, run_dir, logger, seed=args.seed,
+                                      device=str(device))
     worker.init_state()
     ckpt = args.ckpt
     if ckpt is None:

@@ -69,9 +69,8 @@ import os
 import sys
 from typing import Dict, Optional, Sequence
 
-from ..config import (CONTINUOUS_MODELS, FUSED_POSTERIOR_CHOICES, FUSED_SAMPLER_CHOICES,
-                      TRANSFORMER_MODELS, VQ_STAGE1_MODELS, apply_fused_flags, load_config,
-                      validate)
+from ..config import (FUSED_POSTERIOR_CHOICES, FUSED_SAMPLER_CHOICES, apply_fused_flags,
+                      load_config, validate)
 
 
 def run(argv: Optional[Sequence[str]] = None,
@@ -119,12 +118,7 @@ def run(argv: Optional[Sequence[str]] = None,
 
     from ..data import load_dataloader
     from ..utils import create_run_dir, resolve_device, setup_logging
-    from .continuous_vq_worker import ContinuousVQDiffusionWorker
-    from .gaussian_diffusion_workers import GaussianDiffusion2DWorker, GaussianDiffusion3DWorker
-    from .vae_worker import VAEWorker
-    from .vq_diffusion_worker import VQDiffusionWorker
-    from .vq_transformer_worker import VQTransformerWorker
-    from .vqgan_worker import VQGANVQVAEWorker
+    from . import ONECYCLE_MODELS, worker_class
 
     device = resolve_device(args.device)
     run_dir = create_run_dir(str(config.trainer.log_dir), dataset_name, model_name, args.config)
@@ -139,22 +133,10 @@ def run(argv: Optional[Sequence[str]] = None,
         val_loader = None
     kwargs = dict(debug=args.debug, seed=args.seed, device=str(device),
                   dtype=torch.bfloat16 if args.bf16 else torch.float32)
-    if model_name in VQ_STAGE1_MODELS:
-        worker_cls = VQGANVQVAEWorker
-    elif model_name in TRANSFORMER_MODELS:
-        worker_cls = VQTransformerWorker
-    elif model_name == "gaussiandiffusion2d":
-        worker_cls = GaussianDiffusion2DWorker
-    elif model_name in CONTINUOUS_MODELS:
-        worker_cls = ContinuousVQDiffusionWorker
-    elif model_name == "vae":
-        worker_cls = VAEWorker
-    else:
+    if model_name in ONECYCLE_MODELS:
         # OneCycle's total steps: epochs x batches an epoch, as the root train.py
-        worker_cls = (VQDiffusionWorker if model_name == "vqdiffusion"
-                      else GaussianDiffusion3DWorker)
         kwargs["num_iters_per_epoch"] = max(len(train_loader), 1)
-    worker = worker_cls(config, run_dir, logger, **kwargs)
+    worker = worker_class(model_name)(config, run_dir, logger, **kwargs)
     epochs = args.epochs or int(config.trainer.num_epochs)
     if args.profile:
         from ..utils.profiling import profile_steps
