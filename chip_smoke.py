@@ -241,13 +241,33 @@ Phases, each printed as it runs; any failure exits non-zero:
       CPU within 1e-3 on 32 images at 64^2 and timed on 256 at 256^2;
       --profile's trace with CUDA kernel events; SIGTERM to a train CLI
       subprocess (exit 143, a checkpoint that resumes); the loop at
-      steps_per_dispatch 1 and 4.
+      steps_per_dispatch 1 and 4;
+  (ac) the native sample-store loader (``dataset.use_native_loader``): its
+      library built from csrc/sampledb.cpp with the host compiler at first
+      use; ``SampleStore.gather`` against the port's ``Preprocessor`` within
+      1e-6 on (o)'s synthetic 28² x 1 store and on a 256² x 3 one; two
+      seeded epochs, augmented and not, run twice, bit for bit equal; the
+      stage-1 train CLI on a copy of (o)'s config with the key set, batch
+      200, two epochs, through the native route (the run's log and its two
+      stores; there is no fallback), as the ``{"native_loader_cli": ...}``
+      JSON line beside (o)'s epochs on the Python loader;
+  (ad) the reference's checkpoint files at full width, drawn from fixed
+      seeds: training_config_small.yml's VQVAE and discriminator, the GPT
+      of inference_config_small.yml, VQ_Official's ``{"diffusion", ...,
+      "model_ema"}`` (training_config_vqofficial.yml, the EMA drawn apart)
+      and gaussiandiffusion3d's ``{"model", "model_ema"}``
+      (training_config_pixel3d.yml), each through ``import_checkpoint`` on
+      the card and resumed through its ``resume_path`` with every tensor
+      equal to its source (the LtState to the Lt buffers); then VQ_Official
+      served from its imported file by ``generate --ckpt``: a 20-step chain
+      with exactly 780 K1, 80 K2 and 19 B6 launches, every index equal to
+      the in-memory EMA U-Net's chain with the same generator.
 
-``--only r,s`` (any of o-z, aa, ab) runs (a), (b) and those phases alone,
+``--only r,s`` (any of o-z, aa-ad) runs (a), (b) and those phases alone,
 and prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
-(p)-(s), each run of (t) and each run of (u)-(z), runs with every kernel's
+(p)-(s), each run of (t), each run of (u)-(z) and (ad)'s generate run, runs with every kernel's
 launch count set to 0 just before it and read just after. Before the last line it prints one JSON line
 describing every kernel of the paths, and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -326,6 +346,15 @@ VAE_CONFIG, VAE_B, VAE_LATENT, VAE_SAMPLE_HW = "configs/training_config_large.ym
 # with mults (1, 2, 4, 8) and dropout 0.1; the EMA's 64 samples through 500
 # DDIM steps
 DDPM_B, DDPM_HW, DDPM_SAMPLES, DDPM_DDIM = 500, 32, 64, 500
+# (o)'s CLI epochs on the Python loader, beside which (ac) runs the native one
+PYTHON_LOADER_RUN: dict = {}
+# (ac): the native loader's augmentation recipe (transforms.random_flips_and_rotation's)
+NATIVE_AUGMENT = dict(p_hflip=0.2, p_vflip=0.2, p_rot=0.3, max_deg=25.0)
+# (ad): the reference's files drawn at full width from these configs, by family
+REF_CONFIGS = {"vqgan": "configs/training_config_small.yml",
+               "vqvae_transformer": "configs/inference_config_small.yml",
+               "vqdiffusion": "configs/training_config_vqofficial.yml",
+               "gaussiandiffusion3d": "configs/training_config_pixel3d.yml"}
 
 
 def phase_device() -> str:
@@ -1406,11 +1435,12 @@ def train_cli_run(log_dir: str) -> dict:
     return cli_epochs("o", TRAIN_CONFIG, log_dir, TRAIN_EPOCHS, TRAIN_B)
 
 
-def cli_epochs(label: str, config: str, log_dir: str, epochs: int, batch: int) -> dict:
+def cli_epochs(label: str, config: str, log_dir: str, epochs: int, batch: int,
+               loader: str = "synthetic images decoded on the host as it goes") -> dict:
     """The train CLI for ``epochs`` epochs on ``config``, each epoch's time
     split as the loop records it (the host's time in the loader, in the
     artifacts, and the steps with the device's tail). Returns the epochs'
-    rows and the images/s of the epochs after the first."""
+    rows, the images/s of the epochs after the first and the run dir."""
     import os
 
     from vq_vae_gan_diffusion_torch.train import cli
@@ -1423,14 +1453,14 @@ def cli_epochs(label: str, config: str, log_dir: str, epochs: int, batch: int) -
         raise AssertionError(f"({label}) {len(rows)} epoch rows in metrics.jsonl")
     for i, e in enumerate(rows):
         print(f"({label}) train CLI epoch {i} ({'setup included' if i == 0 else 'warm'}): "
-              f"{e['steps']} steps at batch {batch} of synthetic images decoded on the host "
-              f"as it goes, {e['epoch_time_s']:.3f} s, {e['images_per_sec']:.2f} images/s; "
+              f"{e['steps']} steps at batch {batch} of {loader}, "
+              f"{e['epoch_time_s']:.3f} s, {e['images_per_sec']:.2f} images/s; "
               f"host in the loader {e['loader_s']:.3f} s, in the artifacts "
               f"{e['artifact_s']:.3f} s, steps and the device's tail {e['step_s']:.3f} s")
     warm = rows[1:]
     rate = sum(e["steps"] for e in warm) * batch / sum(e["epoch_time_s"] for e in warm)
     print(f"({label}) train CLI, epochs 1-{epochs - 1}: {rate:.2f} images/s")
-    return {"epochs": rows, "warm_images_per_s": rate}
+    return {"epochs": rows, "warm_images_per_s": rate, "run_dir": out["run_dir"]}
 
 
 def cli_numbers(run: dict) -> dict:
@@ -1704,6 +1734,7 @@ def phase_train(card: str) -> dict:
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cli_run = train_cli_run(log_dir)
+    PYTHON_LOADER_RUN.update(cli_run)
     cfg = load_config(TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
     loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
     batch = next(iter(loader))
@@ -3254,6 +3285,285 @@ def phase_rest(card: str) -> None:
     print(f"(ab) phase time {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+def native_store_checks(root: str) -> None:
+    """(ac) ``SampleStore.gather`` against the port's ``Preprocessor`` within
+    1e-6 on (o)'s synthetic 28² x 1 store and on a 256² x 3 one; two seeded
+    epochs, augmented and not, run twice: bit for bit the same."""
+    import os
+
+    import numpy as np
+
+    from vq_vae_gan_diffusion_torch.data.datasets import SyntheticDataset
+    from vq_vae_gan_diffusion_torch.data.native_loader import (NativeDataLoader, SampleStore,
+                                                               build_sample_store)
+    from vq_vae_gan_diffusion_torch.data.transforms import Preprocessor
+
+    # (o)'s fallback: 64 x batch // 8 grayscale images of 28²; 256² x 3 at
+    # training_config_small.yml's batch 20, with its mean and std
+    for label, (n, size, ch, batch, mean, std) in {
+            "28² x 1": (1600, 28, 1, TRAIN_B, (0.5,), (0.5,)),
+            "256² x 3": (160, 256, 3, 20, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225))}.items():
+        ds = SyntheticDataset(n, size, ch, seed=0)
+        t0 = time.perf_counter()
+        path = build_sample_store(ds, os.path.join(root, f"s{size}.sdb"), img_size=size,
+                                  grayscale=ch == 1)
+        built = time.perf_counter() - t0
+        store = SampleStore(path)
+        idx = np.random.RandomState(1).permutation(n)[:64]
+        got = store.gather(idx, mean=mean, std=std)
+        prep = Preprocessor(size, mean, std, grayscale=ch == 1)
+        err = float(np.abs(got - np.stack([prep(ds.get_image(int(i))) for i in idx])).max())
+        if (store.n, store.h, store.w, store.c) != (n, size, size, ch) or not err <= 1e-6:
+            raise AssertionError(f"(ac) {label} store {(store.n, store.h, store.w, store.c)}, "
+                                 f"gather against Preprocessor {err:.3e}")
+        store.close()
+        for augment in (False, True):
+            kw = dict(mean=mean, std=std, seed=7, **(NATIVE_AUGMENT if augment else {}))
+            runs = []
+            for _ in range(2):
+                loader = NativeDataLoader(path, batch, **kw)
+                t0 = time.perf_counter()
+                runs.append([b for _ in range(2) for b in loader])
+                sec = time.perf_counter() - t0
+                loader.close()
+            a, b = runs
+            if len(a) != 2 * (n // batch) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"(ac) {label} augment={augment}: two seeded runs differ")
+            if np.array_equal(a[0], a[len(a) // 2]):
+                raise AssertionError(f"(ac) {label}: two epochs gave the same first batch")
+        print(f"(ac) {label} store of {n}: built in {built:.2f} s; gather of 64 against "
+              f"Preprocessor max abs err {err:.3e} (tolerance 1e-6); two seeded epochs of "
+              f"{n // batch} batches of {batch}, augmented and not, bit for bit equal in two "
+              f"runs; the last augmented pass {sec:.3f} s "
+              f"({2 * (n // batch) * batch / sec:.0f} images/s from {os.cpu_count()} cores)")
+
+
+def phase_native_loader(card: str) -> dict:
+    """(ac): the native sample-store loader on the card's machine. Its
+    library built from csrc/sampledb.cpp at first use; the store checks;
+    then the stage-1 train CLI on a copy of (o)'s config with
+    ``dataset.use_native_loader: true``, batch 200, two epochs, beside (o)'s
+    epochs on the Python loader (run here when (o) did not run). Fails if
+    the library does not build or the run did not go through the native
+    route (there is no fallback). Returns the JSON line's numbers."""
+    import glob
+    import os
+    import tempfile
+
+    import yaml
+
+    from vq_vae_gan_diffusion_torch.data import native_loader
+    from vq_vae_gan_diffusion_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = native_loader._lib()
+    built = time.perf_counter() - t0
+    so = glob.glob(str(_build.BUILD_DIR / "libsampledb-*.so"))
+    if not so or lib is None:
+        raise AssertionError(f"(ac) libsampledb not built: {so}")
+    print(f"(ac) csrc/sampledb.cpp built with {_build.host_compiler()} "
+          f"{' '.join(_build.HOST_FLAGS)} in {built:.2f} s: {os.path.basename(so[0])}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    native_store_checks(root)
+
+    with open(TRAIN_CONFIG) as f:
+        data = yaml.safe_load(f)
+    data["dataset"].update(use_native_loader=True, cache_dir=os.path.join(root, "cache"))
+    config = os.path.join(root, "training_config_mnist_native.yml")
+    with open(config, "w") as f:
+        yaml.safe_dump(data, f)
+    if not PYTHON_LOADER_RUN:
+        PYTHON_LOADER_RUN.update(cli_epochs("ac", TRAIN_CONFIG, root, TRAIN_EPOCHS, TRAIN_B))
+    run = cli_epochs("ac", config, root, TRAIN_EPOCHS, TRAIN_B,
+                     loader="the native store, gathered by C++ threads")
+    with open(os.path.join(run["run_dir"], "info.log")) as f:
+        routed = [line.strip() for line in f if "native loader:" in line]
+    stores = glob.glob(os.path.join(root, "cache", "*.sdb"))
+    if len(routed) != 2 or len(stores) != 2:
+        raise AssertionError(f"(ac) the CLI did not load through the native route: {routed}, "
+                             f"stores {stores}")
+    print(f"(ac) {routed[0].split(' INFO ')[-1]}; stores {sorted(map(os.path.basename, stores))}")
+
+    def split(r: dict) -> dict:
+        warm = r["epochs"][1:]
+        return {"warm_images_per_s": r["warm_images_per_s"],
+                "loader_s": [e["loader_s"] for e in warm], "step_s": [e["step_s"] for e in warm],
+                "artifact_s": [e["artifact_s"] for e in warm]}
+    numbers = {"native": split(run), "python": split(PYTHON_LOADER_RUN), "batch": TRAIN_B,
+               "card": card}
+    print(json.dumps({"native_loader_cli": numbers}))
+    shutil.rmtree(root)
+    return numbers
+
+
+def reference_forms(configs: dict, gen_seed: int = 0) -> dict:
+    """(ad) the reference's files drawn at full width from fixed seeds, with
+    the modules they hold: stage 1's bare VQVAE and its discriminator
+    (training_config_small.yml), the bare GPT (inference_config_small.yml),
+    VQ_Official's ``{"diffusion", "optimizer", "scheduler", "model_ema"}``
+    (training_config_vqofficial.yml; the AveragedModel EMA drawn apart from
+    the online U-Net) and gaussiandiffusion3d's ``{"model", "model_ema"}``
+    (training_config_pixel3d.yml)."""
+    from vq_vae_gan_diffusion_torch.checkpoint import DISCRETE_SCHEDULE_BUFFERS
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.discriminator import Discriminator
+    from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import VQDiffusionComposite
+    from vq_vae_gan_diffusion_torch.models.vq_transformer import VQTransformer
+    from vq_vae_gan_diffusion_torch.models.vqvae import VQVAE
+    from vq_vae_gan_diffusion_torch.train import GaussianDiffusion3DWorker
+
+    def drawn(module, seed: int) -> dict:
+        module.init_weights(torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed + 1000)
+        with torch.no_grad():                  # running statistics of no init, so a swap shows
+            for name, buf in module.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+                elif name.endswith("running_var"):
+                    buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+        return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+    def under(prefix: str, sd: dict) -> dict:
+        return {prefix + k: v for k, v in sd.items()}
+
+    def discrete(denoiser: dict, timesteps: int, seed: int) -> dict:
+        gen = torch.Generator().manual_seed(seed)
+        return {**under("model.", denoiser),
+                **{k: torch.randn(timesteps, generator=gen) for k in DISCRETE_SCHEDULE_BUFFERS},
+                "Lt_history": torch.rand(timesteps, generator=gen),
+                "Lt_count": torch.randint(0, 40, (timesteps,), generator=gen).float()}
+
+    stage1 = load_config(configs["vqgan"])
+    vqvae = drawn(VQVAE.from_config(stage1), gen_seed + 1)
+    disc = drawn(Discriminator(int(stage1.dataset.img_channels[stage1.dataset.dataset_name])),
+                 gen_seed + 2)
+    gpt = drawn(VQTransformer(load_config(configs["vqvae_transformer"])).gpt, gen_seed + 3)
+    vqo = VQDiffusionComposite(load_config(configs["vqdiffusion"]))
+    online, ema = drawn(vqo.unet, gen_seed + 4), drawn(vqo.unet, gen_seed + 5)
+    diffusion = discrete(online, vqo.timesteps, gen_seed + 6)
+    vqo_raw = {"diffusion": diffusion,
+               "optimizer": {"state": {}, "param_groups": [{"lr": 1e-4, "params": [0]}]},
+               "scheduler": {"last_epoch": 1000},
+               "model_ema": {"n_averaged": torch.tensor(100),
+                             **under("module.", discrete(ema, vqo.timesteps, gen_seed + 7))}}
+    pixel = GaussianDiffusion3DWorker(load_config(configs["gaussiandiffusion3d"]), "unused",
+                                      device="cpu")
+    p_online, p_ema = drawn(pixel.build_unet(), gen_seed + 8), drawn(pixel.build_unet(),
+                                                                     gen_seed + 9)
+    buffers = {"betas": torch.linspace(1e-4, 0.02, pixel.timesteps)}
+    pixel_raw = {"model": {**under("model.", p_online), **buffers},
+                 "model_ema": {"n_averaged": torch.tensor(100),
+                               **under("module.", {**under("model.", p_ema), **buffers})}}
+    return {
+        "vqgan": dict(raw=vqvae, disc=disc, sources={"vqvae": vqvae, "disc": disc}),
+        "vqvae_transformer": dict(raw=gpt, sources={"gpt": gpt}),
+        "vqdiffusion": dict(raw=vqo_raw, sources={"unet": online, "ema": ema},
+                            lt=(diffusion["Lt_history"], diffusion["Lt_count"])),
+        "gaussiandiffusion3d": dict(raw=pixel_raw, sources={"unet": p_online, "ema": p_ema}),
+    }
+
+
+def phase_reference_checkpoints(card: str, configs: dict = REF_CONFIGS, device: str = "cuda",
+                                n_samples: int = B, steps: int = VQO_STEPS) -> dict:
+    """(ad): the reference's files at full width through ``import_checkpoint``
+    on the card; each written checkpoint resumed through its family's
+    ``resume_path`` holds every source tensor (and VQ_Official's LtState
+    its Lt buffers); VQ_Official served from its imported file through
+    ``generate --ckpt``: a 20-step chain with exactly 780 K1, 80 K2 and 19
+    B6 launches, every index that of the in-memory EMA U-Net with the same
+    generator. ``configs``, ``device``, ``n_samples`` and ``steps`` let a
+    rehearsal run it small on the CPU. Returns the launches."""
+    import os
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch import generate, import_checkpoint
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.vq_diffusion_composite import VQDiffusionComposite
+    from vq_vae_gan_diffusion_torch.train import worker_class
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    t0 = time.perf_counter()
+    forms = reference_forms(configs)
+    print(f"(ad) reference files drawn at full width in {time.perf_counter() - t0:.1f} s")
+    imported = {}
+    for family, form in forms.items():
+        pth = os.path.join(root, f"{family}.pth")
+        torch.save(form["raw"], pth)
+        argv = ["--config", configs[family], "--pth", pth, "--out", os.path.join(root, family),
+                "--step", "1000", "--device", device, "--family", family]
+        if "disc" in form:
+            torch.save(form["disc"], os.path.join(root, "disc.pth"))
+            argv += ["--disc-pth", os.path.join(root, "disc.pth")]
+        # the priors over codes take the imported stage-1 VQVAE
+        overrides = ({"architecture.vqvae.resume_path": imported["vqgan"]}
+                     if family in ("vqvae_transformer", "vqdiffusion") else {})
+        t0 = time.perf_counter()
+        imported[family] = import_checkpoint.run(argv, overrides=overrides)["path"]
+        sec = time.perf_counter() - t0
+        key = "vqvae" if family == "vqgan" else family
+        cfg = load_config(configs[family]).replace_path("architecture.model_name", family)
+        cfg = cfg.replace_path(f"architecture.{key}.resume_path", imported[family])
+        for path, value in overrides.items():
+            cfg = cfg.replace_path(path, value)
+        worker = worker_class(family)(cfg, root, device=device)
+        state = worker.init_state()
+        n = 0
+        for name, source in form["sources"].items():
+            got = getattr(state, name).state_dict()
+            if set(got) != set(source):
+                raise AssertionError(f"(ad) {family} {name}: keys differ")
+            for k, v in source.items():
+                if not torch.equal(got[k].cpu(), v):
+                    raise AssertionError(f"(ad) {family} {name}.{k} differs from its source")
+                n += v.numel()
+        if "lt" in form and not (torch.equal(state.lt.Lt_history.cpu(), form["lt"][0])
+                                 and torch.equal(state.lt.Lt_count.cpu(), form["lt"][1])):
+            raise AssertionError(f"(ad) {family}: LtState is not the file's Lt buffers")
+        if worker.global_step != 1000:
+            raise AssertionError(f"(ad) {family}: step {worker.global_step}")
+        print(f"(ad) {family}: imported in {sec:.1f} s ({', '.join(form['sources'])}"
+              f"{', lt' if 'lt' in form else ''}); resumed through architecture.{key}."
+              f"resume_path: {n} elements equal to their source, step 1000")
+        del worker, state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    steps_path = "architecture.vqdiffusion.sampling_steps"
+    argv = ["--config", configs["vqdiffusion"], "--ckpt", imported["vqdiffusion"],
+            "--n-samples", str(n_samples), "--seed", "42", "--device", device]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate.run(argv, overrides={steps_path: steps,
+                                        "architecture.vqvae.resume_path": imported["vqgan"]})
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    want = {name: 0 for name in launches}
+    want.update(shuffle_bottleneck=39 * steps, shuffle_downsample=4 * steps,
+                discrete_posterior=steps - 1)
+    if launches != want:
+        raise AssertionError(f"(ad) launches {launches}, expected {want}")
+    comp = VQDiffusionComposite(load_config(configs["vqdiffusion"]).replace_path(steps_path,
+                                                                                  steps))
+    comp.unet.load_state_dict(forms["vqdiffusion"]["sources"]["ema"], strict=True)
+    comp = comp.to(device).eval()
+    idx = comp.sample(n_samples, generator=torch.Generator(device=device).manual_seed(42),
+                      unet=comp.unet)
+    got = out["indices"]
+    if tuple(got.shape) != (n_samples, comp.seq_len) or not torch.equal(got, idx):
+        raise AssertionError(f"(ad) generate --ckpt indices {tuple(got.shape)}: "
+                             f"{(got == idx).float().mean().item():.4f} equal to the "
+                             "in-memory EMA U-Net's")
+    if not torch.isfinite(out["images"]).all():
+        raise AssertionError("(ad) non-finite images")
+    print(f"(ad) generate --ckpt on the imported VQ_Official file: {steps}-step chain, "
+          f"{launches['shuffle_bottleneck']} K1, {launches['shuffle_downsample']} K2, "
+          f"{launches['discrete_posterior']} B6 launches; {sec:.1f} s; all {n_samples} x "
+          f"{comp.seq_len} indices equal to the in-memory EMA U-Net's with the same "
+          f"generator; {card}")
+    shutil.rmtree(root)
+    return launches
+
+
 def training_phases() -> dict:
     """The training phases and the Conv1d U-Net family's, each on its own, by
     label: each prints its JSON line."""
@@ -3273,7 +3583,9 @@ def training_phases() -> dict:
             "z": lambda card: print(json.dumps({"pixel_ddpm_train_step":
                                                 phase_pixel_ddpm(card)})),
             "aa": phase_bf16,
-            "ab": phase_rest}
+            "ab": phase_rest,
+            "ac": phase_native_loader,
+            "ad": phase_reference_checkpoints}
 
 
 def timed(label: str, fn, *args):

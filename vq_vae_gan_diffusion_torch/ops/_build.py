@@ -54,46 +54,56 @@ def library_path(name: str, suffix: str = ".cu", flags: List[str] = NVCC_FLAGS) 
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> Tuple[subprocess.Popen, Path] | None:
-    """Start nvcc for one source unless its library exists; the output goes
+def _start(compiler: List[str], src: Path, out: Path
+           ) -> Tuple[subprocess.Popen, Path, Path, Path] | None:
+    """Start ``compiler`` on ``src`` unless ``out`` exists; the library goes
     to a temporary name and is moved into place by :func:`_finish`."""
-    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), tmp
+    try:
+        proc = subprocess.Popen([*compiler, "-o", str(tmp), str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{compiler[0]} failed for csrc/{src.name}: {e}") from e
+    return proc, tmp, out, src
 
 
-def _finish(name: str, started: Tuple[subprocess.Popen, Path] | None) -> str:
+def _finish(started: Tuple[subprocess.Popen, Path, Path, Path] | None) -> str:
     """Wait for one build, move the library into place and return the
-    compiler's log (empty when the library was already built)."""
+    compiler's log (empty when the library was already built); a failed
+    build raises with the log."""
     if started is None:
         return ""
-    proc, tmp = started
+    proc, tmp, out, src = started
     log, _ = proc.communicate()
-    out = library_path(name)
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"{os.path.basename(proc.args[0])} failed for csrc/{src.name}:\n{log}")
     os.replace(tmp, out)
     return log
+
+
+def _start_cuda(name: str) -> Tuple[subprocess.Popen, Path, Path, Path] | None:
+    out = library_path(name)
+    if out.exists():                    # no nvcc needed for a library already built
+        return None
+    return _start([nvcc_path(), *NVCC_FLAGS], CSRC_DIR / f"{name}.cu", out)
 
 
 def build_all() -> Dict[str, str]:
     """Build every ``csrc/*.cu`` at once, one nvcc process per source, and
     return each compiler log (ptxas register and shared-memory usage)."""
-    started = {name: _start(name) for name in sources()}
-    return {name: _finish(name, s) for name, s in started.items()}
+    started = {name: _start_cuda(name) for name in sources()}
+    return {name: _finish(s) for name, s in started.items()}
 
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    _finish(name, _start(name))
+    _finish(_start_cuda(name))
     return ctypes.CDLL(str(library_path(name)))
 
 
@@ -110,17 +120,5 @@ def host_library(name: str) -> ctypes.CDLL:
     # -march=native code runs only on the machine that built it: its name
     # keys the library too, so a tree copied to another machine rebuilds
     out = library_path(name, ".cpp", flags + [os.uname().nodename, os.uname().machine])
-    if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        try:
-            proc = subprocess.run([*flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cpp")],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        except OSError as e:
-            raise RuntimeError(f"{flags[0]} failed for csrc/{name}.cpp: {e}") from e
-        out.with_suffix(".log").write_text(proc.stdout)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"{flags[0]} failed for csrc/{name}.cpp:\n{proc.stdout}")
-        os.replace(tmp, out)
+    _finish(_start(flags, CSRC_DIR / f"{name}.cpp", out))
     return ctypes.CDLL(str(out))
