@@ -139,10 +139,12 @@ Phases, each printed as it runs; any failure exits non-zero:
       configs/training_config_vqdiffusion.yml at full width (U-Net base 64,
       mults (1, 2, 4, 8) on [B, 256, 96, 1], 1000 steps, indices recon on,
       batch 20): the train CLI in --debug (metrics, a checkpoint, the recon
-      grid, and the EMA copy's samples with 39000 K1 and 4000 K2 launches);
-      the trained EMA U-Net through the kernel route against its module
-      (h's 1e-3); a warm ``train_step`` at batch 20, as ``{"vqd_train_step":
-      ...}`` with two CLI epochs; one step at batch 2 on the card against the
+      grid, and the EMA copy's samples through 20 DDIM steps, where (g)
+      serves 1000 DDPM steps: 780 K1 and 80 K2 launches); the trained EMA
+      U-Net through the kernel route against its module (h's 1e-3); a warm
+      ``train_step`` at batch 20, as ``{"vqd_train_step": ...}`` with two
+      CLI epochs (their samples as the hook's); one step at batch 2 on the
+      card against the
       CPU and float64: gradients, running statistics and the EMA's leaves;
   (r) the pixel-space gaussiandiffusion3d worker on
       configs/training_config_pixel3d.yml at full width (U-Net base 64,
@@ -174,10 +176,10 @@ Phases, each printed as it runs; any failure exits non-zero:
       configs/inference_config_gaussian2d.yml at full width (the Conv1d
       U-Net, base 64, mults (1, 2, 4, 8), on the [16, 256, 96] lookup-table
       state: 256 channels over length 96; the config's 1000 DDIM steps cut
-      to 250; seeded weights):
+      to 50; seeded weights):
       ``generate`` cold then warm (s a chain, ms a step, peak memory; no
       hand-written kernel runs on this path: its convolutions are cuDNN's,
-      its products cuBLAS's); one sample's 250-step chain on the card and
+      its products cuBLAS's); one sample's 50-step chain on the card and
       on the CPU from the same indices and noise (at least 99% of indices
       equal); the train CLI in --debug on
       configs/training_config_gaussian2d.yml; a warm ``train_step`` at
@@ -200,13 +202,14 @@ Phases, each printed as it runs; any failure exits non-zero:
       configs/training_config_pixel2d.yml (28x28x1 images, rows as the
       Conv1d U-Net's 28 channels, mults (1, 2, 4)): the train CLI in
       --debug (metrics, a checkpoint, the EMA's 4 samples), the 4 samples'
-      DDIM chain, cut from 1000 steps to 250, timed, a warm ``train_step`` at batch 500 as
-      ``{"pixel2d_train_step": ...}``;
+      DDIM chain, cut from 1000 steps to 50, timed, a warm ``train_step``
+      at batch 500 as ``{"pixel2d_train_step": ...}``;
   (x) ``c_vqdiffusion`` and ``v_vqdiffusion`` on
       configs/training_config_{cvq,vvq}.yml (batch 20 @ 256x256x3, the
       Conv1d U-Net over 8 or 256 channels and 256 positions): a warm
       ``train_step`` each and the EMA's 16 samples through the DDIM chain,
-      cut from 500 steps to 250, decoded, as ``{"continuous_vq_train_step": ...}``;
+      cut from 500 steps to 50, decoded, as ``{"continuous_vq_train_step":
+      ...}``;
   (y) the VAE on configs/training_config_large.yml (256x256x3, a 16x16x256
       latent, the config's latent_size 32): the train CLI in --debug (the
       reconstruction GIF, the samples and val grids, a checkpoint);
@@ -218,18 +221,20 @@ Phases, each printed as it runs; any failure exits non-zero:
       (the Conv2d U-Net at dim 64, mults (1, 2, 4, 8)): the CLI in --debug
       (11 steps, a checkpoint, 4 samples through 8 DDIM steps); a warm
       ``train_step`` at batch 500 of 32x32x3 with dropout 0.1 as
-      ``{"pixel_ddpm_train_step": ...}``; the EMA's 64 samples through 500
-      DDIM steps; one step at batch 4 with dropout off on the card against
-      the CPU and float64, (q)'s rule;
+      ``{"pixel_ddpm_train_step": ...}``; the EMA's 64 samples through 50
+      DDIM steps (the root CLI's 500, cut to fit the script's time); one
+      step at batch 4 with dropout off on the card against the CPU and
+      float64, (q)'s rule;
   (aa) ``--bf16`` on the card: the bf16 kernel calls at the training hooks'
       shapes against their plain versions at (c)'s and (f)'s bf16
       tolerances (the decode stack at batch 4 over 256 positions, K1/K2 at
       the gaussian3d and VQ_Official U-Nets' unit shapes, B6 on [16, 256,
       1023] bf16 logits); the train CLI in --debug --bf16 on (o), (p), (q),
       (s) (hook cut to 20 steps) and (v), with the f32 phases' launches and
-      the launches of each kernel's bf16 instantiation (768 B1; 39000 K1
-      and 4000 K2; 780 K1 and 80 K2 with 19 B6 on f32 logits, as the JAX
-      hook casts the folded forward back to its input's dtype; 19 B6 on the
+      the launches of each kernel's bf16 instantiation (768 B1; 780 K1 and
+      80 K2 at (q)'s 20-step hook; 780 K1 and 80 K2 with 19 B6 on f32
+      logits at (s)'s, as the JAX hook casts the folded forward back to its
+      input's dtype; 19 B6 on the
       Conv1d U-Net's bf16 logits), every state and checkpoint tensor f32;
       train_diffusion --debug --bf16 likewise; a warm bf16 step beside the
       f32 one at each f32 phase's batch as ``{"<phase>_train_step_bf16":
@@ -317,6 +322,13 @@ GPT_TRAIN_CONFIG = "configs/training_config_gpt.yml"
 VQD_TRAIN_CONFIG = "configs/training_config_vqdiffusion.yml"
 STAGE2_B, STAGE2_STEPS, LOG_B, PREFIX = 20, 5, 4, N // 2 + 1
 STAGE2_EPOCHS = 2
+# the gaussian3d prior's training hook in (q) and (aa): the EMA's samples
+# through 20 DDIM steps in place of the config's 1000 DDPM steps (which (g)
+# serves), to fit the script's time
+G3D_HOOK_STEPS = 20
+# a DDIM grid of S times takes S - 1 reverse steps
+G3D_HOOK = {"architecture.vqdiffusion.sample_method": "ddim",
+            "architecture.vqdiffusion.sampling_steps": G3D_HOOK_STEPS + 1}
 # the pixel-space gaussiandiffusion3d worker on training_config_pixel3d.yml:
 # batch 500 of 28x28x1, the U-Net at base 64 with mults (2, 4), 36 samples
 PIXEL_CONFIG, PIXEL_B, PIXEL_HW, PIXEL_MULTS, PIXEL_SAMPLES = (
@@ -334,18 +346,18 @@ VQO1D_CONFIG, VQO1D_TRAIN_CONFIG = ("configs/inference_config_vqofficial1d.yml",
 PIXEL2D_CONFIG, PIXEL2D_SAMPLES = "configs/training_config_pixel2d.yml", 4
 # the gaussian2d prior's and the pixel gaussiandiffusion2d worker's chains in
 # (u) and (w), cut from the configs' 1000 DDIM steps to fit the script's time
-G2D_STEPS = 250
+G2D_STEPS = 50
 CONTINUOUS_CONFIGS = {"c_vqdiffusion": "configs/training_config_cvq.yml",
                       "v_vqdiffusion": "configs/training_config_vvq.yml"}
-CONTINUOUS_STEPS = 250          # the configs' 500 DDIM steps, cut to fit the script's time
+CONTINUOUS_STEPS = 50           # the configs' 500 DDIM steps, cut to fit the script's time
 # the VAE family on training_config_large.yml: batch 20 of 256x256x3 (a 16x16
 # latent), 16 samples drawn at the config's latent_size 32, decoding to 512x512
 VAE_CONFIG, VAE_B, VAE_LATENT, VAE_SAMPLE_HW = "configs/training_config_large.yml", 20, 16, 512
 # the pixel DDPM of the root train_diffusion.py at its defaults: batch 500 of
 # 32x32x3 (cifar10, synthetic where it is not on disk), the U-Net at dim 64
-# with mults (1, 2, 4, 8) and dropout 0.1; the EMA's 64 samples through 500
-# DDIM steps
-DDPM_B, DDPM_HW, DDPM_SAMPLES, DDPM_DDIM = 500, 32, 64, 500
+# with mults (1, 2, 4, 8) and dropout 0.1; the EMA's 64 samples through 50
+# DDIM steps (the root CLI's 500, cut to fit the script's time)
+DDPM_B, DDPM_HW, DDPM_SAMPLES, DDPM_DDIM = 500, 32, 64, 50
 # (o)'s CLI epochs on the Python loader, beside which (ac) runs the native one
 PYTHON_LOADER_RUN: dict = {}
 # (ac): the native loader's augmentation recipe (transforms.random_flips_and_rotation's)
@@ -1436,17 +1448,19 @@ def train_cli_run(log_dir: str) -> dict:
 
 
 def cli_epochs(label: str, config: str, log_dir: str, epochs: int, batch: int,
-               loader: str = "synthetic images decoded on the host as it goes") -> dict:
-    """The train CLI for ``epochs`` epochs on ``config``, each epoch's time
-    split as the loop records it (the host's time in the loader, in the
-    artifacts, and the steps with the device's tail). Returns the epochs'
-    rows, the images/s of the epochs after the first and the run dir."""
+               loader: str = "synthetic images decoded on the host as it goes",
+               overrides: dict | None = None) -> dict:
+    """The train CLI for ``epochs`` epochs on ``config`` (with
+    ``overrides``), each epoch's time split as the loop records it (the
+    host's time in the loader, in the artifacts, and the steps with the
+    device's tail). Returns the epochs' rows, the images/s of the epochs
+    after the first and the run dir."""
     import os
 
     from vq_vae_gan_diffusion_torch.train import cli
 
     out = cli.run(["--config", config, "--epochs", str(epochs)],
-                  overrides={"trainer.log_dir": log_dir})
+                  overrides={"trainer.log_dir": log_dir, **(overrides or {})})
     with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
         rows = [r for r in map(json.loads, f) if "epoch_time_s" in r]
     if len(rows) != epochs:
@@ -2090,8 +2104,9 @@ def phase_vqd_train(card: str) -> dict:
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_vqd_")
     out = run_train_cli("q", VQD_TRAIN_CONFIG, log_dir,
-                        {"shuffle_bottleneck": 39 * STEPS, "shuffle_downsample": 4 * STEPS},
-                        ("recon_epoch0_0.jpg", "samples_epoch0.jpg"))
+                        {"shuffle_bottleneck": 39 * G3D_HOOK_STEPS,
+                         "shuffle_downsample": 4 * G3D_HOOK_STEPS},
+                        ("recon_epoch0_0.jpg", "samples_epoch0.jpg"), overrides=G3D_HOOK)
     ema = out["worker"].state.ema
     gen = torch.Generator(device="cuda").manual_seed(25)
     x = torch.randn(B, N, GAUSSIAN_DIM, 1, generator=gen, device="cuda")
@@ -2116,7 +2131,7 @@ def phase_vqd_train(card: str) -> dict:
     del worker
     torch.cuda.empty_cache()
     numbers.update(cli_numbers(cli_epochs("q", VQD_TRAIN_CONFIG, log_dir, STAGE2_EPOCHS,
-                                          STAGE2_B)))
+                                          STAGE2_B, overrides=G3D_HOOK)))
     torch.cuda.empty_cache()
     vqd_card_against_cpu(cfg, log_dir, batch[:2], card)
     shutil.rmtree(log_dir)
@@ -2809,7 +2824,7 @@ def phase_pixel_ddpm(card: str) -> dict:
           f"loss {out['losses'][0]:.4f}; {os.path.basename(ckpt)}; 4 samples through 8 DDIM "
           f"steps; no kernel launch")
     del out, state, samples
-    trainer = tdiff.PixelDDPM(3, DDPM_HW, device="cuda")
+    trainer = tdiff.PixelDDPM(3, DDPM_HW, sampling_timesteps=DDPM_DDIM, device="cuda")
     state = trainer.init_state()
     loader = tdiff.load_images("cifar10", log_dir, DDPM_B, DDPM_HW, 3, 42,
                                logging.getLogger("chip_smoke"))
@@ -2989,7 +3004,7 @@ def vqgan_bf16_card_against_cpu(cfg, log_dir: str, batch, card: str) -> None:
 def phase_bf16(card: str) -> None:
     """(aa) ``--bf16`` on the card: the hook-shaped bf16 kernel calls against
     their plain versions; the train CLI in --debug --bf16 on (o), (p), (q),
-    (s) (hook cut to 20 steps) and (v), and train_diffusion --debug --bf16,
+    (s) (hooks cut to 20 steps) and (v), and train_diffusion --debug --bf16,
     each with the f32 phase's launch counts and the launches of each
     kernel's bf16 instantiation, then every parameter, optimizer state and
     checkpoint tensor f32; a warm bf16 step beside the f32 one at each f32
@@ -3021,8 +3036,9 @@ def phase_bf16(card: str) -> None:
     runs = (("o", TRAIN_CONFIG, {}, {}, ("reconstruction.gif",), {}),
             ("p", GPT_TRAIN_CONFIG, {"gpt_decode_stack": 3 * N}, {"gpt_decode_stack": 3 * N},
              ("transformer_epoch0_0.jpg", "samples_epoch0.jpg"), {}),
-            ("q", VQD_TRAIN_CONFIG, {k1: 39 * STEPS, k2: 4 * STEPS},
-             {k1: 39 * STEPS, k2: 4 * STEPS}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"), {}),
+            ("q", VQD_TRAIN_CONFIG, {k1: 39 * G3D_HOOK_STEPS, k2: 4 * G3D_HOOK_STEPS},
+             {k1: 39 * G3D_HOOK_STEPS, k2: 4 * G3D_HOOK_STEPS},
+             ("recon_epoch0_0.jpg", "samples_epoch0.jpg"), G3D_HOOK),
             ("s", VQO_TRAIN_CONFIG, {k1: 39 * VQO_STEPS, k2: 4 * VQO_STEPS, b6: VQO_STEPS - 1},
              {k1: 39 * VQO_STEPS, k2: 4 * VQO_STEPS}, ("recon_epoch0_0.jpg", "samples_epoch0.jpg"),
              {steps_path: VQO_STEPS}),
