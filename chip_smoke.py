@@ -8,7 +8,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   (a) the card (nvidia-smi name and power limit), torch and CUDA versions;
       fails when torch sees no CUDA device;
   (b) build every kernel under vq_vae_gan_diffusion_torch/csrc/ with nvcc,
-      all sources at once, and print the ptxas usage lines;
+      all sources at once, in the background while the phases that launch
+      no hand-written kernel ((u), (w), (x), (y), (z)) run, and print the
+      ptxas usage lines;
   (c) each kernel against its plain PyTorch version at the main path's
       shapes, in f32 and bf16, with the tolerance stated; times of the
       kernel and the plain version over the main path's 256 positions;
@@ -138,9 +140,10 @@ Phases, each printed as it runs; any failure exits non-zero:
   (q) stage-2 gaussian3d prior training on
       configs/training_config_vqdiffusion.yml at full width (U-Net base 64,
       mults (1, 2, 4, 8) on [B, 256, 96, 1], 1000 steps, indices recon on,
-      batch 20): the train CLI in --debug (metrics, a checkpoint, the recon
-      grid, and the EMA copy's samples through 20 DDIM steps, where (g)
-      serves 1000 DDPM steps: 780 K1 and 80 K2 launches); the trained EMA
+      batch 20): the train CLI in --debug on the config with its diffusion
+      cut to 20 steps (metrics, a checkpoint, the recon grid, and the EMA
+      copy's samples through the config's DDPM sampler, 20 steps where (g)
+      serves 1000: 780 K1 and 80 K2 launches); the trained EMA
       U-Net through the kernel route against its module (h's 1e-3); a warm
       ``train_step`` at batch 20, as ``{"vqd_train_step": ...}`` with two
       CLI epochs (their samples as the hook's); one step at batch 2 on the
@@ -268,8 +271,9 @@ Phases, each printed as it runs; any failure exits non-zero:
       with exactly 780 K1, 80 K2 and 19 B6 launches, every index equal to
       the in-memory EMA U-Net's chain with the same generator.
 
-``--only r,s`` (any of o-z, aa-ad) runs (a), (b) and those phases alone,
-and prints no kernels line and no result line.
+``--only r,s`` (any of o-z, aa-ad) runs (a), (b) and those phases alone
+(those of (u)-(z) while (b) builds), and prints no kernels line and no
+result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
 (p)-(s), each run of (t), each run of (u)-(z) and (ad)'s generate run, runs with every kernel's
@@ -285,6 +289,7 @@ import math
 import re
 import shutil
 import sys
+import threading
 import time
 
 import torch
@@ -322,13 +327,13 @@ GPT_TRAIN_CONFIG = "configs/training_config_gpt.yml"
 VQD_TRAIN_CONFIG = "configs/training_config_vqdiffusion.yml"
 STAGE2_B, STAGE2_STEPS, LOG_B, PREFIX = 20, 5, 4, N // 2 + 1
 STAGE2_EPOCHS = 2
-# the gaussian3d prior's training hook in (q) and (aa): the EMA's samples
-# through 20 DDIM steps in place of the config's 1000 DDPM steps (which (g)
-# serves), to fit the script's time
+# the gaussian3d prior's training runs of the CLI in (q) and (aa): the
+# config's DDPM sampler over a diffusion cut from 1000 steps (which (g)
+# serves) to 20, to fit the script's time; the U-Net's time table has as
+# many rows
 G3D_HOOK_STEPS = 20
-# a DDIM grid of S times takes S - 1 reverse steps
-G3D_HOOK = {"architecture.vqdiffusion.sample_method": "ddim",
-            "architecture.vqdiffusion.sampling_steps": G3D_HOOK_STEPS + 1}
+G3D_HOOK = {"architecture.vqdiffusion.diffusion_steps": G3D_HOOK_STEPS,
+            "architecture.vqdiffusion.sampling_steps": G3D_HOOK_STEPS}
 # the pixel-space gaussiandiffusion3d worker on training_config_pixel3d.yml:
 # batch 500 of 28x28x1, the U-Net at base 64 with mults (2, 4), 36 samples
 PIXEL_CONFIG, PIXEL_B, PIXEL_HW, PIXEL_MULTS, PIXEL_SAMPLES = (
@@ -379,16 +384,40 @@ def phase_device() -> str:
     return line
 
 
-def phase_build() -> None:
+# the phases that launch no hand-written kernel, run while (b) builds
+BUILD_FREE = ("u", "w", "x", "y", "z")
+
+
+def start_build():
+    """(b): every ``csrc/*.cu`` built at once in a background thread, one
+    nvcc process per source. Returns the function that waits for the
+    build, prints its ptxas usage lines and raises if it failed."""
     from vq_vae_gan_diffusion_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"(b) built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Function properties" in line or "Used" in line or "spill" in line:
-                print(f"(b) {name}: {line.strip()}")
+    result: dict = {}
+
+    def build() -> None:
+        try:
+            result["logs"] = _build.build_all()
+        except BaseException as e:      # raised again by finish()
+            result["error"] = e
+        result["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build, name="nvcc")
+    thread.start()
+
+    def finish() -> None:
+        thread.join()
+        if "error" in result:
+            raise result["error"]
+        logs = result["logs"]
+        print(f"(b) built {sorted(logs)} in {result['s']:.2f} s")
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "Function properties" in line or "Used" in line or "spill" in line:
+                    print(f"(b) {name}: {line.strip()}")
+    return finish
 
 
 def random_packed(dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -2110,7 +2139,7 @@ def phase_vqd_train(card: str) -> dict:
     ema = out["worker"].state.ema
     gen = torch.Generator(device="cuda").manual_seed(25)
     x = torch.randn(B, N, GAUSSIAN_DIM, 1, generator=gen, device="cuda")
-    t = torch.randint(0, STEPS, (B,), generator=gen, device="cuda")
+    t = torch.randint(0, G3D_HOOK_STEPS, (B,), generator=gen, device="cuda")
     with torch.no_grad():
         ref = ema.eval()(x, None, t)
     err = check_close("(q) the EMA U-Net, kernel route vs module", apply_folded(
@@ -3412,7 +3441,7 @@ def phase_native_loader(card: str) -> dict:
     return numbers
 
 
-def reference_forms(configs: dict, gen_seed: int = 0) -> dict:
+def reference_forms() -> dict:
     """(ad) the reference's files drawn at full width from fixed seeds, with
     the modules they hold: stage 1's bare VQVAE and its discriminator
     (training_config_small.yml), the bare GPT (inference_config_small.yml),
@@ -3449,23 +3478,21 @@ def reference_forms(configs: dict, gen_seed: int = 0) -> dict:
                 "Lt_history": torch.rand(timesteps, generator=gen),
                 "Lt_count": torch.randint(0, 40, (timesteps,), generator=gen).float()}
 
-    stage1 = load_config(configs["vqgan"])
-    vqvae = drawn(VQVAE.from_config(stage1), gen_seed + 1)
-    disc = drawn(Discriminator(int(stage1.dataset.img_channels[stage1.dataset.dataset_name])),
-                 gen_seed + 2)
-    gpt = drawn(VQTransformer(load_config(configs["vqvae_transformer"])).gpt, gen_seed + 3)
-    vqo = VQDiffusionComposite(load_config(configs["vqdiffusion"]))
-    online, ema = drawn(vqo.unet, gen_seed + 4), drawn(vqo.unet, gen_seed + 5)
-    diffusion = discrete(online, vqo.timesteps, gen_seed + 6)
+    stage1 = load_config(REF_CONFIGS["vqgan"])
+    vqvae = drawn(VQVAE.from_config(stage1), 1)
+    disc = drawn(Discriminator(int(stage1.dataset.img_channels[stage1.dataset.dataset_name])), 2)
+    gpt = drawn(VQTransformer(load_config(REF_CONFIGS["vqvae_transformer"])).gpt, 3)
+    vqo = VQDiffusionComposite(load_config(REF_CONFIGS["vqdiffusion"]))
+    online, ema = drawn(vqo.unet, 4), drawn(vqo.unet, 5)
+    diffusion = discrete(online, vqo.timesteps, 6)
     vqo_raw = {"diffusion": diffusion,
                "optimizer": {"state": {}, "param_groups": [{"lr": 1e-4, "params": [0]}]},
                "scheduler": {"last_epoch": 1000},
                "model_ema": {"n_averaged": torch.tensor(100),
-                             **under("module.", discrete(ema, vqo.timesteps, gen_seed + 7))}}
-    pixel = GaussianDiffusion3DWorker(load_config(configs["gaussiandiffusion3d"]), "unused",
+                             **under("module.", discrete(ema, vqo.timesteps, 7))}}
+    pixel = GaussianDiffusion3DWorker(load_config(REF_CONFIGS["gaussiandiffusion3d"]), "unused",
                                       device="cpu")
-    p_online, p_ema = drawn(pixel.build_unet(), gen_seed + 8), drawn(pixel.build_unet(),
-                                                                     gen_seed + 9)
+    p_online, p_ema = drawn(pixel.build_unet(), 8), drawn(pixel.build_unet(), 9)
     buffers = {"betas": torch.linspace(1e-4, 0.02, pixel.timesteps)}
     pixel_raw = {"model": {**under("model.", p_online), **buffers},
                  "model_ema": {"n_averaged": torch.tensor(100),
@@ -3479,16 +3506,14 @@ def reference_forms(configs: dict, gen_seed: int = 0) -> dict:
     }
 
 
-def phase_reference_checkpoints(card: str, configs: dict = REF_CONFIGS, device: str = "cuda",
-                                n_samples: int = B, steps: int = VQO_STEPS) -> dict:
+def phase_reference_checkpoints(card: str) -> dict:
     """(ad): the reference's files at full width through ``import_checkpoint``
     on the card; each written checkpoint resumed through its family's
     ``resume_path`` holds every source tensor (and VQ_Official's LtState
     its Lt buffers); VQ_Official served from its imported file through
     ``generate --ckpt``: a 20-step chain with exactly 780 K1, 80 K2 and 19
     B6 launches, every index that of the in-memory EMA U-Net with the same
-    generator. ``configs``, ``device``, ``n_samples`` and ``steps`` let a
-    rehearsal run it small on the CPU. Returns the launches."""
+    generator. Returns the launches."""
     import os
     import tempfile
 
@@ -3499,14 +3524,14 @@ def phase_reference_checkpoints(card: str, configs: dict = REF_CONFIGS, device: 
 
     root = tempfile.mkdtemp(prefix="chip_smoke_import_")
     t0 = time.perf_counter()
-    forms = reference_forms(configs)
+    forms = reference_forms()
     print(f"(ad) reference files drawn at full width in {time.perf_counter() - t0:.1f} s")
     imported = {}
     for family, form in forms.items():
         pth = os.path.join(root, f"{family}.pth")
         torch.save(form["raw"], pth)
-        argv = ["--config", configs[family], "--pth", pth, "--out", os.path.join(root, family),
-                "--step", "1000", "--device", device, "--family", family]
+        argv = ["--config", REF_CONFIGS[family], "--pth", pth, "--out", os.path.join(root, family),
+                "--step", "1000", "--device", "cuda", "--family", family]
         if "disc" in form:
             torch.save(form["disc"], os.path.join(root, "disc.pth"))
             argv += ["--disc-pth", os.path.join(root, "disc.pth")]
@@ -3517,11 +3542,11 @@ def phase_reference_checkpoints(card: str, configs: dict = REF_CONFIGS, device: 
         imported[family] = import_checkpoint.run(argv, overrides=overrides)["path"]
         sec = time.perf_counter() - t0
         key = "vqvae" if family == "vqgan" else family
-        cfg = load_config(configs[family]).replace_path("architecture.model_name", family)
+        cfg = load_config(REF_CONFIGS[family]).replace_path("architecture.model_name", family)
         cfg = cfg.replace_path(f"architecture.{key}.resume_path", imported[family])
         for path, value in overrides.items():
             cfg = cfg.replace_path(path, value)
-        worker = worker_class(family)(cfg, root, device=device)
+        worker = worker_class(family)(cfg, root, device="cuda")
         state = worker.init_state()
         n = 0
         for name, source in form["sources"].items():
@@ -3541,39 +3566,38 @@ def phase_reference_checkpoints(card: str, configs: dict = REF_CONFIGS, device: 
               f"{', lt' if 'lt' in form else ''}); resumed through architecture.{key}."
               f"resume_path: {n} elements equal to their source, step 1000")
         del worker, state
-        if device == "cuda":
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     steps_path = "architecture.vqdiffusion.sampling_steps"
-    argv = ["--config", configs["vqdiffusion"], "--ckpt", imported["vqdiffusion"],
-            "--n-samples", str(n_samples), "--seed", "42", "--device", device]
+    argv = ["--config", REF_CONFIGS["vqdiffusion"], "--ckpt", imported["vqdiffusion"],
+            "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
     reset_counts()
     t0 = time.perf_counter()
-    out = generate.run(argv, overrides={steps_path: steps,
+    out = generate.run(argv, overrides={steps_path: VQO_STEPS,
                                         "architecture.vqvae.resume_path": imported["vqgan"]})
     sec = time.perf_counter() - t0
     launches = read_counts()
     want = {name: 0 for name in launches}
-    want.update(shuffle_bottleneck=39 * steps, shuffle_downsample=4 * steps,
-                discrete_posterior=steps - 1)
+    want.update(shuffle_bottleneck=39 * VQO_STEPS, shuffle_downsample=4 * VQO_STEPS,
+                discrete_posterior=VQO_STEPS - 1)
     if launches != want:
         raise AssertionError(f"(ad) launches {launches}, expected {want}")
-    comp = VQDiffusionComposite(load_config(configs["vqdiffusion"]).replace_path(steps_path,
-                                                                                  steps))
+    comp = VQDiffusionComposite(
+        load_config(REF_CONFIGS["vqdiffusion"]).replace_path(steps_path, VQO_STEPS))
     comp.unet.load_state_dict(forms["vqdiffusion"]["sources"]["ema"], strict=True)
-    comp = comp.to(device).eval()
-    idx = comp.sample(n_samples, generator=torch.Generator(device=device).manual_seed(42),
+    comp = comp.to("cuda").eval()
+    idx = comp.sample(B, generator=torch.Generator(device="cuda").manual_seed(42),
                       unet=comp.unet)
     got = out["indices"]
-    if tuple(got.shape) != (n_samples, comp.seq_len) or not torch.equal(got, idx):
+    if tuple(got.shape) != (B, comp.seq_len) or not torch.equal(got, idx):
         raise AssertionError(f"(ad) generate --ckpt indices {tuple(got.shape)}: "
                              f"{(got == idx).float().mean().item():.4f} equal to the "
                              "in-memory EMA U-Net's")
     if not torch.isfinite(out["images"]).all():
         raise AssertionError("(ad) non-finite images")
-    print(f"(ad) generate --ckpt on the imported VQ_Official file: {steps}-step chain, "
+    print(f"(ad) generate --ckpt on the imported VQ_Official file: {VQO_STEPS}-step chain, "
           f"{launches['shuffle_bottleneck']} K1, {launches['shuffle_downsample']} K2, "
-          f"{launches['discrete_posterior']} B6 launches; {sec:.1f} s; all {n_samples} x "
+          f"{launches['discrete_posterior']} B6 launches; {sec:.1f} s; all {B} x "
           f"{comp.seq_len} indices equal to the in-memory EMA U-Net's with the same "
           f"generator; {card}")
     shutil.rmtree(root)
@@ -3623,12 +3647,21 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     t_script = time.perf_counter()
     card = phase_device()
-    timed("b", phase_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phases = training_phases()
+    labels = args.only.split(",") if args.only else list(phases)
+    early = [label for label in labels if label in BUILD_FREE]
+    finish_build = start_build()
+    try:
+        for label in early:
+            timed(label, phases[label], card)
+    finally:                            # a failed phase still waits for nvcc to end
+        timed("b", finish_build)
     if args.only:
-        for label in args.only.split(","):
-            timed(label, training_phases()[label], card)
+        for label in labels:
+            if label not in early:
+                timed(label, phases[label], card)
         print(f"chip_smoke: phases {args.only} alone; no kernels line, no result line")
         return 0
     timing = timed("c", phase_kernel, card)
@@ -3644,8 +3677,9 @@ def main(argv=None) -> int:
     quant = timed("l", phase_quant_kernels, card)
     quant_launches = timed("m", phase_int8kv_path)
     timed("n", phase_int8kv_routes)
-    for label, phase in training_phases().items():
-        timed(label, phase, card)
+    for label in labels:
+        if label not in early:
+            timed(label, phases[label], card)
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",

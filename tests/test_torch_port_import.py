@@ -425,7 +425,7 @@ def _refused(tiny_config, case):
         return data, raw, ("--family", "vqvae", "--disc-pth", "disc.pth"), ValueError, "disc"
     data = tiny_config.to_dict()
     data["architecture"]["model_name"] = case
-    return data, {}, (), SystemExit, "no checkpoint format"
+    return data, {}, (), ValueError, "no checkpoint format"
 
 
 @pytest.mark.parametrize("case", ["gaussian3d VQ prior", "missing Lt", "unknown buffer",

@@ -177,8 +177,6 @@ DISCRETE_SCHEDULE_BUFFERS = (
     "log_cumprod_ct", "log_1_min_ct", "log_1_min_cumprod_ct",
     "zero_vector", "prior_ps", "prior_weight",
 )
-#: the families the reference saves no file for, which the import refuses
-UNIMPORTABLE = ("c_vqdiffusion", "v_vqdiffusion")
 
 
 def strip_prefix(state: State, prefix: str) -> State:

@@ -43,7 +43,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from .checkpoint import UNIMPORTABLE, denoiser_kind, reference_parts
+from .checkpoint import denoiser_kind, reference_parts
 from .config import load_config, validate
 
 log = logging.getLogger(__name__)
@@ -80,9 +80,6 @@ def run(argv: Optional[Sequence[str]] = None,
     for path, value in (overrides or {}).items():
         config = config.replace_path(path, value)
     family = args.family or str(config.architecture.model_name)
-    if family in UNIMPORTABLE:
-        raise SystemExit(f"unsupported family {family!r}: the reference has no checkpoint "
-                         "format for it")
     config = config.replace_path("architecture.model_name", family)
     validate(config)
 
