@@ -8,9 +8,7 @@ Phases, each printed as it runs; any failure exits non-zero:
   (a) the card (nvidia-smi name and power limit), torch and CUDA versions;
       fails when torch sees no CUDA device;
   (b) build every kernel under vq_vae_gan_diffusion_torch/csrc/ with nvcc,
-      all sources at once, in the background while the phases that launch
-      no hand-written kernel ((u), (w), (x), (y), (z)) run, and print the
-      ptxas usage lines;
+      all sources at once, and print the ptxas usage lines;
   (c) each kernel against its plain PyTorch version at the main path's
       shapes, in f32 and bf16, with the tolerance stated; times of the
       kernel and the plain version over the main path's 256 positions;
@@ -271,9 +269,8 @@ Phases, each printed as it runs; any failure exits non-zero:
       with exactly 780 K1, 80 K2 and 19 B6 launches, every index equal to
       the in-memory EMA U-Net's chain with the same generator.
 
-``--only r,s`` (any of o-z, aa-ad) runs (a), (b) and those phases alone
-(those of (u)-(z) while (b) builds), and prints no kernels line and no
-result line.
+``--only r,s`` (any of o-z, aa-ad) runs (a), (b) and those phases alone,
+and prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
 (p)-(s), each run of (t), each run of (u)-(z) and (ad)'s generate run, runs with every kernel's
@@ -289,7 +286,6 @@ import math
 import re
 import shutil
 import sys
-import threading
 import time
 
 import torch
@@ -384,40 +380,16 @@ def phase_device() -> str:
     return line
 
 
-# the phases that launch no hand-written kernel, run while (b) builds
-BUILD_FREE = ("u", "w", "x", "y", "z")
-
-
-def start_build():
-    """(b): every ``csrc/*.cu`` built at once in a background thread, one
-    nvcc process per source. Returns the function that waits for the
-    build, prints its ptxas usage lines and raises if it failed."""
+def phase_build() -> None:
     from vq_vae_gan_diffusion_torch.ops import _build
 
     t0 = time.perf_counter()
-    result: dict = {}
-
-    def build() -> None:
-        try:
-            result["logs"] = _build.build_all()
-        except BaseException as e:      # raised again by finish()
-            result["error"] = e
-        result["s"] = time.perf_counter() - t0
-
-    thread = threading.Thread(target=build, name="nvcc")
-    thread.start()
-
-    def finish() -> None:
-        thread.join()
-        if "error" in result:
-            raise result["error"]
-        logs = result["logs"]
-        print(f"(b) built {sorted(logs)} in {result['s']:.2f} s")
-        for name, log in logs.items():
-            for line in log.splitlines():
-                if "Function properties" in line or "Used" in line or "spill" in line:
-                    print(f"(b) {name}: {line.strip()}")
-    return finish
+    logs = _build.build_all()
+    print(f"(b) built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Function properties" in line or "Used" in line or "spill" in line:
+                print(f"(b) {name}: {line.strip()}")
 
 
 def random_packed(dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -3647,21 +3619,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     t_script = time.perf_counter()
     card = phase_device()
+    timed("b", phase_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phases = training_phases()
-    labels = args.only.split(",") if args.only else list(phases)
-    early = [label for label in labels if label in BUILD_FREE]
-    finish_build = start_build()
-    try:
-        for label in early:
-            timed(label, phases[label], card)
-    finally:                            # a failed phase still waits for nvcc to end
-        timed("b", finish_build)
     if args.only:
-        for label in labels:
-            if label not in early:
-                timed(label, phases[label], card)
+        for label in args.only.split(","):
+            timed(label, training_phases()[label], card)
         print(f"chip_smoke: phases {args.only} alone; no kernels line, no result line")
         return 0
     timing = timed("c", phase_kernel, card)
@@ -3677,9 +3640,8 @@ def main(argv=None) -> int:
     quant = timed("l", phase_quant_kernels, card)
     quant_launches = timed("m", phase_int8kv_path)
     timed("n", phase_int8kv_routes)
-    for label in labels:
-        if label not in early:
-            timed(label, phases[label], card)
+    for label, phase in training_phases().items():
+        timed(label, phase, card)
     f32 = timing[torch.float32]
     kernels = [{
         "name": "gpt_decode_stack", "route": "cuda",
