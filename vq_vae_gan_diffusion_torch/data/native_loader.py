@@ -22,9 +22,11 @@ import ctypes
 import functools
 import os
 import struct
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..parallel.mesh import batch_rows
 
 _MAGIC = 0x53444231334C4456
 
@@ -129,14 +131,18 @@ class NativeDataLoader:
     pass starts the next epoch (counted from 0), shuffled from ``seed`` and
     the epoch where ``shuffle``, over the first ``max_samples`` samples when
     given, the last short batch dropped where ``drop_last`` (else padded by
-    repeating its last sample). ``num_threads`` 0 takes one a core."""
+    repeating its last sample). ``num_threads`` 0 takes one a core.
+    ``shard`` (r, D) yields data rank r's rows of each batch (the whole
+    batch is gathered, then sliced)."""
 
     def __init__(self, store_path: str, batch_size: int, mean=(0.5,),
                  std=(0.5,), p_hflip: float = 0.0, p_vflip: float = 0.0,
                  p_rot: float = 0.0, max_deg: float = 0.0,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 num_threads: int = 0, max_samples: Optional[int] = None):
+                 num_threads: int = 0, max_samples: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         self.lib = _lib()
+        self.shard = shard
         self.store = SampleStore(store_path)
         self.batch_size = batch_size
         m, cm = _stats(mean)
@@ -163,7 +169,7 @@ class NativeDataLoader:
             out = np.empty(shape, np.float32)
             if self.lib.sdb_prefetcher_next(self.pf, out.ctypes.data_as(_F32P), out.size) != 0:
                 break
-            yield out
+            yield out[batch_rows(len(out), *self.shard)] if self.shard[1] > 1 else out
 
     def close(self) -> None:
         if getattr(self, "pf", None):

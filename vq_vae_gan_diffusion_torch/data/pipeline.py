@@ -24,6 +24,13 @@ raises: once the key is set, the native loader serves or nothing does.
 
 There is no device prefetch and no device-resident dataset cache: the
 training loop copies each batch to the device as it takes it.
+
+Under data parallelism (``shard=(r, D)``) every rank walks the same seeded
+global order and yields only its rows of each global batch
+(:func:`..parallel.batch_rows`), with the same ``len()`` on every rank: the
+Python loader decodes only those rows (each sample's augmentation is seeded
+by its index, so they are the single process's rows bit for bit); the
+native loader gathers the whole batch in C++ and keeps the rows.
 """
 
 from __future__ import annotations
@@ -31,11 +38,12 @@ from __future__ import annotations
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from ..config import Config, resolve_batch_size, resolve_img_channels, resolve_img_size
+from ..parallel.mesh import batch_rows
 from .datasets import (ArrayDataset, CIFAR10Dataset, InterHand26MDataset, MNISTDataset,
                        OxfordFlowersDataset, SyntheticDataset)
 from .transforms import Preprocessor
@@ -46,12 +54,15 @@ log = logging.getLogger(__name__)
 class DataLoader:
     """Epoch iterator over an ArrayDataset: each pass shuffles with a fresh
     per-epoch seed (when ``shuffle``), decodes samples on a thread pool and
-    yields float32 NHWC batches."""
+    yields float32 NHWC batches; ``shard`` (r, D) yields data rank r's rows
+    of each batch of ``batch_size``."""
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, preprocess: Preprocessor,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 num_threads: int = 4, max_samples: Optional[int] = None):
+                 num_threads: int = 4, max_samples: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
+        self.shard = shard
         self.batch_size = batch_size
         self.preprocess = preprocess
         self.shuffle = shuffle
@@ -82,14 +93,16 @@ class DataLoader:
                 idxs = order[start:start + self.batch_size]
                 if len(idxs) < self.batch_size and self.drop_last:
                     break
+                idxs = idxs[batch_rows(len(idxs), *self.shard)]
                 yield np.stack(list(pool.map(fetch, idxs)))
 
 
 def load_dataloader(name: Optional[str] = None, split: str = "train",
                     logger: Optional[logging.Logger] = None,
-                    config: Optional[Config] = None, seed: int = 0):
+                    config: Optional[Config] = None, seed: int = 0,
+                    shard: Tuple[int, int] = (0, 1)):
     """(DataLoader, dataset) for ``split`` of dataset ``name`` (default: the
-    config's)."""
+    config's); ``shard`` (r, D): data rank r's rows of each global batch."""
     if config is None:
         raise ValueError("load_dataloader needs a config")
     logger = logger or log
@@ -140,9 +153,9 @@ def load_dataloader(name: Optional[str] = None, split: str = "train",
     shuffle = bool(config.dataset.get("train_shuffle", True)) if train else False
     if bool(config.dataset.get("use_native_loader", False)):
         return _native_loader(config, name, split, dataset, prep, batch_size, shuffle, train,
-                              seed, max_samples, logger), dataset
+                              seed, max_samples, logger, shard), dataset
     loader = DataLoader(dataset, batch_size, prep, shuffle=shuffle, drop_last=train, seed=seed,
-                        num_threads=num_threads, max_samples=max_samples)
+                        num_threads=num_threads, max_samples=max_samples, shard=shard)
     logger.info("Number of %s samples: %d (batch %d, %d batches)",
                 split, loader.n, batch_size, len(loader))
     return loader, dataset
@@ -150,7 +163,8 @@ def load_dataloader(name: Optional[str] = None, split: str = "train",
 
 def _native_loader(config: Config, name: str, split: str, dataset: ArrayDataset,
                    prep: Preprocessor, batch_size: int, shuffle: bool, train: bool, seed: int,
-                   max_samples: Optional[int], logger: logging.Logger):
+                   max_samples: Optional[int], logger: logging.Logger,
+                   shard: Tuple[int, int] = (0, 1)):
     """The JAX package's native route: the store
     ``{cache_dir}/{name}_{split}_{img_size}{_g}_n{len}.sdb``, built where it
     is missing (its name holds the dataset's length, so a store of another
@@ -168,7 +182,8 @@ def _native_loader(config: Config, name: str, split: str, dataset: ArrayDataset,
     # transforms.random_flips_and_rotation's defaults
     aug = dict(p_hflip=0.2, p_vflip=0.2, p_rot=0.3, max_deg=25.0) if prep.augment else {}
     loader = NativeDataLoader(cache, batch_size, mean=prep.mean, std=prep.std, shuffle=shuffle,
-                              drop_last=train, seed=seed, max_samples=max_samples, **aug)
+                              drop_last=train, seed=seed, max_samples=max_samples, shard=shard,
+                              **aug)
     logger.info("native loader: %d %s samples (%d batches)%s", loader.n, split, len(loader),
                 " [native augmentation]" if prep.augment else "")
     return loader

@@ -51,6 +51,7 @@ from ..ops.discrete_posterior import (LOG_ZERO, fits_kernel_route, fused_posteri
                                       fused_posterior_sample_prng, gather_posterior_coefs,
                                       gumbel_from_uniform, logaddexp,
                                       reference_posterior_sample_prng)
+from ..parallel.mesh import all_gather_rows, draw_rows
 from .schedules import discrete_alpha_schedule
 
 LOG_EPS = -70.0
@@ -349,7 +350,8 @@ class DiscreteDiffusion:
         dev = lt.Lt_history.device
         T = self.num_timesteps
         drawn = t is None
-        t = torch.randint(0, T, (b,), generator=generator, device=dev) if drawn else t.to(dev)
+        t = draw_rows(lambda n: torch.randint(0, T, (n,), generator=generator, device=dev), b) \
+            if drawn else t.to(dev)
         pt_uniform = torch.full((b,), 1.0 / T, device=dev)
         if not self.use_importance_sampling:
             return t, pt_uniform
@@ -358,7 +360,8 @@ class DiscreteDiffusion:
         pt_all = lt_sqrt / lt_sqrt.sum()
         warm = (lt.Lt_count > 10).all()
         if drawn:
-            t_imp = torch.multinomial(pt_all, b, replacement=True, generator=generator)
+            t_imp = draw_rows(lambda n: torch.multinomial(pt_all, n, replacement=True,
+                                                          generator=generator), b)
             t = torch.where(warm, t_imp, t)
         return t, torch.where(warm, pt_all[t], pt_uniform)
 
@@ -375,7 +378,8 @@ class DiscreteDiffusion:
         t, pt = self.sample_time(b, lt, generator, t)
         log_x_start = index_to_log_onehot(x0, k)
         if gumbel is None:
-            gumbel = self._gumbel(torch.rand((b, n, k), generator=generator, device=x0.device))
+            gumbel = self._gumbel(draw_rows(lambda m: torch.rand(
+                (m, n, k), generator=generator, device=x0.device), b))
         xt = self.sample_categorical_idx(self.q_pred(log_x_start, t), gumbel.to(x0.device))
 
         log_x0_recon = self.predict_start_idx(xt, t)
@@ -384,8 +388,6 @@ class DiscreteDiffusion:
         with torch.no_grad():
             same0 = (log_onehot_to_index(log_x0_recon) == x0).float().mean(1)
             samek = (log_onehot_to_index(log_model_prob) == xt).float().mean(1)
-            acc_ema = _scatter_set(lt.acc_ema, t, 0.1 * same0 + 0.9 * lt.acc_ema[t])
-            keep_ema = _scatter_set(lt.keep_ema, t, 0.1 * samek + 0.9 * lt.keep_ema[t])
 
         log_true_prob = self.q_posterior_idx(log_x_start, xt, t)
         kl = (log_true_prob.exp() * (log_true_prob - log_model_prob)).sum(-1)       # [B, N]
@@ -397,9 +399,13 @@ class DiscreteDiffusion:
         is_t0 = (t == 0).float()
         kl_loss = is_t0 * decoder_nll + (1 - is_t0) * kl
         with torch.no_grad():
-            history = _scatter_set(lt.Lt_history, t,
-                                   0.1 * kl_loss ** 2 + 0.9 * lt.Lt_history[t])
-            count = lt.Lt_count.index_add(0, t, torch.ones_like(pt))
+            # the global batch's rows in order under data parallelism, as the
+            # JAX scatter over a 'data'-sharded batch
+            tg, same0, samek, klg = all_gather_rows([t, same0, samek, kl_loss.detach()])
+            acc_ema = _scatter_set(lt.acc_ema, tg, 0.1 * same0 + 0.9 * lt.acc_ema[tg])
+            keep_ema = _scatter_set(lt.keep_ema, tg, 0.1 * samek + 0.9 * lt.keep_ema[tg])
+            history = _scatter_set(lt.Lt_history, tg, 0.1 * klg ** 2 + 0.9 * lt.Lt_history[tg])
+            count = lt.Lt_count.index_add(0, tg, torch.ones_like(tg, dtype=pt.dtype))
 
         vb_loss = kl_loss / pt
         if self.auxiliary_loss_weight != 0:

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import draw_rows
 from .gaussian import _extract, _randn, make_schedule
 
 ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor], torch.Tensor]
@@ -56,11 +57,15 @@ def positional_encoding_table(dim: int, num_vectors: int) -> np.ndarray:
 def _draw_t_noise(x0: torch.Tensor, timesteps: int, generator: Optional[torch.Generator],
                   t: Optional[torch.Tensor], noise: Optional[torch.Tensor]):
     """A loss's draws: t [B] uniform over the steps and noise ~ N(0, I) of
-    x0's shape, each from ``generator`` unless given."""
+    x0's shape, each from ``generator`` unless given (under data
+    parallelism, this rank's rows of the global batch's draws:
+    :func:`..parallel.draw_rows`)."""
+    b, rest = x0.shape[0], tuple(x0.shape[1:])
     if t is None:
-        t = torch.randint(0, timesteps, (x0.shape[0],), generator=generator, device=x0.device)
+        t = draw_rows(lambda n: torch.randint(0, timesteps, (n,), generator=generator,
+                                              device=x0.device), b)
     if noise is None:
-        noise = _randn(x0.shape, generator, x0.device)
+        noise = draw_rows(lambda n: _randn((n, *rest), generator, x0.device), b)
     return t.to(x0.device), noise.to(x0.device)
 
 

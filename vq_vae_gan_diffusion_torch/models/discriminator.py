@@ -21,7 +21,9 @@ BatchNorm as the JAX step runs it (flax ``train=True``), not as
   batch statistics in calls that leave them as they are (the generator's
   ``D(G(x))``, from which the adaptive lambda's gradient is taken too);
 - the update is flax's ``momentum=0.9`` (torch's 0.1) with the *biased*
-  batch variance, where ``nn.BatchNorm2d`` would take the unbiased one.
+  batch variance, where ``nn.BatchNorm2d`` would take the unbiased one;
+- under a process group the statistics are the global batch's, as the JAX
+  step over a ``data``-sharded batch takes them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_norm_train
 from .blocks import at_least_f32
 
 MOMENTUM = 0.9      # flax's: running = MOMENTUM * running + (1 - MOMENTUM) * batch
@@ -75,11 +78,7 @@ class Discriminator(nn.Module):
 
 
 def _batch_norm(bn: nn.BatchNorm2d, h: torch.Tensor, update_stats: bool) -> torch.Tensor:
-    hf = at_least_f32(h)                     # f32 statistics and arithmetic, as flax's
-    if update_stats:
-        with torch.no_grad():
-            var, mean = torch.var_mean(hf, dim=(0, 2, 3), correction=0)
-            bn.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
-            bn.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
-    return F.batch_norm(hf, None, None, bn.weight, bn.bias, training=True,
-                        eps=bn.eps).to(h.dtype)
+    """Train-mode BatchNorm in f32 (flax's statistics and arithmetic), over
+    the global batch under a process group (:func:`..parallel.batch_norm_train`)."""
+    out = batch_norm_train(at_least_f32(h), bn, 1 - MOMENTUM if update_stats else None)
+    return out.to(h.dtype)

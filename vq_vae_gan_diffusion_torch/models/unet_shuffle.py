@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_norm_train
 from .blocks import at_least_f32
 
 
@@ -42,18 +43,15 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2, dim: int = -1) -> torch.Te
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode is flax's: batch statistics, and
     the running ones moved by ``momentum`` (0.1 here, flax's 0.9) with the
-    biased batch variance. ``num_batches_tracked`` stays as it is."""
+    biased batch variance, over the global batch under a process group
+    (:func:`..parallel.batch_norm_train`). ``num_batches_tracked`` stays as
+    it is."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = at_least_f32(x)                 # f32 statistics and arithmetic, as flax's
         if not self.training:
             return super().forward(xf).to(x.dtype)
-        with torch.no_grad():
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
-        return F.batch_norm(xf, None, None, self.weight, self.bias, training=True,
-                            eps=self.eps).to(x.dtype)
+        return batch_norm_train(xf, self, self.momentum).to(x.dtype)
 
 
 class ConvBnSiLu(nn.Module):

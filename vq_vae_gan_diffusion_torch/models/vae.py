@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..config import Config, resolve_img_channels, resolve_img_size
+from ..parallel.mesh import draw_rows
 from .decoder import Decoder
 from .encoder import Encoder
 from .vqvae import _nchw, _nhwc, flax_conv_init_
@@ -88,12 +89,14 @@ class VAE(nn.Module):
                        eps: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """µ + ε · exp(½ logσ²) in float32 at least, ε ~ N(0, I) from
-        ``generator`` (on its device) unless given."""
+        ``generator`` (on its device) unless given; under data parallelism,
+        this rank's rows of the global batch's ε (:func:`..parallel.draw_rows`)."""
         dtype = torch.promote_types(mu.dtype, torch.float32)
         std = torch.exp(0.5 * logvar.to(dtype))
         if eps is None:
-            eps = torch.randn(std.shape, generator=generator, dtype=dtype,
-                              device=generator.device if generator is not None else mu.device)
+            dev = generator.device if generator is not None else mu.device
+            eps = draw_rows(lambda n: torch.randn((n, *std.shape[1:]), generator=generator,
+                                                  dtype=dtype, device=dev), std.shape[0])
         return (mu.to(dtype) + eps.to(mu.device, dtype) * std).to(mu.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..config import Config, seq_len
+from ..parallel.mesh import draw_rows
 from .mingpt import GPT, sample_tokens
 from .vqvae import VQVAE
 
@@ -71,15 +72,17 @@ class VQTransformer(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward: x [B, H, W, C] -> (logits [B, T, V], targets [B, T]).
         ``keep`` (1 keeps an index) and ``random_indices`` [B, T] are drawn
-        from ``generator`` unless given (the tests hand in the JAX draws)."""
+        from ``generator`` unless given (the tests hand in the JAX draws); under
+        data parallelism, this rank's rows of the global batch's draws
+        (:func:`..parallel.draw_rows`)."""
         _, indices = self.encode_to_z(x)
         b, t = indices.shape
         if keep is None:
-            p = torch.full((b, t), self.pkeep, device=indices.device)
-            keep = torch.bernoulli(p, generator=generator)
+            keep = draw_rows(lambda n: torch.bernoulli(
+                torch.full((n, t), self.pkeep, device=indices.device), generator=generator), b)
         if random_indices is None:
-            random_indices = torch.randint(0, self.vocab_size, (b, t), generator=generator,
-                                           device=indices.device)
+            random_indices = draw_rows(lambda n: torch.randint(
+                0, self.vocab_size, (n, t), generator=generator, device=indices.device), b)
         keep = keep.to(device=indices.device, dtype=indices.dtype)
         new_indices = keep * indices + (1 - keep) * random_indices.to(indices)
         sos = torch.full((b, 1), self.sos_token, dtype=indices.dtype, device=indices.device)

@@ -5,17 +5,29 @@
 - :class:`ServingWorker`: the stage-1 checkpoint and the timed sample ->
   decode -> grid run of the generation workers;
 - :class:`TrainingWorker`: the epoch loop, the metric and artifact cadence,
-  checkpoints and resume;
+  checkpoints and resume, and data parallelism under a process group
+  (:mod:`..parallel`);
 - :func:`maybe_accumulate`: ``optax.MultiSteps`` for a torch optimizer;
 - :class:`ClipByGlobalNorm`: ``optax.clip_by_global_norm`` ahead of one.
 
 Every write of the training loop (``metrics.jsonl``, images, checkpoints)
 happens before the loop goes on, so an error surfaces where it happens and
 nothing is left queued when the process ends.
+
+Under a process group (``torchrun``, :func:`..parallel.init_distributed`)
+the config's batch is the global batch: each rank trains on its rows
+(the loaders shard it), every step's gradients are averaged over the data
+ranks before the optimizer, train-mode BatchNorm and VQ_Official's history
+take the global batch, every random draw is the global batch's draw, and
+the metrics written are the mean over the data ranks. Rank 0 alone writes
+metrics, images and checkpoints and runs the sampling hooks; the other
+ranks wait, then take its generator's state. A SIGTERM on any rank stops
+every rank at the same step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import signal
@@ -28,6 +40,8 @@ from torch import nn
 
 from ..checkpoint import restore, write_checkpoint
 from ..config import Config
+from ..parallel import (all_reduce_mean, any_rank, broadcast_generator, create_mesh, data_rows,
+                        is_rank0, reduce_gradients, replicate)
 from ..utils import (MetricWriter, adaptive_save_step, compute_autocast, make_grid,
                      resolve_device, save_image, to_uint8)
 
@@ -190,7 +204,10 @@ class TrainingWorker(Worker):
     """The epoch loop over a worker's ``train_step``. Subclasses give
     ``init_state``, ``train_step(state, batch, generator)``,
     ``checkpoint_tree``, ``load_checkpoint_tree``, ``log_artifacts`` and
-    ``generate_images``."""
+    ``generate_images``; their ``train_step`` calls :meth:`reduce_gradients`
+    between ``backward()`` and the optimizer. ``mesh`` is the
+    ``("data", "model")`` mesh of the process group
+    (``trainer.mesh_model_parallel`` wide on ``model``), None without one."""
 
     keep_checkpoints = 3
 
@@ -205,20 +222,65 @@ class TrainingWorker(Worker):
         self._sigterm = False
         self.global_step = 0
         self.state: Any = None
+        self.mesh = create_mesh(int(config.trainer.get("mesh_model_parallel", 1) or 1))
+        self.is_rank0 = is_rank0()
 
     def batch_to_device(self, batch) -> torch.Tensor:
         return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device, non_blocking=True)
 
     def train_multi_step(self, state, batches, generator: Optional[torch.Generator] = None):
         """``train_step`` over each of ``batches`` (K batches, a list or
-        [K, B, ...]) in turn; returns the state and the last step's metrics.
-        The JAX worker scans K steps in one dispatch; here a Python loop
-        issues them, with no device data cache (the JAX cache freezes batch
-        composition after epoch 0)."""
+        [K, B, ...]; under a mesh, this rank's rows of each) in turn;
+        returns the state and the last step's metrics. The JAX worker scans
+        K steps in one dispatch; here a Python loop issues them, with no
+        device data cache (the JAX cache freezes batch composition after
+        epoch 0). The steps run inside :func:`..parallel.data_rows`: their
+        draws are this rank's rows of the global batch's."""
         metrics: Dict[str, torch.Tensor] = {}
-        for batch in batches:
-            state, metrics = self.train_step(state, batch, generator)
+        with data_rows(self.mesh):
+            for batch in batches:
+                state, metrics = self.train_step(state, batch, generator)
         return state, metrics
+
+    def reduce_gradients(self, *modules: nn.Module) -> None:
+        """The gradients of ``modules``' parameters averaged over the data
+        ranks (:func:`..parallel.reduce_gradients`); nothing without a
+        mesh."""
+        reduce_gradients([p for m in modules for p in m.parameters()], self.mesh)
+
+    def replicate_state(self) -> None:
+        """Every module of the state (and the worker's ``composite``) made
+        rank 0's, by broadcast; nothing without a mesh. The ranks draw the
+        same seeded weights and read the same resume file, so this changes
+        nothing unless a rank went astray."""
+        if self.mesh is None:
+            return
+        tree = vars(self.state) if hasattr(self.state, "__dict__") else {}
+        for m in [*tree.values(), getattr(self, "composite", None)]:
+            if isinstance(m, nn.Module):
+                replicate(m, self.mesh)
+
+    @contextlib.contextmanager
+    def full_state(self):
+        """The context in which rank 0 reads the whole state (hooks,
+        checkpoints); entered on every rank. A worker whose parameters are
+        sharded gathers them here; default: nothing."""
+        yield
+
+    def on_rank0(self, fn: Callable, *args):
+        """``fn(*args)`` on rank 0 alone, inside :meth:`full_state`; the other
+        ranks wait, then every rank takes rank 0's generator state (its
+        sampling hooks draw from it). ``fn(*args)`` itself without a mesh;
+        None on the other ranks."""
+        with self.full_state():
+            out = fn(*args) if self.is_rank0 else None
+        broadcast_generator(self.generator, self.mesh)
+        return out
+
+    def _terminated(self) -> bool:
+        """A SIGTERM noted on any rank (the same answer on every rank)."""
+        self._sigterm = any_rank(self._sigterm, self.mesh)
+        return self._sigterm
 
     def train(self, dataloader: Iterable, epochs: int,
               val_loader: Optional[Iterable] = None) -> Dict[str, float]:
@@ -244,6 +306,7 @@ class TrainingWorker(Worker):
         first step. The previous handler is restored on the way out."""
         if self.state is None:
             self.state = self.init_state()
+            self.replicate_state()
 
         def on_sigterm(signum, frame):
             self._sigterm = True
@@ -253,15 +316,18 @@ class TrainingWorker(Worker):
         except ValueError:                       # not the main thread
             previous = None
         try:
-            with MetricWriter(self.run_dir, logger=self.logger) as self.metrics:
+            writer = MetricWriter(self.run_dir, logger=self.logger) if self.is_rank0 \
+                else _NoMetrics()
+            with writer as self.metrics:
                 return self._epochs(dataloader, epochs, val_loader)
         finally:
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
 
-    def _exit_if_terminated(self, epoch: int) -> None:
-        """On a noted SIGTERM: save and raise ``SystemExit(143)``."""
-        if self._sigterm:
+    def _exit_if_terminated(self, epoch: int, noted: Optional[bool] = None) -> None:
+        """On a noted SIGTERM (``noted``, else :meth:`_terminated`): save and
+        raise ``SystemExit(143)``."""
+        if self._terminated() if noted is None else noted:
             self.save(epoch)
             raise SystemExit(143)
 
@@ -277,20 +343,23 @@ class TrainingWorker(Worker):
 
         def dispatch(batches: List[torch.Tensor], epoch: int, on_cadence: bool) -> None:
             """``train_multi_step`` over ``batches``, the step counters, the
-            metrics row (where ``on_cadence`` and due, or on a noted SIGTERM)
-            and the SIGTERM exit."""
+            metrics row (where ``on_cadence`` and due, or on a noted SIGTERM;
+            the mean over the data ranks) and the SIGTERM exit."""
             nonlocal next_metric, last, steps, images
             self.state, metrics = self.train_multi_step(self.state, batches, self.generator)
             self.global_step += len(batches)
             steps += len(batches)
-            images += sum(b.shape[0] for b in batches)
-            write = (on_cadence and self.global_step >= next_metric) or self._sigterm
+            images += sum(b.shape[0] for b in batches) * self.data_size
+            noted = self._terminated()
+            write = (on_cadence and self.global_step >= next_metric) or noted
             if write or not on_cadence:
-                last = {name: float(v) for name, v in metrics.items()}
+                values = [v.detach().clone() for v in metrics.values()]
+                all_reduce_mean(values, self.mesh)
+                last = {name: float(v) for name, v in zip(metrics, values)}
             if write:
                 next_metric = self.global_step + metric_every
                 self.metrics.write(self.global_step, last)
-            self._exit_if_terminated(epoch)
+            self._exit_if_terminated(epoch, noted)
 
         for epoch in range(epochs):
             self._exit_if_terminated(epoch)
@@ -306,7 +375,7 @@ class TrainingWorker(Worker):
                     if self.global_step >= next_artifact:
                         next_artifact = self.global_step + artifact_every
                         ta = time.perf_counter()
-                        self.log_artifacts(batches[-1], epoch, index)
+                        self.on_rank0(self.log_artifacts, batches[-1], epoch, index)
                         artifact_s += time.perf_counter() - ta
                 if self.debug and index >= 1:
                     break
@@ -324,20 +393,28 @@ class TrainingWorker(Worker):
                 "step_s": dt - loader_s - artifact_s, "steps": steps})
             self.save(epoch)
             if val_loader is not None:
-                self.generate_images(val_loader, epoch=epoch)
+                self.on_rank0(lambda: self.generate_images(val_loader, epoch=epoch))
             if self.debug:
                 break
         return last
 
-    def save(self, epoch: int) -> str:
+    def save(self, epoch: int) -> Optional[str]:
         """``torch.save({"state", "step", "epoch"})`` to
         ``<save_ckpt_dir>/step_<step>.pth``, keeping the newest
-        ``keep_checkpoints``; returns the path."""
-        path = write_checkpoint(self.save_ckpt_dir, self.global_step,
-                                {**self.checkpoint_tree(), "epoch": epoch},
-                                self.keep_checkpoints)
-        self.logger.info("checkpoint %s", path)
-        return path
+        ``keep_checkpoints``; returns the path. Under a mesh rank 0 writes
+        (the others return None), in the single-process format."""
+        def write() -> str:
+            path = write_checkpoint(self.save_ckpt_dir, self.global_step,
+                                    {**self.checkpoint_tree(), "epoch": epoch},
+                                    self.keep_checkpoints)
+            self.logger.info("checkpoint %s", path)
+            return path
+        return self.on_rank0(write)
+
+    @property
+    def data_size(self) -> int:
+        """The number of data ranks (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.size(0)
 
     def checkpoint_tree(self) -> Dict[str, Any]:
         raise NotImplementedError
@@ -347,3 +424,16 @@ class TrainingWorker(Worker):
 
     def log_artifacts(self, batch: torch.Tensor, epoch: int, index: int) -> None:
         """Every ``save_step`` steps; default: nothing."""
+
+
+class _NoMetrics:
+    """The metric writer of ranks other than 0: writes nothing."""
+
+    def write(self, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def __enter__(self) -> "_NoMetrics":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass

@@ -57,9 +57,22 @@ epochs, as the root CLI does. ``trainer.steps_per_dispatch``, SIGTERM and
 TensorBoard are the loop's (``train/base.py``). ``--fused-sampler`` and ``--fused-posterior``
 write the keys the root ``train.py`` writes (``config.apply_fused_flags``,
 shared with ``generate``). When the val split does not load, a warning and
-no validation grid, as the root CLI. ``--debug`` trains one epoch of two batches of 2
-images from the val split, as the root ``train.py`` does. It runs on CUDA
-unless ``--device cpu``; with no GPU it raises.
+no validation grid, as the root CLI. ``--debug`` trains one epoch of two batches of
+``max(2, D)`` images (D the data ranks) from the val split, as the root
+``train.py`` does. It runs on CUDA unless ``--device cpu``; with no GPU it
+raises.
+
+Data parallelism: launched under ``torchrun``, every rank joins the process
+group (:func:`..parallel.init_distributed`: NCCL on ``cuda:LOCAL_RANK``,
+gloo under ``--device cpu``) and trains its rows of the config's batch, the
+global batch, on a mesh ``trainer.mesh_model_parallel`` wide on ``model``::
+
+    torchrun --nproc-per-node N -m vq_vae_gan_diffusion_torch.train \\
+        --config configs/training_config_mnist.yml [--device cpu]
+
+Rank 0 makes the run dir (the others take its path), writes ``info.log``,
+``metrics.jsonl``, images and checkpoints (the single-process format) and
+runs the sampling hooks and ``--profile``'s trace.
 """
 
 from __future__ import annotations
@@ -82,7 +95,7 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--config", type=str, default="configs/training_config_small.yml")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--debug", action="store_true",
-                        help="one epoch of two batches of 2 val-split images")
+                        help="one epoch of two batches of max(2, data ranks) val-split images")
     parser.add_argument("--epochs", type=int, default=None, help="override trainer.num_epochs")
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
@@ -105,32 +118,60 @@ def run(argv: Optional[Sequence[str]] = None,
     model_name = config.architecture.model_name
     dataset_name = config.dataset.dataset_name
     train_split = str(config.dataset.get("train_split", "train"))
-    if args.debug:
-        config = config.replace_path("trainer.num_epochs", 1)
-        config = config.replace_path("trainer.num_workers", 1)
-        config = config.replace_path(f"dataset.batch_size.{model_name}.{dataset_name}", 2)
-        train_split = "val"
-    config = apply_fused_flags(config, args.fused_sampler, args.fused_posterior)
-    for path, value in (overrides or {}).items():
-        config = config.replace_path(path, value)
+
+    def override(cfg):
+        for path, value in (overrides or {}).items():
+            cfg = cfg.replace_path(path, value)
+        return cfg
+
+    import contextlib
+    import logging
 
     import torch
 
     from ..data import load_dataloader
-    from ..utils import create_run_dir, resolve_device, setup_logging
+    from ..parallel import (barrier, broadcast_object, create_mesh, data_shape,
+                            init_distributed, is_rank0)
+    from ..utils import create_run_dir, setup_logging
     from . import ONECYCLE_MODELS, worker_class
 
-    device = resolve_device(args.device)
-    run_dir = create_run_dir(str(config.trainer.log_dir), dataset_name, model_name, args.config)
-    logger = setup_logging(run_dir)
-    logger.info("model=%s dataset=%s device=%s run_dir=%s", model_name, dataset_name,
-                device, run_dir)
-    train_loader, _ = load_dataloader(dataset_name, train_split, logger, config, seed=args.seed)
-    try:
-        val_loader, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
-    except Exception as e:  # the val split is optional, as in the root train.py
-        logger.warning("no val split: %s", e)
-        val_loader = None
+    device = init_distributed(args.device)
+    mesh = create_mesh(int(override(config).trainer.get("mesh_model_parallel", 1) or 1))
+    rank0 = is_rank0()
+    data_rank, data_size = data_shape(mesh)
+    if args.debug:
+        # the reference's batch of 2, rounded up to the data ranks, as the root train.py
+        config = config.replace_path("trainer.num_epochs", 1)
+        config = config.replace_path("trainer.num_workers", 1)
+        config = config.replace_path(f"dataset.batch_size.{model_name}.{dataset_name}",
+                                     max(2, data_size))
+        train_split = "val"
+    config = override(apply_fused_flags(config, args.fused_sampler, args.fused_posterior))
+    run_dir = broadcast_object(
+        create_run_dir(str(config.trainer.log_dir), dataset_name, model_name, args.config)
+        if rank0 else None, mesh)
+    if rank0:
+        logger = setup_logging(run_dir)
+    else:
+        logger = logging.getLogger(f"vqgd_torch.rank{torch.distributed.get_rank()}")
+        logger.setLevel(logging.WARNING)
+    logger.info("model=%s dataset=%s device=%s run_dir=%s data ranks=%d", model_name,
+                dataset_name, device, run_dir, data_size)
+
+    def loaders():
+        train, _ = load_dataloader(dataset_name, train_split, logger, config, seed=args.seed,
+                                   shard=(data_rank, data_size))
+        try:
+            val, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
+        except Exception as e:  # the val split is optional, as in the root train.py
+            logger.warning("no val split: %s", e)
+            val = None
+        return train, val
+    if not rank0:                   # rank 0 builds any sample store first
+        barrier(mesh)
+    train_loader, val_loader = loaders()
+    if rank0:
+        barrier(mesh)
     kwargs = dict(debug=args.debug, seed=args.seed, device=str(device),
                   dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if model_name in ONECYCLE_MODELS:
@@ -141,7 +182,9 @@ def run(argv: Optional[Sequence[str]] = None,
     if args.profile:
         from ..utils.profiling import profile_steps
 
-        with profile_steps(os.path.join(run_dir, "profile")):
+        trace = profile_steps(os.path.join(run_dir, "profile")) if rank0 \
+            else contextlib.nullcontext()
+        with trace:
             metrics = worker.train(train_loader, 1, val_loader)
         epochs -= 1
     if epochs > 0:
@@ -151,5 +194,11 @@ def run(argv: Optional[Sequence[str]] = None,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    run(argv)
+    import torch.distributed as dist
+
+    try:
+        run(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0

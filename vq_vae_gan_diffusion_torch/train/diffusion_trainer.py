@@ -115,15 +115,16 @@ class DiffusionTrainer(TrainingWorker):
             group["betas"] = (self.b1_fn(state.updates), group["betas"][1])
         self._step(state, loss, self.ema_decay, self.model_ema_steps)
 
-    @staticmethod
-    def _step(state: DiffusionState, loss: torch.Tensor, ema_decay: float,
+    def _step(self, state: DiffusionState, loss: torch.Tensor, ema_decay: float,
               ema_every: int) -> None:
-        """Backward of ``loss`` and one optimizer step; on steps whose count
-        before the step is a multiple of ``ema_every`` the EMA's parameters
-        move by ``ema_decay`` and its buffers (BatchNorm statistics) are
-        copied; moves the step count."""
+        """Backward of ``loss``, the gradients averaged over the data ranks
+        and one optimizer step; on steps whose count before the step is a
+        multiple of ``ema_every`` the EMA's parameters move by ``ema_decay``
+        and its buffers (BatchNorm statistics) are copied; moves the step
+        count."""
         state.opt.zero_grad()
         loss.backward()
+        self.reduce_gradients(state.unet)
         state.opt.step()
         if getattr(state.opt, "mini_step", 0) == 0:
             state.updates += 1

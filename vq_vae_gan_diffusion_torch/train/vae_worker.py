@@ -128,6 +128,7 @@ class VAEWorker(TrainingWorker):
             loss, metrics = self.loss(state.vae.eval(), imgs, eps, generator)
         state.opt.zero_grad()
         loss.backward()
+        self.reduce_gradients(state.vae)
         state.opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -153,6 +153,7 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         acc = (logits.argmax(-1) == targets).float().mean()
         state.opt.zero_grad()
         loss.backward()
+        self.reduce_gradients(state.gpt)
         state.opt.step()
         state.step += 1
         return state, {"ce_loss": loss.detach(), "token_accuracy": acc.detach()}

@@ -16,7 +16,8 @@ One step, as the JAX step computes it:
   shared; ``off`` pins it to 1, ``vqvae`` mode to 0). The JAX step takes the
   two gradients on a second decode of the detached ``z_q`` with the
   pre-update parameters; that decode is the step's own decode, so the port
-  takes them on the step's graph;
+  takes them on the step's graph; under data parallelism both are averaged
+  over the data ranks before their norms;
 - ``vq_loss = prl + q_loss + df * λ * g_loss`` with ``df =
   adopt_weight(disc_factor, step, disc_start)`` on the step count before
   the update;
@@ -57,6 +58,7 @@ from ..models.blocks import at_least_f32
 from ..models.discriminator import Discriminator
 from ..models.lpips import load_lpips
 from ..models.vqvae import VQVAE, adopt_weight
+from ..parallel import all_reduce_mean
 from ..utils import make_grid, save_gif, save_image
 from .base import TrainingWorker, Worker, maybe_accumulate
 
@@ -185,6 +187,7 @@ class VQGANVQVAEWorker(TrainingWorker):
         w = state.vqvae.decoder.model[-1].weight
         g_prl, = torch.autograd.grad(prl, w, retain_graph=True)
         g_gan, = torch.autograd.grad(g_loss, w, retain_graph=True)
+        all_reduce_mean([g_prl, g_gan], self.mesh)      # the global batch's gradients
         return (0.8 * torch.clamp(g_prl.norm() / (g_gan.norm() + 1e-4), 0.0, 1e4)).detach()
 
     def train_step(self, state: VQGANState, batch, generator: Optional[torch.Generator] = None):
@@ -219,6 +222,7 @@ class VQGANVQVAEWorker(TrainingWorker):
         if self.is_gan:
             state.opt_d.zero_grad()
         total.backward()
+        self.reduce_gradients(vqvae, *([disc] if self.is_gan else []))
         if self.is_gan:
             state.opt_d.step()
         state.opt_g.step()
