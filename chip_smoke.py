@@ -3576,6 +3576,248 @@ def phase_reference_checkpoints(card: str) -> dict:
     return launches
 
 
+def collective_counts() -> dict:
+    """The data-parallel collectives' counts (``parallel/mesh.py``)."""
+    from vq_vae_gan_diffusion_torch.parallel import (all_gather_rows, all_reduce_mean,
+                                                     sync_batch_stats)
+    return {"all_reduce_mean": all_reduce_mean.calls, "all_gather_rows": all_gather_rows.calls,
+            "sync_batch_stats": sync_batch_stats.calls,
+            "sync_batch_stats_grad": sync_batch_stats.grad_calls}
+
+
+def reset_collectives() -> None:
+    from vq_vae_gan_diffusion_torch.parallel import (all_gather_rows, all_reduce_mean,
+                                                     sync_batch_stats)
+    all_reduce_mean.calls = all_gather_rows.calls = 0
+    sync_batch_stats.calls = sync_batch_stats.grad_calls = 0
+
+
+def ae_stage1_step(device: str = "cuda") -> tuple:
+    """(ae) one stage-1 step from the seeded weights on (o)'s first batch of
+    seed 0 (this rank's rows under a group): the VQVAE's and the
+    discriminator's parameters after it, the step's collectives and
+    metrics (the mean over the data ranks)."""
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+    from vq_vae_gan_diffusion_torch.parallel import all_reduce_mean, shard_batch
+    from vq_vae_gan_diffusion_torch.train.vqgan_worker import VQGANVQVAEWorker
+
+    cfg = load_config(TRAIN_CONFIG)
+    loader, _ = load_dataloader(None, "train", None, cfg, seed=0)
+    batch = torch.from_numpy(next(iter(loader)))
+    worker = VQGANVQVAEWorker(cfg, "/nonexistent", device=device)
+    worker.state = worker.init_state()
+    worker.replicate_state()
+    local = shard_batch(batch, worker.mesh).to(device)
+    reset_collectives()
+    _, metrics = worker.train_multi_step(worker.state, [local], worker.generator)
+    torch.cuda.synchronize()
+    counts = collective_counts()
+    values = [v.detach().clone() for v in metrics.values()]
+    all_reduce_mean(values, worker.mesh)                  # the global batch's, as the loop logs
+    params = {f"vqvae.{k}": v.detach().cpu() for k, v in worker.state.vqvae.named_parameters()}
+    params.update({f"disc.{k}": v.detach().cpu() for k, v in worker.state.disc.named_parameters()})
+    return params, counts, {k: float(v) for k, v in zip(metrics, values)}
+
+
+def ae_gpt_steps(batches, sharding: str | None, hook: bool = True) -> dict:
+    """(ae) the GPT prior of (p)'s config, seeded, through 3 steps on
+    ``batches`` under ``param_sharding: sharding`` (None: no group), then
+    with ``hook`` one ``log_artifacts`` at batch LOG_B: each step's loss,
+    the hook's launches and the peak device memory."""
+    import tempfile
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.train.vq_transformer_worker import VQTransformerWorker
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_ae_")
+    cfg = load_config(GPT_TRAIN_CONFIG).replace_path("trainer.log_dir", log_dir)
+    if sharding:
+        cfg = cfg.replace_path("trainer.vqvae_transformer.param_sharding", sharding)
+    torch.cuda.reset_peak_memory_stats()
+    worker = VQTransformerWorker(cfg, log_dir, device="cuda")
+    worker.state = worker.init_state()
+    losses = []
+    for b in batches:
+        worker.state, m = worker.train_multi_step(worker.state, [b.cuda()], worker.generator)
+        losses.append(float(m["ce_loss"]))
+    reset_counts()
+    if hook:
+        worker.on_rank0(worker.log_artifacts, batches[-1][:LOG_B].cuda(), 0, 0)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "launches": read_counts()["gpt_decode_stack"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "placements": sorted({str(tuple(p.placements)) for p in worker.state.gpt.parameters()
+                                 if hasattr(p, "placements")})}
+    shutil.rmtree(log_dir)
+    return out
+
+
+def ae_gpt_batches() -> list:
+    """(p)'s first 3 batches of seed 0 at STAGE2_B."""
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.data import load_dataloader
+
+    loader, _ = load_dataloader(None, "train", None, load_config(GPT_TRAIN_CONFIG), seed=0)
+    it = iter(loader)
+    return [torch.from_numpy(next(it)) for _ in range(3)]
+
+
+def ae_child(out_path: str) -> int:
+    """(ae) under ``torchrun --nproc-per-node 1``: the process group over
+    NCCL, the stage-1 train CLI's epochs, one stage-1 step, and the GPT
+    prior's steps under tp_fsdp; what it measured goes to ``out_path``."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vq_vae_gan_diffusion_torch.parallel import init_distributed
+
+    device = init_distributed("cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"(ae) group {dist.get_backend()} of {dist.get_world_size()}")
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_ae_cli_")
+    run = cli_epochs("ae", TRAIN_CONFIG, log_dir, TRAIN_EPOCHS, TRAIN_B)
+    params, counts, metrics = ae_stage1_step(str(device))
+    torch.save(params, out_path + ".params.pt")
+    gpt = ae_gpt_steps(ae_gpt_batches(), "tp_fsdp")
+    with open(out_path, "w") as f:
+        json.dump({"cli": {"warm_images_per_s": run["warm_images_per_s"],
+                           "epochs": run["epochs"]},
+                   "step_collectives": counts, "step_metrics": metrics, "gpt": gpt}, f)
+    shutil.rmtree(log_dir)
+    dist.destroy_process_group()
+    return 0
+
+
+def ae_gloo_rank(rank: int, store: str, out_path: str) -> None:
+    """(ae) one of two ranks sharing the card over gloo: one stage-1 step on
+    its 100 rows of the batch of 200."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        params, counts, metrics = ae_stage1_step("cuda")
+        if rank == 0:
+            torch.save({"params": params, "counts": counts, "metrics": metrics}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def params_gap(label: str, got: dict, want: dict, lr: float, card: str) -> float:
+    """The largest parameter difference after one step; within the CPU
+    tests' rule (every entry within 2 lr, where Adam's first step moves an
+    entry whose gradient is rounding by lr either way on each side, and 99%
+    of them within lr / 10)."""
+    near = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).abs()
+        worst = max(worst, float(d.max()))
+        near, total = near + int((d <= lr / 10).sum()), total + d.numel()
+    print(f"(ae) {label}: largest parameter difference {worst:.3e} (lr {lr:g}), "
+          f"{100 * near / total:.3f}% of entries within lr / 10; {card}")
+    if worst > 2 * lr + 1e-6 or near < 0.99 * total:
+        raise AssertionError(f"(ae) {label}: parameters differ by {worst:.3e}")
+    return worst
+
+
+def phase_parallel(card: str) -> dict:
+    """(ae) data parallelism and the GPT prior's sharding on the card: a
+    torchrun group of one over NCCL against the single process, and two
+    ranks sharing the card over gloo."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from vq_vae_gan_diffusion_torch.config import load_config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ae_")
+    out_path = os.path.join(tmp, "world1.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["torchrun", "--standalone", "--nproc-per-node", "1",
+                           os.path.abspath(__file__), "--ae-child", out_path],
+                          capture_output=True, text=True, timeout=600)
+    print(f"(ae) torchrun --nproc-per-node 1 child: rc {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError("(ae) the torchrun child failed")
+    for line in proc.stdout.splitlines():
+        if line.startswith("(ae)"):
+            print(line.replace("(ae) train CLI", "(ae) torchrun world 1, train CLI"))
+    world1 = json.load(open(out_path))
+    lr = float(load_config(TRAIN_CONFIG).trainer.vqvae.learning_rate)
+    if not PYTHON_LOADER_RUN:         # (o)'s epochs, where (o) did not run
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_ae_cli_")
+        PYTHON_LOADER_RUN.update(cli_epochs("ae", TRAIN_CONFIG, log_dir, TRAIN_EPOCHS, TRAIN_B))
+        shutil.rmtree(log_dir)
+    # two ranks sharing the card over gloo (which carries every collective of
+    # the path on CUDA tensors under the card's torch), started now: they
+    # run beside this process's untimed steps below
+    gloo_out = os.path.join(tmp, "gloo.pt")
+    t1 = time.perf_counter()
+    gloo_ranks = mp.start_processes(ae_gloo_rank, args=(os.path.join(tmp, "store"), gloo_out),
+                                    nprocs=2, join=False, start_method="spawn")
+
+    # the single process on the same step
+    single, _, single_metrics = ae_stage1_step("cuda")
+    gap = params_gap("one stage-1 step, torchrun world 1 (NCCL) against no group",
+                     torch.load(out_path + ".params.pt"), single, lr, card)
+    plain_rate = PYTHON_LOADER_RUN["warm_images_per_s"]
+    dist_rate = world1["cli"]["warm_images_per_s"]
+    counts = world1["step_collectives"]
+    print(f"(ae) stage-1 train CLI at batch {TRAIN_B}, warm images/s: torchrun world 1 over "
+          f"NCCL {dist_rate:.2f}, no group {plain_rate:.2f} "
+          f"({100 * (plain_rate / dist_rate - 1):+.2f}% time a step); {card}")
+    print(f"(ae) collectives a stage-1 step (world 1): {counts['all_reduce_mean']} gradient and "
+          f"lambda all-reduces, {counts['sync_batch_stats']} BatchNorm statistics all-reduces "
+          f"and {counts['sync_batch_stats_grad']} of their gradients")
+    if counts["all_reduce_mean"] != 2 or counts["sync_batch_stats"] != 9:
+        raise AssertionError(f"(ae) collectives {counts}")
+
+    # the GPT prior, replicated in this process against tp_fsdp at world 1
+    gpt = world1["gpt"]
+    plain = ae_gpt_steps(ae_gpt_batches(), None, hook=False)    # (p) drives its hook
+
+    while not gloo_ranks.join():
+        pass
+    gloo = torch.load(gloo_out, weights_only=True)
+    print(f"(ae) 2 gloo ranks on the card, one step at batch {TRAIN_B} (100 rows each): "
+          f"{time.perf_counter() - t1:.1f} s from their start, beside this process's steps; "
+          f"collectives {gloo['counts']}")
+    gloo_gap = params_gap("one stage-1 step, 2 gloo ranks against no group",
+                          gloo["params"], single, lr, card)
+    for k, v in single_metrics.items():
+        # the adaptive lambda's f32 value lies 7.7e-4 from its float64 one
+        # (test_torch_port_parallel.py): a split batch moves it within that
+        rel = 1e-3 if k == "lambda" else 1e-4
+        if not math.isclose(gloo["metrics"][k], v, rel_tol=rel, abs_tol=1e-6):
+            raise AssertionError(f"(ae) gloo metric {k}: {gloo['metrics'][k]} against {v}")
+
+    for i, (a, b) in enumerate(zip(gpt["losses"], plain["losses"])):
+        if not math.isclose(a, b, rel_tol=2e-4):
+            raise AssertionError(f"(ae) GPT step {i}: tp_fsdp loss {a} against {b}")
+    if gpt["launches"] != 2 * N:
+        raise AssertionError(f"(ae) log_artifacts launches {gpt['launches']}")
+    print(f"(ae) GPT prior ({GPT_TRAIN_CONFIG}, batch {STAGE2_B}), 3 steps: tp_fsdp at world 1 "
+          f"losses {gpt['losses']}, replicated {plain['losses']}; log_artifacts "
+          f"{gpt['launches']} B1 launches on the gathered GPT; peak {gpt['peak_gib']:.2f} GiB "
+          f"(replicated {plain['peak_gib']:.2f} GiB); placements {gpt['placements']}; {card}")
+    shutil.rmtree(tmp)
+    return {"world1_images_per_s": dist_rate, "plain_images_per_s": plain_rate,
+            "step_collectives": counts, "world1_param_gap": gap, "gloo_param_gap": gloo_gap,
+            "gpt_tp_fsdp_losses": gpt["losses"], "gpt_replicated_losses": plain["losses"],
+            "gpt_tp_fsdp_peak_gib": gpt["peak_gib"], "gpt_replicated_peak_gib": plain["peak_gib"],
+            "gpt_hook_launches": gpt["launches"]}
+
+
 def training_phases() -> dict:
     """The training phases and the Conv1d U-Net family's, each on its own, by
     label: each prints its JSON line."""
@@ -3597,7 +3839,8 @@ def training_phases() -> dict:
             "aa": phase_bf16,
             "ab": phase_rest,
             "ac": phase_native_loader,
-            "ad": phase_reference_checkpoints}
+            "ad": phase_reference_checkpoints,
+            "ae": lambda card: print(json.dumps({"data_parallel": phase_parallel(card)}))}
 
 
 def timed(label: str, fn, *args):
@@ -3616,7 +3859,12 @@ def main(argv=None) -> int:
                         help="run (a), (b) and these training phases alone, comma-separated "
                              f"of {','.join(training_phases())}; prints no kernels line and no "
                              "result line")
+    parser.add_argument("--ae-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.ae_child:                       # (ae)'s process under torchrun
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return ae_child(args.ae_child)
     t_script = time.perf_counter()
     card = phase_device()
     timed("b", phase_build)

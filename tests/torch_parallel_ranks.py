@@ -169,3 +169,78 @@ def cli_runs(config: str) -> Dict[str, Any]:
                      "step": w.global_step, "metrics": run["metrics"],
                      "vqvae": {k: v.clone() for k, v in w.state.vqvae.state_dict().items()}}
     return out
+
+
+# -- the GPT prior's parameter sharding ------------------------------------------------------
+
+def _placements(module) -> Dict[str, Any]:
+    """Each parameter's placements (None where it is a plain tensor) and
+    its local shape."""
+    from torch.distributed.tensor import DTensor
+
+    return {n: (tuple(p.placements) if isinstance(p, DTensor) else None,
+                tuple((p.to_local() if isinstance(p, DTensor) else p).shape))
+            for n, p in module.named_parameters()}
+
+
+def _moments(worker) -> Dict[str, Any]:
+    """The placements of each parameter's AdamW moments."""
+    from torch.distributed.tensor import DTensor
+
+    names = {id(p): n for n, p in worker.state.gpt.named_parameters()}
+    out = {}
+    for p, st in worker.state.opt.state.items():
+        out[names[id(p)]] = {k: tuple(v.placements) if isinstance(v, DTensor) else None
+                             for k, v in st.items() if k.startswith("exp_avg")}
+    return out
+
+
+def gpt_sharding(cfg_dict: dict, mode: str, mp: int, batches: Sequence[np.ndarray],
+                 idx: torch.Tensor, resume: bool = False,
+                 artifacts: bool = False) -> Dict[str, Any]:
+    """The GPT worker under ``param_sharding: mode`` on a mesh ``mp`` wide on
+    ``model``: the logits of ``idx`` and the placements before the steps,
+    each step's metrics (the mean over the data ranks), with ``artifacts``
+    rank 0's ``log_artifacts`` grid, the placements of the parameters and
+    moments after, the gathered checkpoint (rank 0 writes it), and with
+    ``resume`` that checkpoint resumed into a sharded worker and gathered
+    again."""
+    import copy
+
+    from vq_vae_gan_diffusion_torch.parallel import all_reduce_mean, broadcast_object, shard_batch
+
+    cfg = copy.deepcopy(cfg_dict)
+    cfg["trainer"]["mesh_model_parallel"] = mp
+    cfg["trainer"]["vqvae_transformer"]["param_sharding"] = mode
+    worker = build_worker(cfg)
+    out: Dict[str, Any] = {"placements": _placements(worker.state.gpt)}
+    with torch.no_grad():
+        out["logits"] = worker.state.gpt(idx).detach().clone()
+    out["metrics"] = []
+    for b in batches:
+        local = shard_batch(torch.from_numpy(b), worker.mesh)
+        worker.state, m = worker.train_multi_step(worker.state, [local], worker.generator)
+        values = [v.detach().clone() for v in m.values()]
+        all_reduce_mean(values, worker.mesh)
+        out["metrics"].append({k: float(v) for k, v in zip(m, values)})
+    if artifacts:                   # rank 0's hook on the gathered GPT
+        worker.on_rank0(worker.log_artifacts, torch.from_numpy(batches[-1]), 0, 0)
+        out["artifact"] = broadcast_object(
+            [f for f in os.listdir(worker.run_dir) if f.endswith(".jpg")], worker.mesh)
+    out["placements_after"] = _placements(worker.state.gpt)
+    out["moments"] = _moments(worker)
+    worker.global_step = len(batches)
+    out["ckpt"] = broadcast_object(worker.save(0), worker.mesh)
+    if resume:
+        cfg["architecture"]["vqvae_transformer"]["resume_path"] = out["ckpt"]
+        again = build_worker(cfg)
+        with again.full_state():
+            out["resumed"] = {k: v.clone() for k, v in again._full["gpt"].items()}
+            out["resumed_opt"] = again._full["opt"]
+        out["resumed_step"] = again.global_step
+    return out
+
+
+def gpt_modes(jobs: Dict[str, dict]) -> Dict[str, Any]:
+    """:func:`gpt_sharding` of each job, by name."""
+    return {name: gpt_sharding(**job) for name, job in jobs.items()}

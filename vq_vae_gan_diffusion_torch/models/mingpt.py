@@ -51,12 +51,15 @@ class CausalSelfAttention(nn.Module):
         return x.reshape(b, t, self.n_head, c // self.n_head).transpose(1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, c = x.shape
+        """x [B, T, C] -> [B, T, C]. Under tensor parallelism q, k and v hold
+        this rank's ``n_head`` heads (the local count) and ``proj`` takes
+        their concatenation, its input's shard."""
+        b, t, _ = x.shape
         q, k, v = self._heads(self.query(x)), self._heads(self.key(x)), self._heads(self.value(x))
-        att = (q @ k.transpose(-2, -1)) * (c // self.n_head) ** -0.5
+        att = (q @ k.transpose(-2, -1)) * q.shape[-1] ** -0.5
         att = att.masked_fill(self.mask[:, :, :t, :t] == 0, float("-inf"))
         y = torch.softmax(at_least_f32(att), dim=-1).to(v.dtype) @ v   # [B, H, T, D]
-        return self.proj(y.transpose(1, 2).reshape(b, t, c))
+        return self.proj(y.transpose(1, 2).reshape(b, t, -1))
 
     def decode_step(self, x: torch.Tensor, pos: int,
                     cache: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:

@@ -17,7 +17,8 @@ an explicit collective over the data ranks:
 - :func:`all_reduce_mean` (gradients, metrics), :func:`all_gather_rows`
   (VQ_Official's history) and :func:`sync_batch_stats` (train-mode
   BatchNorm) are the collectives; each adds one to its ``calls`` a call,
-  as the kernel wrappers count their launches.
+  as the kernel wrappers count their launches (the statistics' backward
+  all-reduces to ``sync_batch_stats.grad_calls``).
 
 The config's batch is the global batch: a step over N data ranks gives what
 a single process gives on the whole batch, up to the order of reductions.
@@ -254,6 +255,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
+        sync_batch_stats.grad_calls += 1
         grad = grad.clone()
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
@@ -279,6 +281,7 @@ def sync_batch_stats(x: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tens
 
 
 sync_batch_stats.calls = 0
+sync_batch_stats.grad_calls = 0       # the all-reduces of the statistics' gradients
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, momentum: Optional[float]

@@ -159,8 +159,9 @@ def run(argv: Optional[Sequence[str]] = None,
                 dataset_name, device, run_dir, data_size)
 
     def loaders():
+        shard = {"shard": (data_rank, data_size)} if data_size > 1 else {}
         train, _ = load_dataloader(dataset_name, train_split, logger, config, seed=args.seed,
-                                   shard=(data_rank, data_size))
+                                   **shard)
         try:
             val, _ = load_dataloader(dataset_name, "val", logger, config, seed=args.seed)
         except Exception as e:  # the val split is optional, as in the root train.py

@@ -18,10 +18,18 @@ full-sample rows as ``transformer_epoch{e}_{i}.jpg`` (512 positions through
 the fused decode stack a call at full width); checkpoints hold the frozen
 VQVAE, the GPT, the optimizer and the step. ``generate_images`` samples
 with the GPT as trained.
+
+Under a process group ``trainer.<model>.param_sharding`` (``replicated``,
+``tp``, ``fsdp``, ``tp_fsdp``; :mod:`..parallel.sharding`) shards the GPT and
+its AdamW moments; the frozen VQVAE stays replicated. The hooks and the
+checkpoint gather the whole parameters and moments on every rank
+(:meth:`VQTransformerWorker.full_state`): rank 0 samples with an unsharded
+copy and writes the single-process checkpoint, which a resume shards again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Dict, List, Optional
@@ -36,6 +44,7 @@ from ..config import Config
 from ..models.blocks import at_least_f32
 from ..models.mingpt import GPT
 from ..models.vq_transformer import VQTransformer
+from ..parallel import resolve_sharding_rules, shard_gpt
 from ..utils import make_grid, save_image
 from .base import ServingWorker, TrainingWorker, maybe_accumulate
 
@@ -88,6 +97,10 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         self.trainer_cfg = tr
         self.lr = float(tr.learning_rate)
         self.betas = (float(tr.get("beta1", 0.9)), float(tr.get("beta2", 0.95)))
+        mode = tr.get("param_sharding", config.trainer.get("param_sharding", "replicated"))
+        plan = resolve_sharding_rules(str(mode), self.mesh)
+        self.sharding = plan if self.mesh is not None else None
+        self._full: Optional[Dict[str, Any]] = None
 
     # -- state ---------------------------------------------------------------
     def init_state(self) -> TransformerState:
@@ -105,6 +118,8 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         self._restore_vqvae(composite.vqvae)
         self.composite = composite.to(self.device)
         composite.vqvae.eval().requires_grad_(False)
+        if self.sharding is not None:
+            shard_gpt(composite.gpt, self.mesh, self.sharding)
         opt = maybe_accumulate(torch.optim.AdamW(mingpt_param_groups(composite.gpt), lr=self.lr,
                                                  betas=self.betas, eps=1e-8), self.trainer_cfg)
         state = TransformerState(composite.gpt, opt)
@@ -128,13 +143,100 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         self._restore(path, "gpt", self.composite.gpt)
 
     def checkpoint_tree(self) -> Dict[str, Any]:
-        return {"state": {"vqvae": self.composite.vqvae.state_dict(), **self.state.state_dict()},
+        """The single-process tree; with a sharded GPT, the whole tensors of
+        :meth:`full_state`."""
+        state = self.state.state_dict() if self._full is None else \
+            {**self._full, "step": self.state.step}
+        return {"state": {"vqvae": self.composite.vqvae.state_dict(), **state},
                 "step": self.global_step}
 
     def load_checkpoint_tree(self, tree: Dict[str, Any]) -> None:
+        """A single-process checkpoint; with a sharded GPT, each rank keeps
+        its shards of the parameters and moments."""
         self.composite.vqvae.load_state_dict(tree["state"]["vqvae"], strict=True)
-        self.state.load_state_dict(tree["state"])
+        if self.sharding is None:
+            self.state.load_state_dict(tree["state"])
+        else:
+            st = tree["state"]
+            with torch.no_grad():
+                local = self._sharded_like(st["gpt"])
+                for name, p in self.state.gpt.named_parameters():
+                    p.to_local().copy_(local[name].to_local())
+            self.state.opt.load_state_dict(self._sharded_opt(st["opt"]))
+            self.state.step = int(st["step"])
         self.global_step = int(tree["step"])
+
+    # -- sharded parameters --------------------------------------------------
+    def _plain_gpt(self, state: Dict[str, torch.Tensor]) -> GPT:
+        """An unsharded GPT of the config's shape holding ``state`` on the
+        worker's device."""
+        g = self.state.gpt
+        gpt = GPT(g.vocab_size, g.block_size, g.n_layer, g.n_head, g.n_embd)
+        gpt.load_state_dict(state, strict=False)
+        return gpt.to(self.device)
+
+    def _sharded_like(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors by parameter name -> this rank's shards of them, as
+        the GPT's own parameters are sharded (a copy sharded by the same
+        plan)."""
+        gpt = shard_gpt(self._plain_gpt(state), self.mesh, self.sharding)
+        return {n: p.data for n, p in gpt.named_parameters()}
+
+    def _param_names(self) -> List[str]:
+        """The GPT's parameter names in the optimizer's order
+        (:func:`mingpt_param_groups`)."""
+        decay = set(decay_names(self.state.gpt))
+        names = [n for n, _ in self.state.gpt.named_parameters()]
+        return [n for n in names if n in decay] + [n for n in names if n not in decay]
+
+    def _sharded_opt(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """An optimizer ``state_dict`` of whole tensors (AdamW's or
+        ``MultiSteps``') with each tensor of a parameter's shape replaced by
+        this rank's shard of it."""
+        names = self._param_names()
+        shapes = dict((n, tuple(p.shape)) for n, p in self.state.gpt.named_parameters())
+
+        def shard(values: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+            local = self._sharded_like({names[i]: v for i, v in values.items()})
+            return {i: local[names[i]] for i in values}
+        inner = tree.get("inner", tree)
+        keys = {k for st in inner["state"].values() for k, v in st.items()
+                if isinstance(v, torch.Tensor) and v.dim() > 0}
+        for key in keys:
+            vals = {i: st[key] for i, st in inner["state"].items()
+                    if tuple(st[key].shape) == shapes[names[i]]}
+            for i, v in shard(vals).items():
+                inner["state"][i][key] = v
+        if "acc" in tree:
+            tree["acc"] = list(shard(dict(enumerate(tree["acc"]))).values())
+        return tree
+
+    @contextlib.contextmanager
+    def full_state(self):
+        """With a sharded GPT: gather the whole parameters and optimizer state
+        on every rank (collectives, in the same order everywhere); inside,
+        the composite samples with an unsharded copy and the checkpoint
+        holds the whole tensors. Nothing without sharding."""
+        if self.sharding is None:
+            yield
+            return
+        from torch.distributed.tensor import DTensor
+
+        def whole(node):
+            if isinstance(node, DTensor):
+                return node.full_tensor()
+            if isinstance(node, dict):
+                return {k: whole(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [whole(v) for v in node]
+            return node
+        gpt_state = whole(dict(self.state.gpt.state_dict()))
+        self._full = {"gpt": gpt_state, "opt": whole(self.state.opt.state_dict())}
+        sharded, self.composite.gpt = self.composite.gpt, self._plain_gpt(gpt_state)
+        try:
+            yield
+        finally:
+            self.composite.gpt, self._full = sharded, None
 
     # -- the step ------------------------------------------------------------
     def train_step(self, state: TransformerState, batch,
@@ -153,7 +255,8 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         acc = (logits.argmax(-1) == targets).float().mean()
         state.opt.zero_grad()
         loss.backward()
-        self.reduce_gradients(state.gpt)
+        if self.sharding is None or not self.sharding.fsdp:   # FSDP reduces its own
+            self.reduce_gradients(state.gpt)
         state.opt.step()
         state.step += 1
         return state, {"ce_loss": loss.detach(), "token_accuracy": acc.detach()}
