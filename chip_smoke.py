@@ -267,9 +267,22 @@ Phases, each printed as it runs; any failure exits non-zero:
       equal to its source (the LtState to the Lt buffers); then VQ_Official
       served from its imported file by ``generate --ckpt``: a 20-step chain
       with exactly 780 K1, 80 K2 and 19 B6 launches, every index equal to
-      the in-memory EMA U-Net's chain with the same generator.
+      the in-memory EMA U-Net's chain with the same generator;
+  (ae) data parallelism (``parallel/``): this script again under
+      ``torchrun --nproc-per-node 1`` (``--ae-child``), a process group of
+      one over NCCL that runs (o)'s train CLI for two epochs, one stage-1
+      step from the seeded weights and the GPT prior of (p)'s config under
+      ``param_sharding: tp_fsdp`` for 3 steps and one ``log_artifacts``
+      (exactly 512 B1 launches on the gathered GPT); against them, in this
+      process with no group, (o)'s warm images/s, the same step (every
+      parameter within 2 lr, 99% within lr / 10, the CPU tests' rule) and
+      the replicated GPT's losses (within 2e-4); the collectives a step (2
+      gradient-and-lambda all-reduces, 9 BatchNorm statistics all-reduces);
+      then two ranks sharing the card over gloo (which carries every
+      collective of the path on CUDA tensors under the card's torch), one
+      step at batch 200 against the single process's.
 
-``--only r,s`` (any of o-z, aa-ad) runs (a), (b) and those phases alone,
+``--only r,s`` (any of o-z, aa-ae) runs (a), (b) and those phases alone,
 and prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of

@@ -222,6 +222,49 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}/{i}")
 
 
+def test_create_mesh_refuses_what_does_not_divide(runs):
+    """Over 2 ranks ``create_mesh(3)`` raises with the JAX package's
+    message."""
+    from vq_vae_gan_diffusion_tpu.parallel import create_mesh as j_create_mesh
+
+    with pytest.raises(ValueError) as want:
+        j_create_mesh(jax.devices()[:2], model_parallel=3)
+    assert [r["_mesh_error"] for r in runs["ranks"]] == [str(want.value)] * 2
+
+
+@pytest.mark.parametrize("route", ["python", "native"])
+def test_loaders_shard_the_global_batches(tmp_path, route):
+    """Under ``shard=(r, 2)`` each loader walks the same seeded global order:
+    the same len() on both ranks, and each batch's rows, rank 0's then rank
+    1's, are the unsharded loader's batch, augmentation included."""
+    from vq_vae_gan_diffusion_torch.data.datasets import SyntheticDataset
+    from vq_vae_gan_diffusion_torch.data.native_loader import (NativeDataLoader,
+                                                               build_sample_store)
+    from vq_vae_gan_diffusion_torch.data.pipeline import DataLoader
+    from vq_vae_gan_diffusion_torch.data.transforms import Preprocessor
+
+    ds = SyntheticDataset(40, 20, 3, seed=3)
+    if route == "python":
+        def make(shard=(0, 1)):
+            return DataLoader(ds, 8, Preprocessor(16, (0.5,) * 3, (0.5,) * 3, augment=True),
+                              seed=5, num_threads=2, shard=shard)
+    else:
+        store = build_sample_store(ds, str(tmp_path / "s.sdb"), img_size=16)
+
+        def make(shard=(0, 1)):
+            return NativeDataLoader(store, 8, mean=(0.5,) * 3, std=(0.5,) * 3, p_hflip=0.5,
+                                    p_rot=0.5, max_deg=20.0, seed=5, num_threads=2, shard=shard)
+    whole, parts = make(), [make((r, 2)) for r in range(2)]
+    assert len(whole) == len(parts[0]) == len(parts[1]) == 5
+    for _ in range(2):                          # two epochs: the order moves on alike
+        got = [list(p) for p in parts]
+        want = list(whole)
+        assert len(want) == len(got[0]) == len(got[1]) == 5
+        for w, a, b in zip(want, *got):
+            assert a.shape[0] == b.shape[0] == 4
+            np.testing.assert_array_equal(np.concatenate([a, b]), w)
+
+
 FAMILIES = ["vqgan", "vqofficial", "vqofficial_warm", "gaussian3d", "gaussian3d_f64",
             "pixel3d", "gaussian2d", "vae", "c_vqdiffusion", "gpt"]
 

@@ -5,8 +5,9 @@ port's replicated GPT in one process.
 The GPT is tiny_config's prior widened to n_embd 64 (4 heads), so that its
 MLP weights (64 x 256) reach the 2^14 elements from which JAX's FSDP rule
 shards a leaf. One spawn of 2 ranks runs ``tp`` (a 1 x 2 mesh) and
-``fsdp`` (2 x 1), one of 4 ranks ``tp_fsdp`` (2 x 2); each takes 2 steps
-on the same global batches as this process's replicated worker.
+``fsdp`` (2 x 1), one of 4 ranks ``tp_fsdp`` and ``tp`` again (2 x 2);
+each takes 2 steps on the same global batches as this process's
+replicated worker.
 
 Tolerances: the ``tp`` logits within 1e-5 of the plain forward (the JAX
 package's ``test_tp_rules_match_real_gpt_params``); each mode's loss within
@@ -70,15 +71,6 @@ def test_resolve_sharding_rules_refuses():
             resolve_sharding_rules(mode)
         with pytest.raises(ValueError, match="unknown param_sharding"):
             j_resolve(mode, j_create_mesh(jax.devices()[:2]))
-
-
-def test_create_mesh_refuses_what_does_not_divide():
-    """``create_mesh`` raises as JAX's does where mp does not divide the
-    world; without a group it builds nothing."""
-    from vq_vae_gan_diffusion_torch.parallel import create_mesh
-    with pytest.raises(ValueError, match="not divisible by model_parallel=3"):
-        j_create_mesh(jax.devices()[:4], model_parallel=3)
-    assert create_mesh(3) is None
 
 
 def _jax_specs(cfg: dict, data: int, model: int, mode: str) -> dict:
@@ -145,7 +137,8 @@ def runs(tiny_config, tmp_path_factory):
     idx = torch.from_numpy(rs.randint(0, 64, (2, 16)))
     job = {"cfg_dict": cfg, "batches": batches, "idx": idx}
     four = spawn(gpt_modes, ({"tp_fsdp": {**job, "mode": "tp_fsdp", "mp": 2,
-                                          "artifacts": True}},), 4, tmp)
+                                          "artifacts": True},
+                              "tp_2x2": {**job, "mode": "tp", "mp": 2}},), 4, tmp)
     two = spawn(gpt_modes, ({"tp": {**job, "mode": "tp", "mp": 2},
                              "fsdp": {**job, "mode": "fsdp", "mp": 1, "resume": True}},), 2, tmp)
     worker = build_worker(cfg)
@@ -156,8 +149,9 @@ def runs(tiny_config, tmp_path_factory):
         worker.state, m = worker.train_multi_step(worker.state, [torch.from_numpy(b)],
                                                   worker.generator)
         metrics.append({k: float(v) for k, v in m.items()})
-    ranks = {"tp_fsdp": four(), **{k: [r[k] for r in two()] for k in ("tp", "fsdp")}}
-    ranks["tp_fsdp"] = [r["tp_fsdp"] for r in ranks["tp_fsdp"]]
+    fours = four()
+    ranks = {**{k: [r[k] for r in two()] for k in ("tp", "fsdp")},
+             **{k: [r[k] for r in fours] for k in ("tp_fsdp", "tp_2x2")}}
     return {"cfg": cfg, "logits": logits, "metrics": metrics, "ranks": ranks,
             "state": {k: v.clone() for k, v in worker.state.gpt.state_dict().items()}}
 
@@ -203,10 +197,12 @@ def test_fsdp_dim_is_the_jax_rule():
     assert fsdp_dim((4096, 8), 4) == 0 and fsdp_dim((8, 8), 2) is None
 
 
-@pytest.mark.parametrize("mode", ["tp", "fsdp", "tp_fsdp"])
+@pytest.mark.parametrize("mode", ["tp", "fsdp", "tp_fsdp", "tp_2x2"])
 def test_sharded_steps_match_replicated(runs, mode):
     """Each mode's loss and token accuracy at both steps within 2e-4
-    relative of the replicated worker's (the ranks agree exactly)."""
+    relative of the replicated worker's (the ranks agree exactly);
+    ``tp_2x2`` is tp on a 2 x 2 mesh, its sharded gradients averaged over
+    the data ranks by the port's all-reduce."""
     ranks = runs["ranks"][mode]
     assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
     for got, want in zip(ranks[0]["metrics"], runs["metrics"]):

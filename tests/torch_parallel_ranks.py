@@ -146,8 +146,17 @@ def family_steps(cfg_dict: dict, batches: Sequence[np.ndarray], init: Optional[s
 
 
 def families(jobs: Dict[str, dict]) -> Dict[str, Any]:
-    """:func:`family_steps` of each job (its keyword arguments), by name."""
-    return {name: family_steps(**job) for name, job in jobs.items()}
+    """:func:`family_steps` of each job (its keyword arguments), by name;
+    under a group also ``create_mesh(3)``'s refusal (``"_mesh_error"``)."""
+    from vq_vae_gan_diffusion_torch.parallel import create_mesh
+
+    out = {name: family_steps(**job) for name, job in jobs.items()}
+    if dist.is_initialized():
+        try:
+            create_mesh(3)
+        except ValueError as e:
+            out["_mesh_error"] = str(e)
+    return out
 
 
 def cli_runs(config: str) -> Dict[str, Any]:

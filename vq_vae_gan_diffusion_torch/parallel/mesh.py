@@ -103,8 +103,8 @@ def data_group():
     group."""
     if not dist.is_initialized():
         return None
-    for mesh in _MESHES.values():
-        return mesh.get_group(DATA_AXIS)
+    if _MESHES:
+        return next(iter(_MESHES.values())).get_group(DATA_AXIS)
     return dist.group.WORLD
 
 

@@ -47,10 +47,11 @@ class ShardingPlan(NamedTuple):
     fsdp: bool
 
 
-def resolve_sharding_rules(mode: Optional[str], mesh=None) -> Optional[ShardingPlan]:
+def resolve_sharding_rules(mode: Optional[str]) -> Optional[ShardingPlan]:
     """A config's ``param_sharding`` -> None (replicated) or the
     :class:`ShardingPlan` of ``tp``, ``fsdp`` or ``tp_fsdp`` / ``fsdp_tp``;
-    anything else raises ``ValueError``, as the JAX package's."""
+    anything else raises ``ValueError``, as the JAX package's (which also
+    takes the mesh: here :func:`shard_gpt` does)."""
     mode = (mode or "replicated").lower()
     if mode in ("replicated", "none", ""):
         return None

@@ -98,7 +98,7 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         self.lr = float(tr.learning_rate)
         self.betas = (float(tr.get("beta1", 0.9)), float(tr.get("beta2", 0.95)))
         mode = tr.get("param_sharding", config.trainer.get("param_sharding", "replicated"))
-        plan = resolve_sharding_rules(str(mode), self.mesh)
+        plan = resolve_sharding_rules(str(mode))
         self.sharding = plan if self.mesh is not None else None
         self._full: Optional[Dict[str, Any]] = None
 
