@@ -273,16 +273,38 @@ Phases, each printed as it runs; any failure exits non-zero:
       one over NCCL that runs (o)'s train CLI for two epochs, one stage-1
       step from the seeded weights and the GPT prior of (p)'s config under
       ``param_sharding: tp_fsdp`` for 3 steps and one ``log_artifacts``
-      (exactly 512 B1 launches on the gathered GPT); against them, in this
+      (exactly 512 B1 launches on the gathered GPT), then under ``tp``
+      alone for 3 steps; against them, in this
       process with no group, (o)'s warm images/s, the same step (every
       parameter within 2 lr, 99% within lr / 10, the CPU tests' rule) and
       the replicated GPT's losses (within 2e-4); the collectives a step (2
       gradient-and-lambda all-reduces, 9 BatchNorm statistics all-reduces);
       then two ranks sharing the card over gloo (which carries every
       collective of the path on CUDA tensors under the card's torch), one
-      step at batch 200 against the single process's.
+      step at batch 200 against the single process's;
+  (af) the GPT prior of (p)'s config (L 12, C 1024, 16 heads, vocab 1024,
+      batch 20 of 256 seeded random tokens, f32) under pipeline parallelism
+      (``parallel/pipeline.py``: ``stack_block_params``, ``shard_stacked``,
+      ``make_pipeline_train_step`` with 4 microbatches) and sequence
+      parallelism (``GPT(act_sharding=create_mesh(W))``), in a ``torchrun
+      --nproc-per-node 1`` child over NCCL (``--af-child``: one stage, a 1 x
+      1 mesh) and in two gloo ranks sharing the card (two stages of 6 blocks,
+      whose hops go through host memory, since gloo carries no CUDA tensor
+      point to point; a 1 x 2 mesh of 128 tokens a rank), all started
+      together; in the NCCL child also ``param_sharding: tp`` with
+      ``act_sharding`` (Megatron-SP, DTensor layouts) on the 1 x 1 mesh
+      (torch 2.11's DTensor collectives over gloo fault on CUDA tensors, so
+      the gloo pair runs none); each run against the replicated GPT of this
+      process on the same weights and batches: logits within 1e-4, three AdamW steps' losses
+      within 2e-4 relative, every gradient leaf of the first step within
+      1e-4 of the leaf's largest entry (the key bias's, zero in exact
+      arithmetic, of its block's); the hops a step and their transport, the
+      sequence-parallel collectives a step, each rank's peak GiB; then the
+      trained stages gathered and unstacked into a ``GPT`` sample 256
+      positions through B1 (exactly 256 launches) with the replicated GPT's
+      tokens at temperature 1e-4.
 
-``--only r,s`` (any of o-z, aa-ae) runs (a), (b) and those phases alone,
+``--only r,s`` (any of o-z, aa-af) runs (a), (b) and those phases alone,
 and prints no kernels line and no result line.
 
 Each path, (d), (g), (j), (m), each run of (k), the training hooks of
@@ -3695,10 +3717,12 @@ def ae_child(out_path: str) -> int:
     params, counts, metrics = ae_stage1_step(str(device))
     torch.save(params, out_path + ".params.pt")
     gpt = ae_gpt_steps(ae_gpt_batches(), "tp_fsdp")
+    gpt_tp = ae_gpt_steps(ae_gpt_batches(), "tp", hook=False)
     with open(out_path, "w") as f:
         json.dump({"cli": {"warm_images_per_s": run["warm_images_per_s"],
                            "epochs": run["epochs"]},
-                   "step_collectives": counts, "step_metrics": metrics, "gpt": gpt}, f)
+                   "step_collectives": counts, "step_metrics": metrics, "gpt": gpt,
+                   "gpt_tp": gpt_tp}, f)
     shutil.rmtree(log_dir)
     dist.destroy_process_group()
     return 0
@@ -3814,21 +3838,371 @@ def phase_parallel(card: str) -> dict:
         if not math.isclose(gloo["metrics"][k], v, rel_tol=rel, abs_tol=1e-6):
             raise AssertionError(f"(ae) gloo metric {k}: {gloo['metrics'][k]} against {v}")
 
-    for i, (a, b) in enumerate(zip(gpt["losses"], plain["losses"])):
-        if not math.isclose(a, b, rel_tol=2e-4):
-            raise AssertionError(f"(ae) GPT step {i}: tp_fsdp loss {a} against {b}")
+    for mode in ("gpt", "gpt_tp"):
+        for i, (a, b) in enumerate(zip(world1[mode]["losses"], plain["losses"])):
+            if not math.isclose(a, b, rel_tol=2e-4):
+                raise AssertionError(f"(ae) GPT step {i}: {mode} loss {a} against {b}")
     if gpt["launches"] != 2 * N:
         raise AssertionError(f"(ae) log_artifacts launches {gpt['launches']}")
     print(f"(ae) GPT prior ({GPT_TRAIN_CONFIG}, batch {STAGE2_B}), 3 steps: tp_fsdp at world 1 "
           f"losses {gpt['losses']}, replicated {plain['losses']}; log_artifacts "
           f"{gpt['launches']} B1 launches on the gathered GPT; peak {gpt['peak_gib']:.2f} GiB "
           f"(replicated {plain['peak_gib']:.2f} GiB); placements {gpt['placements']}; {card}")
+    print(f"(ae) GPT prior under tp alone at world 1 (AdamW one tensor at a time: the "
+          f"embeddings stay plain beside the DTensors): losses {world1['gpt_tp']['losses']}, "
+          f"peak {world1['gpt_tp']['peak_gib']:.2f} GiB; {card}")
     shutil.rmtree(tmp)
     return {"world1_images_per_s": dist_rate, "plain_images_per_s": plain_rate,
             "step_collectives": counts, "world1_param_gap": gap, "gloo_param_gap": gloo_gap,
             "gpt_tp_fsdp_losses": gpt["losses"], "gpt_replicated_losses": plain["losses"],
             "gpt_tp_fsdp_peak_gib": gpt["peak_gib"], "gpt_replicated_peak_gib": plain["peak_gib"],
+            "gpt_tp_losses": world1["gpt_tp"]["losses"],
             "gpt_hook_launches": gpt["launches"]}
+
+
+# (af): the GPT prior of (p)'s config, pipelined (parallel/pipeline.py) and
+# sequence-parallel (GPT.act_sharding), each against the replicated GPT
+AF_STEPS, AF_MICRO = 3, 4
+AF_WAIT = 600                     # seconds the parent waits for (af)'s other processes
+
+
+def af_gpt(device: str = "cuda"):
+    """(p)'s GPT prior at full width, its weights drawn from seed 0 on
+    ``device`` (``meta``: the module's shape, no memory); the AdamW factory
+    of its config (lr, betas; torch's weight decay); the SOS token."""
+    from vq_vae_gan_diffusion_torch.config import load_config
+    from vq_vae_gan_diffusion_torch.models.mingpt import GPT
+
+    cfg = load_config(GPT_TRAIN_CONFIG)
+    a, tr = cfg.architecture.vqvae_transformer, cfg.trainer.vqvae_transformer
+    with torch.device(device):
+        gpt = GPT(vocab_size=int(cfg.architecture.vqvae.num_codebook_vectors),
+                  block_size=int(a.block_size), n_layer=int(a.n_layer), n_head=int(a.n_head),
+                  n_embd=int(a.n_embd))
+    if device != "meta":
+        gpt.init_weights(torch.Generator(device=device).manual_seed(0))
+    lr, betas = float(tr.learning_rate), (float(tr.beta1), float(tr.beta2))
+    # one tensor at a time: the foreach kernels refuse a group that mixes
+    # tensor-parallel DTensors with plain tensors (the embeddings)
+    return gpt, (lambda ps: torch.optim.AdamW(ps, lr=lr, betas=betas, eps=1e-8, foreach=False)
+                 ), int(a.sos_token)
+
+
+def af_batches(vocab: int, sos: int) -> list:
+    """AF_STEPS seeded batches of STAGE2_B sequences of N tokens: (the
+    inputs, SOS then the tokens but the last; the targets, the tokens)."""
+    gen = torch.Generator().manual_seed(1)
+    out = []
+    for _ in range(AF_STEPS):
+        tokens = torch.randint(0, vocab, (STAGE2_B, N), generator=gen)
+        out.append((torch.cat([torch.full((STAGE2_B, 1), sos), tokens[:, :-1]], 1), tokens))
+    return out
+
+
+def af_sample(gpt, sos: int) -> tuple:
+    """``sample_tokens`` of LOG_B sequences of N positions at temperature
+    1e-4 through B1: the tokens and B1's launches, counted from 0."""
+    from vq_vae_gan_diffusion_torch.models.mingpt import sample_tokens
+
+    prefix = torch.full((LOG_B, 1), sos, dtype=torch.long, device="cuda")
+    reset_counts()
+    tokens = sample_tokens(gpt, prefix, 1, N, temperature=1e-4,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return tokens.cpu(), read_counts()["gpt_decode_stack"]
+
+
+def af_replicated(ref_path: str) -> dict:
+    """(af)'s reference in the parent, no group: the replicated GPT's logits
+    of the first batch, AF_STEPS AdamW steps (losses, the first step's
+    gradients) and the trained GPT's tokens; written to ``ref_path``."""
+    import os
+
+    import torch.nn.functional as F
+
+    gpt, opt_factory, sos = af_gpt()
+    batches = af_batches(gpt.vocab_size, sos)
+    opt = opt_factory(gpt.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ref = {"logits": gpt(batches[0][0].cuda()).cpu(), "losses": []}
+    for i, (x, y) in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(gpt(x.cuda()).reshape(-1, gpt.vocab_size), y.cuda().reshape(-1))
+        loss.backward()
+        if i == 0:
+            ref["grads"] = {k: p.grad.cpu() for k, p in gpt.named_parameters()}
+        opt.step()
+        ref["losses"].append(loss.item())
+    ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref["tokens"], ref["launches"] = af_sample(gpt, sos)
+    torch.save(ref, ref_path + ".tmp")
+    os.replace(ref_path + ".tmp", ref_path)       # the other processes wait for the whole file
+    return ref
+
+
+def af_reference(ref_path: str) -> dict:
+    """The replicated GPT's file, waited for while the parent writes it."""
+    import os
+
+    end = time.monotonic() + AF_WAIT
+    while not os.path.exists(ref_path) and time.monotonic() < end:
+        time.sleep(0.2)
+    return torch.load(ref_path, weights_only=True)
+
+
+def af_against(ref: dict, logits: torch.Tensor, losses: list, grads: dict) -> dict:
+    """A run against the replicated GPT: the logits' largest gap, each
+    loss's relative gap, and the largest gap of any gradient leaf over that
+    leaf's largest entry (the key bias's, whose gradient is zero in exact
+    arithmetic, over its block's largest entry)."""
+    worst, worst_leaf = 0.0, None
+    for k, g in grads.items():
+        w = ref["grads"][k].cuda()
+        if k.endswith("attn.key.bias"):
+            block = k.rsplit(".attn.", 1)[0] + "."
+            scale = max(float(v.abs().max()) for n, v in ref["grads"].items()
+                        if n.startswith(block))
+        else:
+            scale = float(w.abs().max())
+        gap = float((g - w).abs().max()) / scale
+        if gap >= worst:
+            worst, worst_leaf = gap, k
+    return {"logits_gap": float((logits - ref["logits"].cuda()).abs().max()),
+            "loss_gaps": [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])],
+            "losses": losses, "grad_gap": worst, "grad_leaf": worst_leaf,
+            "grad_leaves": len(grads)}
+
+
+def af_pipeline(ref: dict) -> dict:
+    """(af) a pipe over every rank of the group (one stage a rank,
+    AF_MICRO microbatches): logits, AF_STEPS AdamW steps through
+    ``make_pipeline_train_step``, the hops a step and the peak; then the
+    stages gathered, unstacked into a ``GPT`` and sampled through B1 on
+    rank 0."""
+    import torch.distributed as dist
+
+    from vq_vae_gan_diffusion_torch.parallel import (create_pipeline_mesh, gather_stacked, hop,
+                                                     hop_transport, make_pipeline_train_step,
+                                                     pipe_shape, pipelined_gpt_logits,
+                                                     shard_stacked, stack_block_params,
+                                                     unstack_block_params)
+
+    mesh = create_pipeline_mesh(dist.get_world_size())
+    index, s = pipe_shape(mesh)
+    gpt, opt_factory, sos = af_gpt()
+    stacked, rest = stack_block_params(gpt.state_dict(), gpt.n_layer, s)
+    stage = shard_stacked(stacked, mesh, gpt.n_head)
+    shape, _, _ = af_gpt("meta")            # the pipeline reads the GPT's settings only
+    del gpt, stacked
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batches = af_batches(shape.vocab_size, sos)
+    with torch.no_grad():
+        logits = pipelined_gpt_logits(shape, stage, rest, batches[0][0].cuda(), mesh, AF_MICRO)
+    step = make_pipeline_train_step(shape, opt_factory, mesh, AF_MICRO)
+    opt, losses, per = None, [], shape.n_layer // s
+    t0 = time.perf_counter()
+    for i, (x, y) in enumerate(batches):
+        before = hop.calls, hop.grad_calls
+        (stage, rest), opt, loss = step((stage, rest), opt, x.cuda(), y.cuda())
+        losses.append(loss.item())
+        if i == 0:
+            hops = hop.calls - before[0], hop.grad_calls - before[1]
+            grads = {f"blocks.{index * per + int(j)}.{leaf}": p.grad
+                     for j, leaf, p in ((*k.split(".", 1), p) for k, p in stage.named_parameters())}
+            grads.update({k: v.grad for k, v in rest.items()})
+            first = af_against(ref, logits, [], grads)
+    torch.cuda.synchronize()
+    out = af_against(ref, logits, losses, {})
+    out.update(label=f"pipeline S={s}, n_micro {AF_MICRO}", stage=index, hops=hops,
+               transport=hop_transport(mesh), steps_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               moments=sum(st["exp_avg"].numel() for st in opt.state.values()),
+               **{k: first[k] for k in ("grad_gap", "grad_leaf", "grad_leaves")})
+    state = unstack_block_params(gather_stacked(stage, mesh), rest)
+    if dist.get_rank() == 0:
+        trained = af_gpt("meta")[0].to_empty(device="cuda")
+        trained.load_state_dict(state)
+        tokens, out["launches"] = af_sample(trained, sos)
+        out["tokens_equal"] = bool(torch.equal(tokens, ref["tokens"]))
+    return out
+
+
+def af_sequence(ref: dict, tp: bool = False) -> dict:
+    """(af) ``GPT(act_sharding=create_mesh(W))`` over every rank of the
+    group, with ``tp`` also sharded by ``param_sharding: tp`` (Megatron-SP):
+    logits and AF_STEPS AdamW steps, each step's gradients summed over
+    ``model`` by ``reduce_sequence_gradients``; the collectives a step and
+    the peak."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    from vq_vae_gan_diffusion_torch.parallel import (ShardingPlan, create_mesh, gather_logits,
+                                                     gather_tokens, reduce_sequence_gradients,
+                                                     shard_gpt)
+
+    mp = dist.get_world_size()
+    gpt, opt_factory, sos = af_gpt()
+    gpt.act_sharding = create_mesh(mp)
+    if tp:
+        shard_gpt(gpt, gpt.act_sharding, ShardingPlan(tp=True, fsdp=False))
+    opt = opt_factory(gpt.parameters())
+    batches = af_batches(gpt.vocab_size, sos)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits = gpt(batches[0][0].cuda())
+    losses = []
+    t0 = time.perf_counter()
+    for i, (x, y) in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        before = gather_tokens.calls, gather_tokens.grad_calls, gather_logits.calls
+        loss = F.cross_entropy(gpt(x.cuda()).reshape(-1, gpt.vocab_size), y.cuda().reshape(-1))
+        loss.backward()
+        reduce_sequence_gradients(gpt.parameters(), gpt.act_sharding)
+        if i == 0:
+            calls = (gather_tokens.calls - before[0], gather_tokens.grad_calls - before[1],
+                     gather_logits.calls - before[2])
+            first = af_against(ref, logits, [], {
+                k: p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad
+                for k, p in gpt.named_parameters()})
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    out = af_against(ref, logits, losses, {})
+    out.update(label=f"act_sharding 1x{mp}" + (", param_sharding tp" if tp else ""),
+               collectives=calls,
+               steps_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               **{k: first[k] for k in ("grad_gap", "grad_leaf", "grad_leaves")})
+    return out
+
+
+def af_rank(out_path: str) -> None:
+    """(af) in a process of a group: the pipeline, then sequence parallelism,
+    against the replicated GPT's file ``{out_path}.ref.pt``; the results as
+    JSON to ``out_path``."""
+    import torch.distributed as dist
+
+    ref = af_reference(out_path + ".ref.pt")
+    runs = [af_pipeline(ref), af_sequence(ref)]
+    if dist.get_backend() == "nccl":     # DTensor's collectives over gloo fault on CUDA tensors
+        runs.append(af_sequence(ref, tp=True))
+    with open(out_path, "w") as f:
+        json.dump(runs, f)
+
+
+def af_child(out_path: str) -> int:
+    """(af) under ``torchrun --nproc-per-node 1``: a group of one over NCCL."""
+    import torch.distributed as dist
+
+    from vq_vae_gan_diffusion_torch.parallel import init_distributed
+
+    init_distributed("cuda")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"(af) group {dist.get_backend()} of {dist.get_world_size()}")
+    af_rank(out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def af_gloo_rank(rank: int, store: str, out_path: str) -> None:
+    """(af) one of two ranks sharing the card over gloo."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        af_rank(f"{out_path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pipeline(card: str) -> dict:
+    """(af) the GPT prior's pipeline and sequence parallelism on the card: a
+    torchrun group of one over NCCL and two gloo ranks sharing the card,
+    started together, each against the replicated GPT of this process."""
+    import os
+    import subprocess
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_af_")
+    world1, gloo = os.path.join(tmp, "world1.json"), os.path.join(tmp, "gloo.json")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(["torchrun", "--standalone", "--nproc-per-node", "1",
+                              os.path.abspath(__file__), "--af-child", world1],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    gloo_ranks = mp.start_processes(af_gloo_rank, args=(os.path.join(tmp, "store"), gloo),
+                                    nprocs=2, join=False, start_method="spawn")
+    try:
+        ref = af_replicated(os.path.join(tmp, "ref.pt"))
+        for path in (world1, gloo + ".rank0", gloo + ".rank1"):
+            os.link(os.path.join(tmp, "ref.pt"), path + ".ref.pt")
+        stdout, stderr = child.communicate(timeout=AF_WAIT)
+        end = time.monotonic() + AF_WAIT
+        while not gloo_ranks.join(timeout=5):
+            if time.monotonic() > end:
+                raise AssertionError(f"(af) gloo ranks still running after {AF_WAIT} s")
+    finally:
+        if child.poll() is None:
+            child.kill()
+        for p in gloo_ranks.processes:
+            if p.is_alive():
+                p.kill()
+    print(f"(af) a torchrun --nproc-per-node 1 child (NCCL) and 2 gloo ranks sharing the card: "
+          f"rc {child.returncode}, {time.perf_counter() - t0:.1f} s from their start")
+    if child.returncode != 0:
+        print(stdout[-3000:], stderr[-3000:])
+        raise AssertionError("(af) the torchrun child failed")
+    print(f"(af) replicated GPT ({GPT_TRAIN_CONFIG}, batch {STAGE2_B} x {N} tokens, f32), "
+          f"{AF_STEPS} AdamW steps: losses {ref['losses']}, peak {ref['peak_gib']:.2f} GiB; its "
+          f"tokens through B1: {ref['launches']} launches; {card}")
+    out = {"replicated_losses": ref["losses"], "replicated_peak_gib": ref["peak_gib"]}
+    # per group: (hops a step forward and backward, the transport; the
+    # collectives a step of each sequence-parallel run: K/V gathers, their
+    # reduce-scatters, logits gathers; none of the GPT's own under tp)
+    n_layer = af_gpt("meta")[0].n_layer
+    sp = (n_layer, n_layer, 1)
+    want = {"NCCL world 1": ((0, 0), "none", [sp, (0, 0, 0)]),
+            "gloo rank 0": ((AF_MICRO, AF_MICRO), "host", [sp]),
+            "gloo rank 1": ((AF_MICRO, AF_MICRO), "host", [sp])}
+    for where, path in (("NCCL world 1", world1), ("gloo rank 0", gloo + ".rank0"),
+                        ("gloo rank 1", gloo + ".rank1")):
+        pipe, *seqs = json.load(open(path))
+        for r in (pipe, *seqs):
+            print(f"(af) {where}, {r['label']}: logits gap {r['logits_gap']:.3e}; losses "
+                  f"{r['losses']} (relative gaps "
+                  f"{', '.join(f'{g:.2e}' for g in r['loss_gaps'])}); the first step's "
+                  f"gradients, {r['grad_leaves']} leaves: largest gap {r['grad_gap']:.3e} of "
+                  f"the leaf's scale ({r['grad_leaf']}); {r['steps_s']:.2f} s for {AF_STEPS} "
+                  f"steps; peak {r['peak_gib']:.2f} GiB; {card}")
+            if r["logits_gap"] > 1e-4 or max(r["loss_gaps"]) > 2e-4 or r["grad_gap"] > 1e-4:
+                raise AssertionError(f"(af) {where}, {r['label']}: {r}")
+            out[f"{where}, {r['label']}"] = {k: r[k] for k in (
+                "losses", "logits_gap", "grad_gap", "peak_gib", "steps_s")}
+        got = (tuple(pipe["hops"]), pipe["transport"], [tuple(r["collectives"]) for r in seqs])
+        print(f"(af) {where}: hops a step {got[0]} (forward, backward), transport {got[1]!r}, "
+              f"AdamW moments {pipe['moments']} entries on stage {pipe['stage']}; "
+              f"sequence parallelism's collectives a step {got[2]} (K/V gathers, their "
+              f"reduce-scatters, logits gathers)")
+        if got != want[where]:
+            raise AssertionError(f"(af) {where}: {got}")
+        if "launches" in pipe:
+            print(f"(af) {where}: the trained stages gathered and unstacked into a GPT: "
+                  f"{pipe['launches']} B1 launches, tokens [{LOG_B}, {N}] "
+                  f"{'equal to' if pipe['tokens_equal'] else 'NOT equal to'} the replicated "
+                  f"GPT's at temperature 1e-4")
+            if pipe["launches"] != N or not pipe["tokens_equal"]:
+                raise AssertionError(f"(af) {where}: {pipe['launches']} launches, tokens equal "
+                                     f"{pipe['tokens_equal']}")
+            out[f"{where}, launches"] = pipe["launches"]
+    shutil.rmtree(tmp)
+    return out
 
 
 def training_phases() -> dict:
@@ -3853,7 +4227,8 @@ def training_phases() -> dict:
             "ab": phase_rest,
             "ac": phase_native_loader,
             "ad": phase_reference_checkpoints,
-            "ae": lambda card: print(json.dumps({"data_parallel": phase_parallel(card)}))}
+            "ae": lambda card: print(json.dumps({"data_parallel": phase_parallel(card)})),
+            "af": lambda card: print(json.dumps({"pipeline_sequence": phase_pipeline(card)}))}
 
 
 def timed(label: str, fn, *args):
@@ -3873,11 +4248,12 @@ def main(argv=None) -> int:
                              f"of {','.join(training_phases())}; prints no kernels line and no "
                              "result line")
     parser.add_argument("--ae-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--af-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.ae_child:                       # (ae)'s process under torchrun
+    if args.ae_child or args.af_child:      # (ae)'s or (af)'s process under torchrun
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        return ae_child(args.ae_child)
+        return ae_child(args.ae_child) if args.ae_child else af_child(args.af_child)
     t_script = time.perf_counter()
     card = phase_device()
     timed("b", phase_build)

@@ -253,3 +253,112 @@ def gpt_sharding(cfg_dict: dict, mode: str, mp: int, batches: Sequence[np.ndarra
 def gpt_modes(jobs: Dict[str, dict]) -> Dict[str, Any]:
     """:func:`gpt_sharding` of each job, by name."""
     return {name: gpt_sharding(**job) for name, job in jobs.items()}
+
+
+# -- the GPT prior's pipeline and sequence parallelism ---------------------------------------
+
+def _pipeline_steps(state: Dict[str, torch.Tensor], gpt_kw: dict, batches: Sequence[tuple],
+                    n_stages: int, n_micro: int, lr: float) -> Dict[str, Any]:
+    """The pipelined GPT of ``state`` on a pipe of ``n_stages``: its logits
+    of the first batch, then an Adam step on each (idx, targets) of
+    ``batches``: the losses, the first step's reduced gradients, the stage
+    after the first step and the optimizer's moments, and the stages
+    gathered after the last step."""
+    from vq_vae_gan_diffusion_torch.models.mingpt import GPT
+    from vq_vae_gan_diffusion_torch.parallel import (create_pipeline_mesh, gather_stacked, hop,
+                                                     make_pipeline_train_step, pipe_shape,
+                                                     pipelined_gpt_logits, shard_stacked,
+                                                     stack_block_params)
+
+    gpt = GPT(**gpt_kw)
+    mesh = create_pipeline_mesh(n_stages)
+    stacked, rest = stack_block_params(state, gpt.n_layer, n_stages)
+    stage = shard_stacked(stacked, mesh, gpt.n_head)
+    out: Dict[str, Any] = {"stage": pipe_shape(mesh)}
+    with torch.no_grad():
+        out["logits"] = pipelined_gpt_logits(gpt, stage, rest, batches[0][0], mesh, n_micro)
+    step = make_pipeline_train_step(gpt, lambda ps: torch.optim.Adam(ps, lr=lr), mesh, n_micro)
+    opt, out["losses"] = None, []
+    hops = hop.calls, hop.grad_calls
+    for i, (idx, targets) in enumerate(batches):
+        (stage, rest), opt, loss = step((stage, rest), opt, idx, targets)
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["hops"] = hop.calls - hops[0], hop.grad_calls - hops[1]
+            out["grads"] = {**{f"stage.{k}": p.grad.clone() for k, p in stage.named_parameters()},
+                            **{k: v.grad.clone() for k, v in rest.items()}}
+            out["stage_after_1"] = {k: p.detach().clone() for k, p in stage.named_parameters()}
+    out["moments"] = sorted(st["exp_avg"].numel() for st in opt.state.values())
+    out["params"] = sorted(p.numel() for p in [*stage.parameters(), *rest.values()])
+    out["gathered"] = gather_stacked(stage, mesh)
+    out["rest"] = {k: v.detach().clone() for k, v in rest.items()}
+    return out
+
+
+def _sequence_grads(state: Dict[str, torch.Tensor], gpt_kw: dict, idx: torch.Tensor,
+                    targets: torch.Tensor, mp: int, tp: bool = False) -> Dict[str, Any]:
+    """``GPT(act_sharding=create_mesh(mp))`` of ``state``, with ``tp`` also
+    sharded by ``param_sharding: tp`` (Megatron-SP): the logits of ``idx``,
+    the loss on ``targets`` and the reduced gradients (gathered whole),
+    with the explicit collectives they took."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    from vq_vae_gan_diffusion_torch.models.mingpt import GPT
+    from vq_vae_gan_diffusion_torch.parallel import (ShardingPlan, create_mesh, gather_logits,
+                                                     gather_tokens, reduce_sequence_gradients,
+                                                     shard_batch, shard_gpt)
+
+    mesh = create_mesh(mp)
+    gpt = GPT(**gpt_kw, act_sharding=mesh)
+    gpt.load_state_dict(state)
+    if tp:
+        shard_gpt(gpt, mesh, ShardingPlan(tp=True, fsdp=False))
+    before = gather_tokens.calls, gather_tokens.grad_calls, gather_logits.calls
+    logits = gpt(idx)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           shard_batch(targets, mesh).reshape(-1))
+    loss.backward()
+    reduce_sequence_gradients(gpt.parameters(), mesh)
+    calls = (gather_tokens.calls, gather_tokens.grad_calls, gather_logits.calls)
+    return {"logits": logits.detach(), "loss": float(loss),
+            "calls": tuple(a - b for a, b in zip(calls, before)),
+            "grads": {k: (p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad.clone())
+                      for k, p in gpt.named_parameters()}}
+
+
+def _worker_foreach(cfg_dict: dict, param_sharding: str, mp: int) -> list:
+    """The GPT worker of ``cfg_dict`` under ``param_sharding`` on a mesh
+    ``mp`` wide: its AdamW groups' ``foreach`` settings."""
+    import copy
+
+    cfg = copy.deepcopy(cfg_dict)
+    cfg["trainer"]["mesh_model_parallel"] = mp
+    cfg["trainer"]["vqvae_transformer"]["param_sharding"] = param_sharding
+    return [g["foreach"] for g in build_worker(cfg).state.opt.param_groups]
+
+
+def pipeline_runs(state: Dict[str, torch.Tensor], gpt_kw: dict, batches: Sequence[tuple],
+                  jobs: Dict[str, dict], lr: float) -> Dict[str, Any]:
+    """Each job, by name: ``{"stages": S, "n_micro": m}`` a pipeline
+    (:func:`_pipeline_steps` over ``batches``, or over the first one alone
+    with ``"steps": 1``), ``{"mp": mp[, "tp": True]}`` sequence parallelism
+    (:func:`_sequence_grads`) on the first batch, ``{"cfg_dict": ...,
+    "param_sharding": mode, "mp": mp}`` the GPT worker's AdamW
+    (:func:`_worker_foreach`); and ``create_pipeline_mesh(3)``'s refusal (``"_mesh_error"``)."""
+    from vq_vae_gan_diffusion_torch.parallel import create_pipeline_mesh
+
+    out: Dict[str, Any] = {}
+    for name, job in jobs.items():
+        if "param_sharding" in job:
+            out[name] = _worker_foreach(**job)
+        elif "mp" in job:
+            out[name] = _sequence_grads(state, gpt_kw, *batches[0], job["mp"], job.get("tp", False))
+        else:
+            out[name] = _pipeline_steps(state, gpt_kw, batches[:job.get("steps", len(batches))],
+                                        job["stages"], job["n_micro"], lr)
+    try:
+        create_pipeline_mesh(3)
+    except ValueError as e:
+        out["_mesh_error"] = str(e)
+    return out

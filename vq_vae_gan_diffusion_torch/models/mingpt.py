@@ -8,7 +8,9 @@ vocab head, N(0, 0.02) init. Module names reproduce the reference
 with every rate at 0.0. The training forward is :meth:`GPT.forward` over the
 whole sequence, its causal attention plain products as in the JAX package;
 ``remat`` recomputes each block's activations in the backward
-(``torch.utils.checkpoint``), as the JAX module's ``nn.remat``.
+(``torch.utils.checkpoint``), as the JAX module's ``nn.remat``;
+``act_sharding`` runs it over a rank's share of the tokens (sequence
+parallelism, :mod:`..parallel.sequence`).
 
 Sampling (:func:`sample_tokens`) is a host loop over positions with a Python
 int ``t``; it reads nothing back from the device per token. Its default route
@@ -50,14 +52,24 @@ class CausalSelfAttention(nn.Module):
         b, t, c = x.shape
         return x.reshape(b, t, self.n_head, c // self.n_head).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq: Optional[tuple] = None) -> torch.Tensor:
         """x [B, T, C] -> [B, T, C]. Under tensor parallelism q, k and v hold
         this rank's ``n_head`` heads (the local count) and ``proj`` takes
-        their concatenation, its input's shard."""
+        their concatenation, its input's shard. Under sequence parallelism
+        ``seq`` is (the ``model`` group, the first token's position): x
+        holds this rank's tokens, whose queries attend to the keys and
+        values gathered over the group, the causal mask offset by that
+        position."""
         b, t, _ = x.shape
         q, k, v = self._heads(self.query(x)), self._heads(self.key(x)), self._heads(self.value(x))
+        start = 0
+        if seq is not None:
+            from ..parallel.sequence import gather_tokens
+
+            group, start = seq
+            k, v = gather_tokens(torch.cat([k, v], dim=-1), group, dim=2).chunk(2, dim=-1)
         att = (q @ k.transpose(-2, -1)) * q.shape[-1] ** -0.5
-        att = att.masked_fill(self.mask[:, :, :t, :t] == 0, float("-inf"))
+        att = att.masked_fill(self.mask[:, :, start:start + t, :k.shape[2]] == 0, float("-inf"))
         y = torch.softmax(at_least_f32(att), dim=-1).to(v.dtype) @ v   # [B, H, T, D]
         return self.proj(y.transpose(1, 2).reshape(b, t, -1))
 
@@ -86,8 +98,8 @@ class Block(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(n_embd, 4 * n_embd), nn.GELU(),
                                  nn.Linear(4 * n_embd, n_embd))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x: torch.Tensor, seq: Optional[tuple] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), seq)
         return x + self.mlp(self.ln2(x))
 
     def decode_step(self, x, pos, cache):
@@ -96,10 +108,23 @@ class Block(nn.Module):
 
 
 class GPT(nn.Module):
+    """``act_sharding``: None, or the ``('data', 'model')`` mesh of
+    :func:`..parallel.create_mesh` for sequence parallelism (the JAX
+    module's ``act_sharding``, :mod:`..parallel.sequence`): ``forward``
+    then keeps this rank's data rows and its tokens ``[r T / mp, (r + 1) T
+    / mp)`` through every block, gathers each attention's keys and values
+    over ``model`` and returns the gathered logits [B / data, T, vocab].
+    Sharded by ``tp`` (:func:`..parallel.shard_gpt`), the GPT is
+    Megatron-SP: the parallel layers move the sequence, and ``forward``
+    embeds the rank's tokens and runs no gather of its own. Decoding
+    ignores it, as in JAX."""
+
     def __init__(self, vocab_size: int = 1024, block_size: int = 512,
-                 n_layer: int = 12, n_head: int = 8, n_embd: int = 256, remat: bool = False):
+                 n_layer: int = 12, n_head: int = 8, n_embd: int = 256, remat: bool = False,
+                 act_sharding=None):
         super().__init__()
         self.vocab_size, self.block_size, self.remat = vocab_size, block_size, remat
+        self.act_sharding = act_sharding
         self.n_layer, self.n_head, self.n_embd = n_layer, n_head, n_embd
         self.tok_emb = nn.Embedding(vocab_size, n_embd)
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embd))
@@ -123,15 +148,35 @@ class GPT(nn.Module):
         nn.init.zeros_(self.pos_emb)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        """idx [B, T] -> logits [B, T, vocab]."""
+        """idx [B, T] -> logits [B, T, vocab] (under ``act_sharding``, of this
+        rank's data rows)."""
         t = idx.shape[1]
         if t > self.block_size:
             raise ValueError(f"sequence length {t} exceeds block size {self.block_size}")
-        x = self.tok_emb(idx) + self.pos_emb[:, :t]
+        mesh, seq, start = self.act_sharding, None, 0
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor
+
+            from ..parallel.mesh import MODEL_AXIS, shard_batch
+
+            mp = mesh.size(1)
+            if t % mp != 0:
+                raise ValueError(f"sequence length {t} not divisible by model_parallel={mp}")
+            group, start = mesh.get_group(MODEL_AXIS), mesh.get_local_rank(MODEL_AXIS) * t // mp
+            t = t // mp
+            idx = shard_batch(idx, mesh)[:, start:start + t]
+            if not isinstance(self.head.weight, DTensor):   # else tensor parallel gathers
+                seq = (group, start)
+        x = self.tok_emb(idx) + self.pos_emb[:, start:start + t]
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return self.head(self.ln_f(x))
+            x = checkpoint(block, x, seq, use_reentrant=False) if remat else block(x, seq)
+        logits = self.head(self.ln_f(x))
+        if seq is None:
+            return logits
+        from ..parallel.sequence import gather_logits
+
+        return gather_logits(logits, seq[0], dim=1)
 
     # -- KV-cache decoding -------------------------------------------------
     def init_cache(self, batch: int, length: Optional[int] = None) -> KVCache:

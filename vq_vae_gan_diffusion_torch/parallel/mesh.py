@@ -189,6 +189,18 @@ def broadcast_generator(generator: torch.Generator, mesh) -> None:
 
 
 @torch.no_grad()
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> None:
+    """Replace each of ``tensors`` (one dtype) by its sum over ``group``, in
+    place, in one all-reduce of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+@torch.no_grad()
 def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh) -> None:
     """Replace each of ``tensors`` by its mean over the data ranks, in place,
     in one all-reduce of their concatenation (one a dtype). A ``DTensor`` contributes its
@@ -201,14 +213,10 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh) -> None:
     local = [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
     for dtype in dict.fromkeys(t.dtype for t in local):     # one call a dtype, in order
         part = [t for t in local if t.dtype == dtype]
-        flat = torch.cat([t.reshape(-1) for t in part])
         all_reduce_mean.calls += 1
-        dist.all_reduce(flat, group=mesh.get_group(DATA_AXIS))
-        flat /= mesh.size(0)
-        offset = 0
+        all_reduce_sum(part, mesh.get_group(DATA_AXIS))
         for t in part:
-            t.copy_(flat[offset:offset + t.numel()].view_as(t))
-            offset += t.numel()
+            t /= mesh.size(0)
 
 
 all_reduce_mean.calls = 0

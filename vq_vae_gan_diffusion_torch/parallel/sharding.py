@@ -22,6 +22,14 @@
   parameter of a module it wraps, so such a leaf is sharded on dim 0;
 - ``tp_fsdp`` (``fsdp_tp``): both, on the 2-D mesh.
 
+On a GPT whose ``act_sharding`` is set (sequence parallelism), ``tp`` is
+Megatron-SP, as the JAX module's ``act_sharding`` constraint over ``tp``
+parameters: the LayerNorms take ``SequenceParallel()``, the
+column-parallel layers gather the sequence (``input_layouts=Shard(1)``),
+the row-parallel layers reduce-scatter onto it (``output_layouts=
+Shard(1)``), and the head gathers it and returns whole logits; the GPT's
+forward then runs none of its own gathers.
+
 AdamW is built after the sharding, so its moments are sharded like their
 parameters. Anything else raises ``ValueError``.
 """
@@ -105,13 +113,22 @@ def shard_gpt(gpt: nn.Module, mesh, plan: ShardingPlan) -> nn.Module:
 
         if gpt.n_head % mp:
             raise ValueError(f"n_head {gpt.n_head} not divisible by model_parallel={mp}")
-        layers = {**{m: ColwiseParallel() for m in _COLUMN_PARALLEL},
-                  **{m: RowwiseParallel() for m in _ROW_PARALLEL}}
+        if gpt.act_sharding is not None:       # Megatron-SP
+            from torch.distributed.tensor.parallel import SequenceParallel
+
+            layers = {**{m: ColwiseParallel(input_layouts=Shard(1)) for m in _COLUMN_PARALLEL},
+                      **{m: RowwiseParallel(output_layouts=Shard(1)) for m in _ROW_PARALLEL},
+                      "ln1": SequenceParallel(), "ln2": SequenceParallel()}
+            top = {"ln_f": SequenceParallel(),
+                   "head": ColwiseParallel(input_layouts=Shard(1), output_layouts=Replicate())}
+        else:
+            layers = {**{m: ColwiseParallel() for m in _COLUMN_PARALLEL},
+                      **{m: RowwiseParallel() for m in _ROW_PARALLEL}}
+            top = {"head": ColwiseParallel(output_layouts=Replicate())}
         for block in gpt.blocks:
             parallelize_module(block, mesh[MODEL_AXIS], layers)
             block.attn.n_head //= mp
-        parallelize_module(gpt, mesh[MODEL_AXIS],
-                           {"head": ColwiseParallel(output_layouts=Replicate())})
+        parallelize_module(gpt, mesh[MODEL_AXIS], top)
     if plan.fsdp:
         from torch.distributed.fsdp import fully_shard
 

@@ -120,8 +120,13 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         composite.vqvae.eval().requires_grad_(False)
         if self.sharding is not None:
             shard_gpt(composite.gpt, self.mesh, self.sharding)
+        # tp alone leaves the embeddings and LayerNorms plain tensors beside
+        # the DTensors, a mix that AdamW's foreach kernels refuse on CUDA
+        mixed = self.sharding is not None and self.sharding.tp and not self.sharding.fsdp
         opt = maybe_accumulate(torch.optim.AdamW(mingpt_param_groups(composite.gpt), lr=self.lr,
-                                                 betas=self.betas, eps=1e-8), self.trainer_cfg)
+                                                 betas=self.betas, eps=1e-8,
+                                                 foreach=False if mixed else None),
+                               self.trainer_cfg)
         state = TransformerState(composite.gpt, opt)
         n = sum(p.numel() for p in composite.gpt.parameters())
         self.logger.info("GPT params: %.1fM", n / 1e6)
