@@ -326,6 +326,7 @@ import time
 import torch
 
 from vq_vae_gan_diffusion_torch.models.shuffle_infer import unet_unit_shapes
+from vq_vae_gan_diffusion_torch.utils import tracing
 from vq_vae_gan_diffusion_torch.utils.profiling import (BF16_PEAK_FLOPS, F32_PEAK_FLOPS,
                                                         cuda_graph_ms, cuda_ms, hbm_bytes_per_s,
                                                         posterior_bound, ptxas_usage,
@@ -556,38 +557,6 @@ def phase_kernel(card: str) -> dict:
     return result
 
 
-def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by its kernel's name in the JSON line."""
-    from vq_vae_gan_diffusion_torch.ops.discrete_posterior import (
-        fused_posterior_sample, fused_posterior_sample_prng)
-    from vq_vae_gan_diffusion_torch.ops.gpt_decode import (fused_decode_stack,
-                                                           fused_decode_stack_q,
-                                                           fused_decode_stack_qkv)
-    from vq_vae_gan_diffusion_torch.ops.shuffle import fused_bottleneck, fused_downsample
-    return {"gpt_decode_stack": fused_decode_stack, "gpt_decode_stack_q": fused_decode_stack_q,
-            "gpt_decode_stack_qkv": fused_decode_stack_qkv, "shuffle_bottleneck": fused_bottleneck,
-            "shuffle_downsample": fused_downsample, "discrete_posterior": fused_posterior_sample,
-            "discrete_posterior_prng": fused_posterior_sample_prng}
-
-
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
-
-
-def reset_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "bf16_launches"):
-            fn.bf16_launches = 0
-
-
-def read_bf16_counts() -> dict:
-    """The launches of each kernel's bf16 instantiation since the last
-    :func:`reset_counts`, where any."""
-    return {name: fn.bf16_launches for name, fn in kernel_wrappers().items()
-            if getattr(fn, "bf16_launches", 0)}
-
-
 def phase_main() -> int:
     """The main path through the user's entry point, cold then warm. Returns
     the kernel launches counted in the cold run."""
@@ -598,7 +567,7 @@ def phase_main() -> int:
     counted = None
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv)
         total = time.perf_counter() - t0
@@ -846,11 +815,11 @@ def phase_vqdiffusion() -> dict:
     counted = None
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv)
         total = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         counted = launches if counted is None else counted
         idx, images = out["indices"], out["images"]
         if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= 1024:
@@ -1138,11 +1107,11 @@ def phase_vqofficial(card: str) -> dict:
     counted = None
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv, overrides={steps_path: VQO_STEPS})
         total = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         counted = launches if counted is None else counted
         idx, images = out["indices"], out["images"]
         if tuple(idx.shape) != (B, N) or int(idx.min()) < 0 or int(idx.max()) >= VQO_K:
@@ -1197,7 +1166,7 @@ def phase_transformer(card: str) -> dict:
                                  embedding_dim=512, num_layers=4, num_heads=8)
     tvq.predictor.init_weights(torch.Generator().manual_seed(11))
     tvq = tvq.cuda().eval()
-    none = {name: 0 for name in kernel_wrappers()}
+    none = dict.fromkeys(tracing.counts()["launches"], 0)
     runs = (("sample, plain ops", "sample", False, {}),
             ("sample, B6", "sample", True, {"discrete_posterior": TVQ_T - 1}),
             ("fast_sample, B6 at trunc_k 881", "fast_sample", True,
@@ -1208,12 +1177,12 @@ def phase_transformer(card: str) -> dict:
         tvq.diffusion.fused_posterior = mode
         getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(12))
         torch.cuda.synchronize()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(12))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         if launches != dict(none, **expect):
             raise AssertionError(f"{label}: launches {launches}, expected {expect}")
         if tuple(idx.shape) != (B, 16, 16) or int(idx.min()) < 0 or int(idx.max()) > 1023:
@@ -1359,16 +1328,16 @@ def phase_int8kv_path() -> dict:
     from vq_vae_gan_diffusion_torch import generate
     from vq_vae_gan_diffusion_torch.models.mingpt import sample_tokens
 
-    none = {name: 0 for name in kernel_wrappers()}
+    none = dict.fromkeys(tracing.counts()["launches"], 0)
     argv = ["--config", INT8KV_CONFIG, "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
     counted = {}
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv)
         total = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         counted.setdefault("int8kv", launches)
         tokens, images = out["tokens"], out["images"]
         if tuple(tokens.shape) != (B, 256) or int(tokens.min()) < 0 or int(tokens.max()) >= 1024:
@@ -1389,13 +1358,13 @@ def phase_int8kv_path() -> dict:
     for quant, name in (("int8", "gpt_decode_stack_q"), ("int4", "gpt_decode_stack_q"),
                         ("int4kv", "gpt_decode_stack_qkv")):
         torch.cuda.synchronize()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         tokens = sample_tokens(gpt, prefix, 1, 256, quant=quant,
                                generator=torch.Generator(device="cuda").manual_seed(16))
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         counted[quant] = launches
         if launches != dict(none, **{name: 256}):
             raise AssertionError(f"{quant}: launches {launches}, expected 256 of {name}")
@@ -1745,11 +1714,11 @@ def wide_prior_routes() -> None:
             for mode, kernel in ((False, None), (True, "discrete_posterior"),
                                  ("prng", "discrete_posterior_prng")):
                 tvq.diffusion.fused_posterior = mode
-                reset_counts()
+                tracing.reset_counts()
                 idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda")
                                            .manual_seed(14))
                 torch.cuda.synchronize()
-                launches = read_counts()
+                launches = tracing.counts()["launches"]
                 used = {name: v for name, v in launches.items() if v}
                 if list(used) != ([kernel] if fits and kernel else []) or \
                         tuple(idx.shape) != (B, g, g) or int(idx.min()) < 0 or \
@@ -1860,12 +1829,12 @@ def run_train_cli(label: str, config: str, log_dir: str, want_launches: dict,
 
     from vq_vae_gan_diffusion_torch.train import cli
 
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     out = cli.run(["--config", config, "--debug", *extra],
                   overrides={"trainer.log_dir": log_dir, **(overrides or {})})
     sec = time.perf_counter() - t0
-    launches = read_counts()
+    launches = tracing.counts()["launches"]
     want = {name: want_launches.get(name, 0) for name in launches}
     with open(os.path.join(out["run_dir"], "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -1999,12 +1968,12 @@ def phase_gpt_train(card: str) -> dict:
     if batch.shape != (STAGE2_B, 256, 256, 3):
         raise AssertionError(f"(p) batch {batch.shape}")
     worker = out["worker"]
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     worker.log_artifacts(torch.from_numpy(batch[:LOG_B]).cuda(), 0, 1)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = read_counts()
+    launches = tracing.counts()["launches"]
     grid = os.path.join(worker.run_dir, "transformer_epoch0_1.jpg")
     if {k: v for k, v in launches.items() if v} != {"gpt_decode_stack": 2 * N} \
             or not os.path.exists(grid):
@@ -2199,12 +2168,12 @@ def phase_pixel_train(card: str) -> dict:
     out = run_train_cli("r", PIXEL_CONFIG, log_dir, want, ("samples_epoch0.jpg",))
     worker = out["worker"]
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     images = worker.sample(PIXEL_SAMPLES)
     torch.cuda.synchronize()
     sample_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = tracing.counts()["launches"]
     if launches != {name: want.get(name, 0) for name in launches}:
         raise AssertionError(f"(r) the EMA's samples: launches {launches}, expected {want}")
     if tuple(images.shape) != (PIXEL_SAMPLES, PIXEL_HW, PIXEL_HW, 1) or \
@@ -2403,16 +2372,16 @@ def phase_demo(card: str) -> dict:
                                              posterior_scores(logits, x_t, coefs, g, trunc_k)))
     print(f"(t) B6 and B7 at the demo's logits [{b}, {n}, {k - 1}], t in {{0, 1, {steps // 2}, "
           f"{steps - 1}}}, trunc_k 0 and {trunc}: every check passes, max score gap {gap:.3e}")
-    none = {name: 0 for name in kernel_wrappers()}
+    none = dict.fromkeys(tracing.counts()["launches"], 0)
     structured = steps - 1 + len(range(steps - 1, -1, -4)) - 1
     counted = {}
     for mode, name in (("on", "discrete_posterior"), ("prng", "discrete_posterior_prng")):
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = vq_diffusion.run(["--device", "cuda", "--fused-posterior", mode])
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         if launches != dict(none, **{name: structured}):
             raise AssertionError(f"(t) {mode}: launches {launches}, expected {structured} {name}")
         for idx in (out["samples"], out["fast"]):
@@ -2442,7 +2411,7 @@ def phase_demo(card: str) -> dict:
 
 def no_launches(label: str) -> None:
     """Fails unless no kernel was launched since the counts were set to 0."""
-    launches = read_counts()
+    launches = tracing.counts()["launches"]
     if any(launches.values()):
         raise AssertionError(f"({label}) launches {launches}, expected none")
 
@@ -2476,7 +2445,7 @@ def phase_gaussian2d(card: str) -> dict:
     chain = {}
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv, overrides=g2d_steps)
         total = time.perf_counter() - t0
@@ -2562,11 +2531,11 @@ def phase_vqofficial1d(card: str) -> dict:
                             ("warm", "on", "discrete_posterior"),
                             ("prng", "prng", "discrete_posterior_prng")):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv + ["--fused-posterior", mode], overrides={steps_path: VQO_STEPS})
         total = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         want = {k: (VQO_STEPS - 1 if k == name else 0) for k in launches}
         if launches != want:
             raise AssertionError(f"(v) {run}: launches {launches}, expected {want}")
@@ -2660,7 +2629,7 @@ def phase_pixel2d(card: str) -> dict:
                         overrides={"architecture.gaussiandiffusion2d.sampling_steps": G2D_STEPS})
     worker = out["worker"]
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     images = worker.sample()
     torch.cuda.synchronize()
@@ -2706,7 +2675,7 @@ def phase_continuous(card: str) -> dict:
         worker.composite.sampling_timesteps = CONTINUOUS_STEPS
         numbers[model] = stage2_step_times("x", config, worker, torch.from_numpy(batch).cuda(),
                                            card)
-        reset_counts()
+        tracing.reset_counts()
         out = worker.generate_images(n_samples=B)
         no_launches("x")
         idx, images = out["indices"], out["images"]
@@ -2796,7 +2765,7 @@ def phase_vae(card: str) -> dict:
     gen_s = {}
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         out = generate.run(argv, overrides={"trainer.log_dir": log_dir})
         gen_s[run] = time.perf_counter() - t0
@@ -2842,7 +2811,7 @@ def phase_pixel_ddpm(card: str) -> dict:
     from vq_vae_gan_diffusion_torch import train_diffusion as tdiff
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_ddpm_")
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     out = tdiff.run(["--debug", "--log-dir", log_dir, "--data-root", log_dir])
     cli_s = time.perf_counter() - t0
@@ -2870,7 +2839,7 @@ def phase_pixel_ddpm(card: str) -> dict:
     numbers = stage2_step_times("z", "train_diffusion.py defaults", trainer,
                                 torch.from_numpy(batch).cuda(), card)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     images = trainer.sample(state, DDPM_SAMPLES)
     torch.cuda.synchronize()
@@ -3082,7 +3051,7 @@ def phase_bf16(card: str) -> None:
              ("recon_epoch0_0.jpg", "samples_epoch0.jpg"), {steps_path: VQO_STEPS}))
     for label, config, want, want_bf16, files, overrides in runs:
         out = run_train_cli(f"aa/{label}", config, log_dir, want, files, overrides, ("--bf16",))
-        got_bf16 = read_bf16_counts()
+        got_bf16 = {k: v for k, v in tracing.counts()["bf16_launches"].items() if v}
         if got_bf16 != want_bf16:
             raise AssertionError(f"(aa/{label}) bf16 launches {got_bf16}, expected {want_bf16}")
         worker = out["worker"]
@@ -3095,7 +3064,7 @@ def phase_bf16(card: str) -> None:
               "and the checkpoint, every one f32")
         del out, worker
         torch.cuda.empty_cache()
-    reset_counts()
+    tracing.reset_counts()
     out = tdiff.run(["--debug", "--bf16", "--log-dir", log_dir, "--data-root", log_dir])
     no_launches("aa/z")
     state = out["state"]
@@ -3173,20 +3142,20 @@ def phase_rest(card: str) -> None:
     tvq = tvq.cuda().eval()
     gen = torch.Generator(device="cuda").manual_seed(14)
     cond = torch.randn(B, 77, 512, generator=gen, device="cuda")
-    none = {name: 0 for name in kernel_wrappers()}
+    none = dict.fromkeys(tracing.counts()["launches"], 0)
     for label, method, mode, expect in (
             ("sample, B6", "sample", True, {"discrete_posterior": TVQ_T - 1}),
             ("fast_sample, B6 at trunc_k 881", "fast_sample", True,
              {"discrete_posterior": (TVQ_T - 1) // 4}),
             ("sample, prng (B7)", "sample", "prng", {"discrete_posterior_prng": TVQ_T - 1})):
         tvq.diffusion.fused_posterior = mode
-        reset_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         idx = getattr(tvq, method)(B, generator=torch.Generator(device="cuda").manual_seed(12),
                                    cond_emb=cond)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = read_counts()
+        launches = tracing.counts()["launches"]
         if launches != dict(none, **expect):
             raise AssertionError(f"(ab) {label}: launches {launches}, expected {expect}")
         if tuple(idx.shape) != (B, 16, 16) or int(idx.min()) < 0 or int(idx.max()) > 1023:
@@ -3578,12 +3547,12 @@ def phase_reference_checkpoints(card: str) -> dict:
     steps_path = "architecture.vqdiffusion.sampling_steps"
     argv = ["--config", REF_CONFIGS["vqdiffusion"], "--ckpt", imported["vqdiffusion"],
             "--n-samples", str(B), "--seed", "42", "--device", "cuda"]
-    reset_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     out = generate.run(argv, overrides={steps_path: VQO_STEPS,
                                         "architecture.vqvae.resume_path": imported["vqgan"]})
     sec = time.perf_counter() - t0
-    launches = read_counts()
+    launches = tracing.counts()["launches"]
     want = {name: 0 for name in launches}
     want.update(shuffle_bottleneck=39 * VQO_STEPS, shuffle_downsample=4 * VQO_STEPS,
                 discrete_posterior=VQO_STEPS - 1)
@@ -3611,22 +3580,6 @@ def phase_reference_checkpoints(card: str) -> dict:
     return launches
 
 
-def collective_counts() -> dict:
-    """The data-parallel collectives' counts (``parallel/mesh.py``)."""
-    from vq_vae_gan_diffusion_torch.parallel import (all_gather_rows, all_reduce_mean,
-                                                     sync_batch_stats)
-    return {"all_reduce_mean": all_reduce_mean.calls, "all_gather_rows": all_gather_rows.calls,
-            "sync_batch_stats": sync_batch_stats.calls,
-            "sync_batch_stats_grad": sync_batch_stats.grad_calls}
-
-
-def reset_collectives() -> None:
-    from vq_vae_gan_diffusion_torch.parallel import (all_gather_rows, all_reduce_mean,
-                                                     sync_batch_stats)
-    all_reduce_mean.calls = all_gather_rows.calls = 0
-    sync_batch_stats.calls = sync_batch_stats.grad_calls = 0
-
-
 def ae_stage1_step(device: str = "cuda") -> tuple:
     """(ae) one stage-1 step from the seeded weights on (o)'s first batch of
     seed 0 (this rank's rows under a group): the VQVAE's and the
@@ -3644,10 +3597,10 @@ def ae_stage1_step(device: str = "cuda") -> tuple:
     worker.state = worker.init_state()
     worker.replicate_state()
     local = shard_batch(batch, worker.mesh).to(device)
-    reset_collectives()
+    tracing.reset_counts()
     _, metrics = worker.train_multi_step(worker.state, [local], worker.generator)
     torch.cuda.synchronize()
-    counts = collective_counts()
+    counts = tracing.counts()["collectives"]
     values = [v.detach().clone() for v in metrics.values()]
     all_reduce_mean(values, worker.mesh)                  # the global batch's, as the loop logs
     params = {f"vqvae.{k}": v.detach().cpu() for k, v in worker.state.vqvae.named_parameters()}
@@ -3676,11 +3629,11 @@ def ae_gpt_steps(batches, sharding: str | None, hook: bool = True) -> dict:
     for b in batches:
         worker.state, m = worker.train_multi_step(worker.state, [b.cuda()], worker.generator)
         losses.append(float(m["ce_loss"]))
-    reset_counts()
+    tracing.reset_counts()
     if hook:
         worker.on_rank0(worker.log_artifacts, batches[-1][:LOG_B].cuda(), 0, 0)
     torch.cuda.synchronize()
-    out = {"losses": losses, "launches": read_counts()["gpt_decode_stack"],
+    out = {"losses": losses, "launches": tracing.counts()["launches"]["gpt_decode_stack"],
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "placements": sorted({str(tuple(p.placements)) for p in worker.state.gpt.parameters()
                                  if hasattr(p, "placements")})}
@@ -3905,11 +3858,11 @@ def af_sample(gpt, sos: int) -> tuple:
     from vq_vae_gan_diffusion_torch.models.mingpt import sample_tokens
 
     prefix = torch.full((LOG_B, 1), sos, dtype=torch.long, device="cuda")
-    reset_counts()
+    tracing.reset_counts()
     tokens = sample_tokens(gpt, prefix, 1, N, temperature=1e-4,
                            generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    return tokens.cpu(), read_counts()["gpt_decode_stack"]
+    return tokens.cpu(), tracing.counts()["launches"]["gpt_decode_stack"]
 
 
 def af_replicated(ref_path: str) -> dict:

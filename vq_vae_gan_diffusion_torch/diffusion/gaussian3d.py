@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import draw_rows
+from ..utils import tracing
 from .gaussian import _extract, _randn, make_schedule
 
 ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor], torch.Tensor]
@@ -180,18 +181,20 @@ class GaussianDiffusion3D:
         [F, B, H, W, C] mapped the same way (:func:`film_frames`).
         ``step_noise[i]`` is the noise of the i-th step (t = T-1-i)."""
         h, w = self.image_sizes
-        x = x_T if x_T is not None else _randn((n_samples, h, w, self.in_channels),
-                                               generator, device)
-        keep = set(film_frames(self.timesteps, self._film_every(self.timesteps))) \
-            if return_all_timestamps else set()
-        frames = []
-        for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
-            noise = (step_noise[i] if step_noise is not None
-                     else _randn(x.shape, generator, x.device))
-            x = self._reverse_step(x, t, noise, clipped_reverse_diffusion)
-            if i in keep:
-                frames.append(x)
-        return _with_frames(x, frames, return_all_timestamps)
+        with tracing.span("gaussian3d.chain"):
+            x = x_T if x_T is not None else _randn((n_samples, h, w, self.in_channels),
+                                                   generator, device)
+            keep = set(film_frames(self.timesteps, self._film_every(self.timesteps))) \
+                if return_all_timestamps else set()
+            frames = []
+            for i, t in enumerate(range(self.timesteps - 1, -1, -1)):
+                with tracing.span("gaussian3d.step"):
+                    noise = (step_noise[i] if step_noise is not None
+                             else _randn(x.shape, generator, x.device))
+                    x = self._reverse_step(x, t, noise, clipped_reverse_diffusion)
+                    if i in keep:
+                        frames.append(x)
+            return _with_frames(x, frames, return_all_timestamps)
 
     def ddim_times(self) -> np.ndarray:
         """The DDIM time grid, descending: linspace(-1, T-1, S) as ints."""
@@ -208,33 +211,35 @@ class GaussianDiffusion3D:
         the filmstrip as :meth:`ddpm_sample` does, its frames counted over
         the S-1 steps by ``sampling_timesteps // 24``."""
         h, w = self.image_sizes
-        x = x_T if x_T is not None else _randn((n_samples, h, w, self.in_channels),
-                                               generator, device)
         times = self.ddim_times()
         eta = self.ddim_sampling_eta
         ac_all = self.sched.alphas_cumprod
         keep = set(film_frames(len(times) - 1, self._film_every(self.sampling_timesteps))) \
             if return_all_timestamps else set()
-        frames = []
-        for i, (time, time_next) in enumerate(zip(times[:-1], times[1:])):
-            time, time_next = int(time), int(time_next)
-            tb = torch.full((n_samples,), time, dtype=torch.long, device=x.device)
-            pred_noise = self.model_fn(x, None, tb)
-            x_start = self.predict_start_from_noise(x, tb, pred_noise)
-            if clipped_reverse_diffusion:
-                x_start = torch.clip(x_start, -1.0, 1.0)
-            at, at1 = ac_all[time], ac_all[max(time_next, 0)]
-            sigma = eta * torch.sqrt((1 - at / at1) * (1 - at1) / (1 - at))
-            c = torch.sqrt(torch.clamp(1 - at1 - sigma ** 2, min=0.0))
-            noise = (step_noise[i] if step_noise is not None
-                     else _randn(x.shape, generator, x.device))
-            if time_next < 0:
-                x = x_start
-            else:
-                x = x_start * torch.sqrt(at1) + c * pred_noise + sigma * noise
-            if i in keep:
-                frames.append(x)
-        return _with_frames(x, frames, return_all_timestamps)
+        with tracing.span("gaussian3d.chain"):
+            x = x_T if x_T is not None else _randn((n_samples, h, w, self.in_channels),
+                                                   generator, device)
+            frames = []
+            for i, (time, time_next) in enumerate(zip(times[:-1], times[1:])):
+                with tracing.span("gaussian3d.step"):
+                    time, time_next = int(time), int(time_next)
+                    tb = torch.full((n_samples,), time, dtype=torch.long, device=x.device)
+                    pred_noise = self.model_fn(x, None, tb)
+                    x_start = self.predict_start_from_noise(x, tb, pred_noise)
+                    if clipped_reverse_diffusion:
+                        x_start = torch.clip(x_start, -1.0, 1.0)
+                    at, at1 = ac_all[time], ac_all[max(time_next, 0)]
+                    sigma = eta * torch.sqrt((1 - at / at1) * (1 - at1) / (1 - at))
+                    c = torch.sqrt(torch.clamp(1 - at1 - sigma ** 2, min=0.0))
+                    noise = (step_noise[i] if step_noise is not None
+                             else _randn(x.shape, generator, x.device))
+                    if time_next < 0:
+                        x = x_start
+                    else:
+                        x = x_start * torch.sqrt(at1) + c * pred_noise + sigma * noise
+                    if i in keep:
+                        frames.append(x)
+            return _with_frames(x, frames, return_all_timestamps)
 
     def sampling(self, n_samples: int, **kwargs):
         fn = self.ddim_sample if self.sample_method == "ddim" else self.ddpm_sample
@@ -285,11 +290,12 @@ class VQGaussianDiffusion3D(nn.Module):
         if gaussian.dim() == 4:
             gaussian = gaussian[..., 0] if gaussian.shape[-1] == 1 else gaussian.squeeze(1)
         b, n, d = gaussian.shape
-        flat = gaussian.reshape(-1, d).to(self.lookup_normed.dtype)
-        flat = flat / torch.clamp(torch.linalg.vector_norm(flat, dim=-1, keepdim=True),
-                                  min=1e-12)
-        sim = flat @ self.lookup_normed.T
-        return torch.argmax(sim, dim=-1).reshape(b, n)
+        with tracing.span("gaussian3d.readout"):
+            flat = gaussian.reshape(-1, d).to(self.lookup_normed.dtype)
+            flat = flat / torch.clamp(torch.linalg.vector_norm(flat, dim=-1, keepdim=True),
+                                      min=1e-12)
+            sim = flat @ self.lookup_normed.T
+            return torch.argmax(sim, dim=-1).reshape(b, n)
 
     def loss(self, indices_x0: torch.Tensor, generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.gpt_decode import (QUANT_MODES, fused_decode_stack, fused_decode_stack_q,
                               fused_decode_stack_qkv, pack_decode_params)
+from ..utils import tracing
 from .blocks import at_least_f32
 
 KVCache = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -248,24 +249,26 @@ def sample_tokens(gpt: GPT, prefix: torch.Tensor, prefix_len: int, steps: int,
         raise ValueError(f"unsupported quant mode {quant!r}")
     if not fused and dtype != torch.float32:
         raise ValueError("the fused=False route runs in float32 only")
-    b = prefix.shape[0]
-    total = min(prefix_len + steps - 1, gpt.block_size)
-    if fused:
-        step = fused_step(gpt, b, total, temperature, dtype, quant)
-    else:
-        cache = gpt.init_cache(b, total)
-        step = lambda token, t: gpt.decode_step(token, t, cache).float() / temperature
-    out = []
-    token = prefix[:, 0]
-    for t in range(total):
-        token_in = prefix[:, t] if t < prefix_len else token
-        logits = step(token_in, t)
-        if top_k is not None:
-            logits = top_k_filter(logits, top_k)
-        token = categorical(logits, generator)
-        if t >= prefix_len - 1:
-            out.append(token)
-    return torch.stack(out, dim=1)
+    with tracing.span("gpt.sample"):
+        b = prefix.shape[0]
+        total = min(prefix_len + steps - 1, gpt.block_size)
+        if fused:
+            step = fused_step(gpt, b, total, temperature, dtype, quant)
+        else:
+            cache = gpt.init_cache(b, total)
+            step = lambda token, t: gpt.decode_step(token, t, cache).float() / temperature
+        out = []
+        token = prefix[:, 0]
+        for t in range(total):
+            with tracing.span("gpt.position"):
+                token_in = prefix[:, t] if t < prefix_len else token
+                logits = step(token_in, t)
+                if top_k is not None:
+                    logits = top_k_filter(logits, top_k)
+                token = categorical(logits, generator)
+                if t >= prefix_len - 1:
+                    out.append(token)
+        return torch.stack(out, dim=1)
 
 
 def fused_step(gpt: GPT, b: int, total: int, temperature: float = 1.0,

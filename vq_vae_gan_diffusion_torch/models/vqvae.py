@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..config import Config, resolve_img_channels, resolve_img_size
+from ..utils import tracing
 from .codebook import CodeBook
 from .decoder import Decoder
 from .encoder import Encoder
@@ -89,8 +90,9 @@ class VQVAE(nn.Module):
 
     def encode(self, x: torch.Tensor):
         """x [B, H, W, C] -> (z_q [B, h, w, D], indices [B, h, w], vq loss)."""
-        h = self.quant_conv(self.encoder(_nchw(x)))
-        return self.codebook(_nhwc(h))
+        with tracing.span("vqgan.encode"):
+            h = self.quant_conv(self.encoder(_nchw(x)))
+            return self.codebook(_nhwc(h))
 
     def decode(self, z_q: torch.Tensor) -> torch.Tensor:
         """z_q [B, h, w, D] -> images [B, H, W, C]."""
@@ -99,7 +101,8 @@ class VQVAE(nn.Module):
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Token indices [B, h, w] or [B, h*w] -> images [B, H, W, C]."""
         b, grid = indices.shape[0], self.latent_size
-        return self.decode(self.codebook.lookup(indices.reshape(b, grid, grid)))
+        with tracing.span("vqgan.decode"):
+            return self.decode(self.codebook.lookup(indices.reshape(b, grid, grid)))
 
 
 @torch.no_grad()

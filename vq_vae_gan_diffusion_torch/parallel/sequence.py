@@ -15,9 +15,9 @@ regions, and two explicit gathers over ``model`` stand for GSPMD's:
 
 Each rank's parameter gradients then hold its own tokens' part:
 :func:`reduce_sequence_gradients` sums them over ``model`` and averages
-them over ``data``. Each function counts its collectives in ``.calls``
+them over ``data``. The two gathers count their collectives in ``.calls``
 (and, for the backward's, ``.grad_calls``), as the kernel wrappers count
-their launches.
+their launches (:func:`..utils.tracing.counts` reads them).
 """
 
 from __future__ import annotations
@@ -95,10 +95,6 @@ def reduce_sequence_gradients(params: Iterable[torch.Tensor], mesh) -> None:
 
     grads = [p.grad for p in params if p.grad is not None]
     plain = [g for g in grads if not isinstance(g, DTensor)]
-    reduce_sequence_gradients.calls += 1
     if plain:
         all_reduce_sum(plain, mesh.get_group(MODEL_AXIS))
     all_reduce_mean(grads, mesh)
-
-
-reduce_sequence_gradients.calls = 0

@@ -43,7 +43,7 @@ from ..config import Config
 from ..parallel import (all_reduce_mean, any_rank, broadcast_generator, create_mesh, data_rows,
                         is_rank0, reduce_gradients, replicate)
 from ..utils import (MetricWriter, adaptive_save_step, compute_autocast, make_grid,
-                     resolve_device, save_image, to_uint8)
+                     resolve_device, save_image, to_uint8, tracing)
 
 
 class Worker:
@@ -102,16 +102,17 @@ class ServingWorker(Worker):
         between phases, and write ``samples_epoch{epoch}.jpg``. Returns the
         codes, the NHWC images, the grid's path and each phase's seconds."""
         self._sync()
-        t0 = time.perf_counter()
-        codes = sample()
-        self._sync()
-        t1 = time.perf_counter()
-        images = decode(codes)
-        self._sync()
-        t2 = time.perf_counter()
-        grid = make_grid(self.to_uint8(images), nrow=4)
-        path = os.path.join(self.run_dir, f"samples_epoch{epoch}.jpg")
-        save_image(grid, path)
+        with tracing.span("serve.request"):
+            t0 = time.perf_counter()
+            codes = sample()
+            self._sync()
+            t1 = time.perf_counter()
+            images = decode(codes)
+            self._sync()
+            t2 = time.perf_counter()
+            grid = make_grid(self.to_uint8(images), nrow=4)
+            path = os.path.join(self.run_dir, f"samples_epoch{epoch}.jpg")
+            save_image(grid, path)
         self.logger.info("sampled %s codes in %.3f s, decoded in %.3f s -> %s",
                          tuple(codes.shape), t1 - t0, t2 - t1, path)
         return {"codes": codes, "images": images, "path": path,

@@ -51,9 +51,11 @@ f32, its sampling hooks sample in bf16 (the GPT's decode stack, the folded
 U-Net's units and the discrete posterior in their bf16 builds where the
 hook gives them bf16), and parameters, Adam's moments, EMA copies,
 BatchNorm statistics and checkpoints stay f32. ``--profile`` writes a
-``torch.profiler`` trace of the first epoch (CPU and CUDA activity) as the
-Chrome trace ``<run_dir>/profile/trace.json``, then trains the other
-epochs, as the root CLI does. ``trainer.steps_per_dispatch``, SIGTERM and
+``torch.profiler`` trace of the first epoch (CPU and CUDA activity, and
+the program's spans of ``utils/tracing.SPANS``: ``train.step`` and its
+forward, backward and optimizer phases, the frozen encoder's
+``vqgan.encode``) as the Chrome trace ``<run_dir>/profile/trace.json``,
+then trains the other epochs, as the root CLI does. ``trainer.steps_per_dispatch``, SIGTERM and
 TensorBoard are the loop's (``train/base.py``). ``--fused-sampler`` and ``--fused-posterior``
 write the keys the root ``train.py`` writes (``config.apply_fused_flags``,
 shared with ``generate``). When the val split does not load, a warning and
@@ -100,7 +102,8 @@ def run(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--device", type=str, default=None, choices=["cuda", "cpu"],
                         help="default cuda; raises when no GPU is visible")
     parser.add_argument("--profile", action="store_true",
-                        help="a torch.profiler trace of the first epoch under "
+                        help="a torch.profiler trace of the first epoch, with the "
+                             "program's spans (train.step and its phases), under "
                              "<run_dir>/profile/trace.json")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (parameters, moments, EMA and checkpoints "

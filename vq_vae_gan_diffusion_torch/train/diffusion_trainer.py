@@ -18,13 +18,14 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from ..config import Config, resolve_batch_size
 from ..diffusion.discrete import LtState
+from ..utils import tracing
 from ..utils.ema import ema_update
 from ..utils.schedules import torch_onecycle_schedules
 from .base import MultiSteps, TrainingWorker, maybe_accumulate
@@ -109,28 +110,38 @@ class DiffusionTrainer(TrainingWorker):
     def _update(self, state: DiffusionState, loss: torch.Tensor) -> None:
         """:meth:`_step` at the schedule's lr and beta1, the EMA on its
         cadence."""
+        self._step(state, loss, self.ema_decay, self.model_ema_steps, self._schedule)
+
+    def _schedule(self, state: DiffusionState) -> None:
+        """Set the optimizer's lr and beta1 to the schedule's at the update
+        count."""
         opt = state.opt.opt if isinstance(state.opt, MultiSteps) else state.opt
         for group in opt.param_groups:
             group["lr"] = self.lr_fn(state.updates)
             group["betas"] = (self.b1_fn(state.updates), group["betas"][1])
-        self._step(state, loss, self.ema_decay, self.model_ema_steps)
 
     def _step(self, state: DiffusionState, loss: torch.Tensor, ema_decay: float,
-              ema_every: int) -> None:
+              ema_every: int, schedule: Optional[Callable[[DiffusionState], None]] = None
+              ) -> None:
         """Backward of ``loss``, the gradients averaged over the data ranks
-        and one optimizer step; on steps whose count before the step is a
-        multiple of ``ema_every`` the EMA's parameters move by ``ema_decay``
-        and its buffers (BatchNorm statistics) are copied; moves the step
-        count."""
-        state.opt.zero_grad()
-        loss.backward()
-        self.reduce_gradients(state.unet)
-        state.opt.step()
-        if getattr(state.opt, "mini_step", 0) == 0:
-            state.updates += 1
-        if state.step % ema_every == 0:
-            ema_update(state.ema, state.unet, ema_decay)
-            with torch.no_grad():
-                for e, b in zip(state.ema.buffers(), state.unet.buffers()):
-                    e.copy_(b)
+        and one optimizer step, after ``schedule(state)`` sets its
+        hyperparameters where given; on steps whose count before the step
+        is a multiple of ``ema_every`` the EMA's parameters move by
+        ``ema_decay`` and its buffers (BatchNorm statistics) are copied;
+        moves the step count."""
+        with tracing.span("train.backward"):
+            state.opt.zero_grad()
+            loss.backward()
+            self.reduce_gradients(state.unet)
+        with tracing.span("train.optimizer"):
+            if schedule is not None:
+                schedule(state)
+            state.opt.step()
+            if getattr(state.opt, "mini_step", 0) == 0:
+                state.updates += 1
+            if state.step % ema_every == 0:
+                ema_update(state.ema, state.unet, ema_decay)
+                with torch.no_grad():
+                    for e, b in zip(state.ema.buffers(), state.unet.buffers()):
+                        e.copy_(b)
         state.step += 1

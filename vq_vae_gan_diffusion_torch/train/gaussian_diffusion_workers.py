@@ -61,7 +61,7 @@ from ..diffusion.gaussian3d import GaussianDiffusion3D
 from ..models.shuffle_infer import eval_forward
 from ..models.unet1d import Unet1D
 from ..models.unet_shuffle import ShuffleUNet
-from ..utils import make_grid, save_image
+from ..utils import make_grid, save_image, tracing
 from ..utils.init_utils import torch_like_reinit
 from .base import ClipByGlobalNorm, maybe_accumulate
 from .diffusion_trainer import DiffusionState, DiffusionTrainer
@@ -137,14 +137,15 @@ class GaussianDiffusion2DWorker(DiffusionTrainer):
         """One step on images ``batch`` [B, H, W, 1] (or [B, H, W]) ->
         (state, metrics). ``t`` and ``noise`` come from ``generator`` unless
         given."""
-        imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        x0 = imgs[..., 0] if imgs.dim() == 4 else imgs
-        unet = state.unet.train()
-        self.process.model_fn = lambda x, self_cond, tt: unet(x, self_cond, tt)
-        with self.autocast():
-            loss = self.process.loss(x0, generator, t=t, noise=noise)
-        self._step(state, loss, self.ema_decay, self.ema_every)
-        return state, {"loss": loss.detach()}
+        with tracing.span("train.step"):
+            imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
+            x0 = imgs[..., 0] if imgs.dim() == 4 else imgs
+            unet = state.unet.train()
+            self.process.model_fn = lambda x, self_cond, tt: unet(x, self_cond, tt)
+            with tracing.span("train.forward"), self.autocast():
+                loss = self.process.loss(x0, generator, t=t, noise=noise)
+            self._step(state, loss, self.ema_decay, self.ema_every)
+            return state, {"loss": loss.detach()}
 
     # -- artifacts -------------------------------------------------------------
     @torch.no_grad()
@@ -253,13 +254,14 @@ class GaussianDiffusion3DWorker(DiffusionTrainer):
                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
         """One step on images ``batch`` [B, H, W, C] -> (state, metrics). ``t``
         and ``noise`` come from ``generator`` unless given."""
-        imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        unet = state.unet.train()
-        self.process.model_fn = lambda x, self_cond, tt: unet(x, None, tt)
-        with self.autocast():
-            loss = self.process.loss(imgs, generator, t=t, noise=noise)
-        self._update(state, loss)
-        return state, {"loss": loss.detach()}
+        with tracing.span("train.step"):
+            imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
+            unet = state.unet.train()
+            self.process.model_fn = lambda x, self_cond, tt: unet(x, None, tt)
+            with tracing.span("train.forward"), self.autocast():
+                loss = self.process.loss(imgs, generator, t=t, noise=noise)
+            self._update(state, loss)
+            return state, {"loss": loss.detach()}
 
     # -- artifacts -------------------------------------------------------------
     @torch.no_grad()

@@ -36,7 +36,7 @@ import torch
 from ..checkpoint import read_training_checkpoint, restore
 from ..config import Config
 from ..models.vq_diffusion_composite import VQDiffusionComposite
-from ..utils import make_grid, save_image
+from ..utils import make_grid, save_image, tracing
 from .base import ServingWorker
 from .diffusion_trainer import DiffusionState, DiffusionTrainer
 
@@ -114,12 +114,13 @@ class VQDiffusionWorker(DiffusionTrainer, ServingWorker):
         """One step on ``batch`` [B, H, W, C] -> (state, metrics). ``t`` and
         ``noise`` (gaussian3d: the Gaussian noise; VQ_Official: the Gumbel
         noise of q(x_t | x_0)) come from ``generator`` unless given."""
-        imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        with self.autocast():
-            loss, metrics, state.lt = self.composite.loss(imgs, generator, t=t, noise=noise,
-                                                          lt=state.lt)
-        self._update(state, loss)
-        return state, {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        with tracing.span("train.step"):
+            imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
+            with tracing.span("train.forward"), self.autocast():
+                loss, metrics, state.lt = self.composite.loss(imgs, generator, t=t,
+                                                              noise=noise, lt=state.lt)
+            self._update(state, loss)
+            return state, {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
 
     # -- artifacts -------------------------------------------------------------
     def log_artifacts(self, batch: torch.Tensor, epoch: int, index: int) -> None:

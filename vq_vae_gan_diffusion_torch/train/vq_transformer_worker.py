@@ -45,7 +45,7 @@ from ..models.blocks import at_least_f32
 from ..models.mingpt import GPT
 from ..models.vq_transformer import VQTransformer
 from ..parallel import resolve_sharding_rules, shard_gpt
-from ..utils import make_grid, save_image
+from ..utils import make_grid, save_image, tracing
 from .base import ServingWorker, TrainingWorker, maybe_accumulate
 
 WEIGHT_DECAY = 0.01
@@ -251,20 +251,25 @@ class VQTransformerWorker(TrainingWorker, ServingWorker):
         """One step on ``batch`` [B, H, W, C] -> (state, metrics). The
         corruption draws come from ``generator`` unless ``keep`` and
         ``random_indices`` [B, T] are given."""
-        imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
-        with self.autocast():
-            logits, targets = self.composite(imgs, generator, keep=keep,
-                                             random_indices=random_indices)
-        logits = at_least_f32(logits)
-        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
-        acc = (logits.argmax(-1) == targets).float().mean()
-        state.opt.zero_grad()
-        loss.backward()
-        if self.sharding is None or not self.sharding.fsdp:   # FSDP reduces its own
-            self.reduce_gradients(state.gpt)
-        state.opt.step()
-        state.step += 1
-        return state, {"ce_loss": loss.detach(), "token_accuracy": acc.detach()}
+        with tracing.span("train.step"):
+            imgs = batch if isinstance(batch, torch.Tensor) else self.batch_to_device(batch)
+            with tracing.span("train.forward"):
+                with self.autocast():
+                    logits, targets = self.composite(imgs, generator, keep=keep,
+                                                     random_indices=random_indices)
+                logits = at_least_f32(logits)
+                loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                       targets.reshape(-1))
+                acc = (logits.argmax(-1) == targets).float().mean()
+            with tracing.span("train.backward"):
+                state.opt.zero_grad()
+                loss.backward()
+                if self.sharding is None or not self.sharding.fsdp:   # FSDP reduces its own
+                    self.reduce_gradients(state.gpt)
+            with tracing.span("train.optimizer"):
+                state.opt.step()
+            state.step += 1
+            return state, {"ce_loss": loss.detach(), "token_accuracy": acc.detach()}
 
     # -- artifacts -------------------------------------------------------------
     def log_artifacts(self, batch: torch.Tensor, epoch: int, index: int) -> None:
