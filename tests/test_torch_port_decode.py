@@ -154,9 +154,10 @@ def test_wrapper_rejects_bad_cuda_arguments(setup):
 
 def test_phase_stamps_take_a_cuda_int64_buffer():
     """The profiling stamps of the persistent launch: start, the 8 barriers
-    of each layer, end; any buffer but a contiguous int64 CUDA one is
-    refused before the library is touched."""
-    assert tgd.stamp_rows(12) == 98
+    of each layer, end, and three rows of ring counters for each of the four
+    products; any buffer but a contiguous int64 CUDA one is refused before
+    the library is touched."""
+    assert tgd.stamp_rows(12) == 110
     for bad in (torch.zeros(8, dtype=torch.int64), torch.zeros(8, dtype=torch.int32, device="meta")):
         with pytest.raises(ValueError, match="int64 CUDA"):
             tgd.record_phase_stamps(bad)

@@ -229,7 +229,7 @@ def test_quant_bad_arguments_raise(setup):
         tgd._check_cuda_args(x_t, packed, kv_t, 3, H, sc_t[:, :, :, :1].contiguous())
     with pytest.raises(ValueError, match="head width of at least 16"):
         tgd._check_cuda_args(x_t, packed, kv_t, 3, 8, sc_t)
-    with pytest.raises(ValueError, match="C % 64"):
+    with pytest.raises(ValueError, match="C % 256"):
         wide = TorchGPT(vocab_size=V, block_size=16, n_layer=1, n_head=2, n_embd=32)
         tgd._check_cuda_args(torch.zeros(1, 32), tgd.pack_decode_params(wide, quant="int4"),
                              torch.zeros(1, 1, 4, 64), 0, 2)

@@ -19,29 +19,54 @@
 // f32 CUDA cores and ~295 for bf16 tensor cores), so the kernel is bound by
 // device-memory bytes: the 12*C^2 weights per layer plus the L*B*t*2C cache
 // rows it reads. At C = 1024 one product streams only 4-17 MB, a few
-// microseconds at 3.35 TB/s: as separate kernels (98 a call) each paid a
-// launch's ramp, tail and gap, and the host spent as long issuing them as
-// the device running them. What the design does about it:
+// microseconds at 3.35 TB/s, and the phases between the products (LayerNorm,
+// attention, GELU) and the grid barriers take longer than the products' own
+// arithmetic. What the design does about it:
 //   - one launch a position, like the TPU kernel's one pallas_call with
-//     grid (L,): a cooperative grid as large as can be resident (two blocks
-//     of 256 threads on each SM) runs every phase in order, each phase a
-//     loop of the block over the virtual blocks of the kernel it once was,
-//     and a grid barrier between dependent phases (8 a layer);
-//   - before it waits at the barrier in front of a product, a block issues
-//     the copies (cp.async) of the weight tiles of its first two virtual
-//     blocks of that product into shared memory (weights are read-only in
-//     the launch), which at the main path's shapes is the whole product:
-//     the weights stream during the small phase and the barrier before it;
-//     later tiles, where there are any, are copied while the block
-//     multiplies the one before (two buffers of weights and activations);
-//   - every weight byte is read once per token, a lane copying the pieces
-//     of its warp's rows that it will itself multiply, up to 16 bytes each;
-//   - the products are split over K (slices of <= 256 columns) so that even
-//     the C-wide outputs (proj, fc2) fill the grid; the B activation rows of
-//     a slice sit in shared memory, staged once for the block's 32 weight
-//     rows, and each value read there serves 4 of them;
-//   - a warp's 4 x 16 dot products are reduced over its lanes by one
-//     reduce-scatter (62 shuffles, not 320);
+//     grid (L,): a cooperative grid of two blocks on each SM runs every
+//     phase in order, each phase a loop of the block over the virtual
+//     blocks of the kernel it once was, and a grid barrier between
+//     dependent phases (8 a layer);
+//   - a block is 8 consumer warps, which run the phases, and one producer
+//     warp, which does nothing but stream the block's weight tiles into a
+//     ring of slots in shared memory. The producer knows every tile of the
+//     launch up front: the virtual blocks vb = blockIdx.x + i * gridDim.x of
+//     each product, in phase order, layer after layer. Weights are read-only
+//     in the launch, so it fills across any number of grid barriers, bounded
+//     only by free slots: the weights stream while the consumers run the
+//     small phases and wait at the barriers;
+//   - a tile is 32 weight rows of one K slice; each producer lane copies one
+//     row segment (1 KB in f32, 256 B in int8 at C = 1024) with a bulk copy
+//     (cp.async.bulk, L2 evict-first) that completes on the slot's "full"
+//     mbarrier with its byte count; each consumer warp arrives on the slot's
+//     "empty" mbarrier once it has read its 4 rows, and the producer refills
+//     the slot after all 8 have. A product multiplies tiles that are already
+//     there, and the next tile's copy overlaps the current tile's product;
+//   - the producer never joins a grid barrier, so the consumers meet at
+//     their own: a named block barrier over the 8 consumer warps (bar.sync
+//     1, 256) around an arrival counter in global memory whose top bit flips
+//     when the last block arrives (cooperative groups' scheme). The launch
+//     stays cooperative for its co-residency guarantee;
+//   - the ring takes every byte of the block's half of the SM (115,712 of
+//     the SM's 233,472) that the consumer area leaves: two activation
+//     buffers of 16 KB, or attention's scratch where that is larger (they
+//     are used in different phases). At C = 1024, N = 256 that is 2 slots of
+//     32 KB in f32, 5 of 16 KB in bf16, 10 in int8 and 20 in int4: 17-21 MB
+//     of weights in flight over the card. Two blocks of 9 warps, not one of
+//     16 + 1, keep the 8-warp virtual block, the K splits and the
+//     reduce-scatter as they were;
+//   - every weight byte is read once per token; the activation rows of a
+//     product's virtual blocks are staged by the consumers (cp.async through
+//     L2), two at once, each activation value read there serving 4 weight
+//     rows of a warp;
+//   - the products are split over K (slices of <= 256 columns, a multiple of
+//     16 bytes of weights) so that even the C-wide outputs (proj, fc2) fill
+//     the grid;
+//   - a warp's 4 x 16 dot products run in two passes of 4 x 8 (nine warps
+//     a block leave ptxas 96 registers a thread: five warps share an SM
+//     quarter's register file), each reduced over the warp's lanes by one
+//     reduce-scatter (62 shuffles in all, not 320), a sum for sum the one
+//     pass the kernel made before;
 //   - the split partial sums meet in the next phase (attention, LayerNorm or
 //     GELU), which adds them in a fixed order, so results are deterministic
 //     and no extra pass over the activations is made;
@@ -50,8 +75,8 @@
 // output, the split partials) is read with ld.global.cg or cp.async.cg,
 // through L2, never through the non-coherent read-only path; only weights,
 // scales, biases, LN affines and the cache rows < t are read with __ldg or
-// (weights) cp.async.ca.
-// No TMA or tensor cores yet: the bf16 products run on the CUDA cores.
+// (weights) bulk copies.
+// No tensor cores yet: the bf16 products run on the CUDA cores.
 //
 // Quantized weights (B2b) are the same GEMV on integer levels: int8, or int4
 // packed two a byte (element 2k in the low nibble of byte k), each with one
@@ -77,7 +102,6 @@
 // launch, returned to the caller. The caller commits kv_new (and, for an
 // int8 cache, sc_new) into the cache at row t itself.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,12 +109,12 @@
 
 #include <type_traits>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 256;     // threads of every block, in every phase
+constexpr int kThreads = 256;     // consumer threads of a block, in every phase
 constexpr int kWarps = kThreads / 32;
+constexpr int kBlockThreads = kThreads + 32;   // and one producer warp
+constexpr int kBlocksPerSm = 2;
 constexpr int kRowsPerWarp = 4;   // output rows of W per warp
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kBT = 16;           // activation rows per GEMV virtual block
@@ -98,6 +122,9 @@ constexpr int kKT = 256;          // the largest K slice of a GEMV virtual block
 constexpr int kTargetBlocks = 2 * 132;  // two resident blocks on each of 132 SMs
 constexpr int kRowPer = 16;       // C <= kRowPer * kThreads: a row's values a thread holds
 constexpr int kRowVec = kRowPer / 4;   // ... as float4 of 4 neighbouring columns
+constexpr int kBlockSmem = 115712;     // a block's half of the SM: (233,472 - 2 x 1,024) / 2
+constexpr int kScratchBytes = 128;     // block_reduce's static scratch
+static_assert(kRowsPerBlock == 32, "a producer lane copies one row of a tile");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -223,15 +250,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Sum or max over the block. Every thread must call it; it synchronises the
-// block, so shared writes before it are visible after it.
+// The consumer warps' block barrier (named barrier 1 over kThreads threads):
+// the producer warp keeps its own schedule and never joins it.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
+// Sum or max over the block's consumer threads. Every one must call it; it
+// synchronises them, so shared writes before it are visible after it.
 template <bool kMax>
 __device__ float block_reduce(float v, float* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // a previous reduction may still read scratch
+  consumer_sync();  // a previous reduction may still read scratch
   if (lane == 0) scratch[warp] = v;
-  __syncthreads();
+  consumer_sync();
   float r = scratch[0];
   for (int i = 1; i < kWarps; ++i) r = kMax ? fmaxf(r, scratch[i]) : r + scratch[i];
   return r;
@@ -374,30 +407,100 @@ __device__ __forceinline__ Gemv layer_gemv(const Product& p, int l, const float*
   return g;
 }
 
-// Shared memory of a product's phase, two buffers of each: the weights of a
-// virtual block (kRowsPerBlock rows of the slice, stored as W) and its kBT
-// activation rows (f32): [weights 0 | weights 1 | activations 0 | 1].
+// The shared memory of a block: [ring slots | consumer area | a full and an
+// empty mbarrier a slot]. A slot holds one tile, the weights of a virtual
+// block (kRowsPerBlock rows of its slice, stored as W, a row every kKT
+// columns); the consumer area holds two buffers of a virtual block's kBT
+// activation rows (f32), or attention's scratch.
 template <typename W> struct GemvSmem {
   static constexpr int kIters = kKT / (32 * Vec<W>::n);   // loads a lane makes a row
-  static constexpr int kWBytes = kRowsPerBlock * kKT * kBits<W> / 8;
+  static constexpr int kRowBytes = kKT * kBits<W> / 8;
+  static constexpr int kWBytes = kRowsPerBlock * kRowBytes;   // a slot
   static constexpr int kXBytes = kBT * kKT * (int)sizeof(float);
-  static constexpr int kBytes = 2 * (kWBytes + kXBytes);
 };
 
-// cp.async of kSize bytes from global src to shared dst; with valid false
-// it writes zeros and reads nothing. 16-byte copies go through L2 only
-// (.cg), so they see what other blocks wrote before the last grid barrier.
-template <int kSize>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? kSize : 0;
-  if constexpr (kSize == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d), "l"(src),
-                 "n"(kSize), "r"(n)
-                 : "memory");
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  return now;
+}
+
+// mbarriers in shared memory (PTX ISA 8.0, sm_90)
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+// true when the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_test(uint64_t* b, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(smem_addr(b)), "r"(parity)
+      : "memory");
+  return done;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(b)) : "memory");
+}
+// arrive, and expect `bytes` more of copies before the phase completes
+__device__ __forceinline__ void mbar_expect(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global src to shared dst, completing on mbarrier b; L2 keeps the
+// lines with `policy`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* b, unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(b)), "l"(policy)
+      : "memory");
+}
+
+// The ring of weight tiles, as one thread sees it: the slot of its next tile
+// and the parity of that slot's phase. Producer and consumers walk the same
+// tiles in the same order, each with its own copy.
+struct Ring {
+  char* slot0;
+  uint64_t *full, *empty;
+  int slots, slot;
+  unsigned phase;
+  __device__ __forceinline__ void advance() {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// cp.async of 16 bytes from global src to shared dst; with valid false it
+// writes zeros and reads nothing. It goes through L2 only (.cg), so it sees
+// what other blocks wrote before the last grid barrier.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -407,39 +510,15 @@ template <int kPending> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
-// Issue the copies of virtual block vb's weights into weight buffer buf:
-// each lane copies the pieces it will itself multiply (row j0 + r of its
-// warp, columns k0 + (it * 32 + lane) * VEC ..), so no block barrier stands
-// between the copy and the use.
-template <typename W>
-__device__ __forceinline__ void gemv_issue_weights(const Gemv& g, int vb, int buf, char* smem) {
-  using raw = typename Vec<W>::raw;
-  using S = GemvSmem<W>;
-  constexpr int VEC = Vec<W>::n;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j0 = ((vb % g.nrb) * kWarps + warp) * kRowsPerWarp;
-  const int k0 = (vb / (g.nrb * g.nbb)) * g.kslice;
-  raw* ws = reinterpret_cast<raw*>(smem + buf * S::kWBytes) + warp * kRowsPerWarp * S::kIters * 32;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int it = 0; it < S::kIters; ++it) {
-      const int kk = (it * 32 + lane) * VEC;
-      const bool valid = j0 + r < g.N && kk < g.kslice;
-      const char* src = valid ? g.w + ((size_t)(j0 + r) * g.K + k0 + kk) * kBits<W> / 8 : g.w;
-      cp_async<(int)sizeof(raw)>(ws + (r * S::kIters + it) * 32 + lane, src, valid);
-    }
-}
-
 // Issue the copies of virtual block vb's kBT activation rows (zeros past
 // the batch) into activation buffer buf; warp w copies rows w, w + kWarps, ...
 template <typename W>
-__device__ __forceinline__ void gemv_issue_acts(const Gemv& g, int vb, int buf, char* smem) {
+__device__ __forceinline__ void gemv_issue_acts(const Gemv& g, int vb, int buf, char* act) {
   using S = GemvSmem<W>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b0 = ((vb / g.nrb) % g.nbb) * kBT;
   const int k0 = (vb / (g.nrb * g.nbb)) * g.kslice;
-  float* xs = reinterpret_cast<float*>(smem + 2 * S::kWBytes + buf * S::kXBytes);
+  float* xs = reinterpret_cast<float*>(act + buf * S::kXBytes);
 #pragma unroll
   for (int rr = 0; rr < kBT / kWarps; ++rr)
 #pragma unroll
@@ -447,115 +526,146 @@ __device__ __forceinline__ void gemv_issue_acts(const Gemv& g, int vb, int buf, 
       const int b = warp + rr * kWarps, k = (c * 32 + lane) * 4;
       const bool valid = b0 + b < g.B;
       if (k < g.kslice)
-        cp_async<16>(xs + b * kKT + k, valid ? g.in + (size_t)(b0 + b) * g.K + k0 + k : g.in,
-                     valid);
+        cp_async16(xs + b * kKT + k, valid ? g.in + (size_t)(b0 + b) * g.K + k0 + k : g.in,
+                   valid);
     }
 }
 
-// Before the barrier in front of a product: the copies of the weights of
-// the block's first two virtual blocks go out, one to each buffer (weights
-// are read-only in the launch), so they stream while the grid waits. At
-// the main path's shapes that is all of the product's weights: no product
-// has more than two virtual blocks a block. The block's previous phase is
-// done with shared memory first.
+// Virtual block vb of the product: its weight tile in the ring slot at
+// `tile`, its activations in the buffer at `act`, both complete and visible.
+// Each warp's kRowsPerWarp weight rows against the kBT activation rows, in
+// two passes of kPass rows (each activation value read serves kRowsPerWarp
+// weights; a pass's kRowsPerWarp * kPass sums fit the 96 registers a thread
+// that nine warps a block leave); each pass's sums reduced over the warp's
+// lanes by one reduce-scatter and written. A pass past the batch is
+// skipped. After its last pass's products the warp releases the slot
+// (arrives on `empty`).
 template <typename W>
-__device__ __forceinline__ void gemv_prefetch(const Gemv& g, char* smem) {
-  __syncthreads();
-  for (int i = 0, vb = blockIdx.x; i < 2 && vb < g.nvb; ++i, vb += gridDim.x)
-    gemv_issue_weights<W>(g, vb, i, smem);
-  cp_async_commit();
-}
-
-// Virtual block vb of the product from buffer buf, its copies complete and
-// visible: each warp's kRowsPerWarp weight rows against the kBT activation
-// rows (each activation value read serves kRowsPerWarp weights), each
-// warp's kRowsPerWarp * kBT sums reduced over its lanes by one
-// reduce-scatter, the partials written.
-template <typename W>
-__device__ __forceinline__ void gemv_compute(const Gemv& g, int vb, int buf, const char* smem) {
+__device__ __forceinline__ void gemv_compute(const Gemv& g, int vb, const char* tile,
+                                             const char* act, uint64_t* empty) {
   using raw = typename Vec<W>::raw;
   using S = GemvSmem<W>;
   constexpr int VEC = Vec<W>::n;
-  constexpr int NSUM = kRowsPerWarp * kBT;
+  constexpr int kPass = kBT / 2;
+  constexpr int NSUM = kRowsPerWarp * kPass;
   static_assert(kBT % kWarps == 0 && kKT % 128 == 0, "the staging layout");
-  const float(*xs)[kKT] =
-      reinterpret_cast<const float(*)[kKT]>(smem + 2 * S::kWBytes + buf * S::kXBytes);
+  const float(*xs)[kKT] = reinterpret_cast<const float(*)[kKT]>(act);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const raw* ws = reinterpret_cast<const raw*>(smem + buf * S::kWBytes) +
-                  warp * kRowsPerWarp * S::kIters * 32;
+  const raw* ws = reinterpret_cast<const raw*>(tile) + warp * kRowsPerWarp * S::kIters * 32;
   const int rb = vb % g.nrb, bb = (vb / g.nrb) % g.nbb, z = vb / (g.nrb * g.nbb);
   const int j0 = (rb * kWarps + warp) * kRowsPerWarp;
   const int b0 = bb * kBT;
   const int nb = min(kBT, g.B - b0);
   const int k0 = z * g.kslice;
+  const int passes = nb > kPass ? 2 : 1;
+  float* out = g.part + (size_t)z * g.B * g.N;
+  const int group = g.sc ? k0 / (g.K / g.G) : 0;
 
-  float acc[NSUM];   // acc[r * kBT + b]: row j0 + r, activation row b0 + b
+#pragma unroll 1
+  for (int pass = 0; pass < passes; ++pass) {
+    const int p0 = pass * kPass;   // the pass's first activation row
+    float acc[NSUM];   // acc[r * kPass + b]: row j0 + r, activation row b0 + p0 + b
 #pragma unroll
-  for (int i = 0; i < NSUM; ++i) acc[i] = 0.f;
+    for (int i = 0; i < NSUM; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int it = 0; it < S::kIters; ++it) {
-    const int kk = (it * 32 + lane) * VEC;
-    if (kk >= g.kslice) break;
-    raw wr[kRowsPerWarp];
+    for (int it = 0; it < S::kIters; ++it) {
+      const int kk = (it * 32 + lane) * VEC;
+      if (kk >= g.kslice) break;
+      raw wr[kRowsPerWarp];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) wr[r] = ws[(r * S::kIters + it) * 32 + lane];
+      for (int r = 0; r < kRowsPerWarp; ++r) wr[r] = ws[(r * S::kIters + it) * 32 + lane];
 #pragma unroll
-    for (int q = 0; q < VEC / 4; ++q) {
-      float4 wq[kRowsPerWarp];
+      for (int q = 0; q < VEC / 4; ++q) {
+        float4 wq[kRowsPerWarp];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) wq[r] = Vec<W>::quad(wr[r], q);
+        for (int r = 0; r < kRowsPerWarp; ++r) wq[r] = Vec<W>::quad(wr[r], q);
 #pragma unroll
-      for (int b = 0; b < kBT; ++b) {
-        const float4 f = *reinterpret_cast<const float4*>(&xs[b][kk + 4 * q]);
+        for (int b = 0; b < kPass; ++b) {
+          const float4 f = *reinterpret_cast<const float4*>(&xs[p0 + b][kk + 4 * q]);
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          float a = acc[r * kBT + b];
-          a = fmaf(wq[r].x, f.x, a);
-          a = fmaf(wq[r].y, f.y, a);
-          a = fmaf(wq[r].z, f.z, a);
-          acc[r * kBT + b] = fmaf(wq[r].w, f.w, a);
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            float a = acc[r * kPass + b];
+            a = fmaf(wq[r].x, f.x, a);
+            a = fmaf(wq[r].y, f.y, a);
+            a = fmaf(wq[r].z, f.z, a);
+            acc[r * kPass + b] = fmaf(wq[r].w, f.w, a);
+          }
         }
       }
     }
-  }
+    if (pass == passes - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty);   // the warp is done with its rows of the tile
+    }
 
-  warp_reduce_scatter<NSUM, NSUM>(acc, lane);
-  float* out = g.part + (size_t)z * g.B * g.N;
-  const int group = g.sc ? k0 / (g.K / g.G) : 0;
+    // the butterfly pairs lanes 16, 8, 4, 2, 1 apart for any NSUM, so each
+    // sum is the one a single pass over all kBT rows would give
+    warp_reduce_scatter<NSUM, NSUM>(acc, lane);
 #pragma unroll
-  for (int i = 0; i < NSUM / 32; ++i) {
-    const int e = (NSUM / 32) * lane + i, r = e / kBT, b = e % kBT;
-    if (b < nb && j0 + r < g.N)
-      out[(size_t)(b0 + b) * g.N + j0 + r] =
-          g.sc ? acc[i] * __ldg(g.sc + (size_t)(j0 + r) * g.G + group) : acc[i];
+    for (int i = 0; i < NSUM / 32; ++i) {
+      const int e = (NSUM / 32) * lane + i, r = e / kPass, b = p0 + e % kPass;
+      if (b < nb && j0 + r < g.N)
+        out[(size_t)(b0 + b) * g.N + j0 + r] =
+            g.sc ? acc[i] * __ldg(g.sc + (size_t)(j0 + r) * g.G + group) : acc[i];
+    }
   }
 }
 
-// The product's phase, a two-stage pipeline. The weights of the block's
-// first two virtual blocks are in flight (gemv_prefetch); their activations
-// go out now. From the third on, the copies of a virtual block (weights and
-// activations) go out while the block multiplies the one before it. Every
-// copy is complete when the phase ends.
+// Phase stamps of one launch, in nanoseconds of %globaltimer, written by
+// thread 0 of a block, and its ring counters: after a header {grid size,
+// rows}, rows of gridDim.x + 1 values. Row 0: each block's start. Row i =
+// 1 .. 8L: barrier i, column b the arrival of block b, column gridDim.x the
+// moment block 0 leaves it. Row 8L + 1: each block's end. Then for each
+// product p (QKV, proj, fc1, fc2) three rows, column b block b's sums over
+// the layers as thread 0 saw them: the tiles it took, those whose slot was
+// already full when it first tested it (hits), and the ns it waited for the
+// others.
+struct Stamps {
+  unsigned long long* s;
+  int row;
+  __device__ __forceinline__ unsigned long long* at(int r, int col) const {
+    return s + 2 + (size_t)r * (gridDim.x + 1) + col;
+  }
+  __device__ __forceinline__ void mark(int col) {
+    if (s != nullptr && threadIdx.x == 0) *at(row, col) = globaltimer();
+  }
+};
+
+// The product's phase: the activations of the block's first two virtual
+// blocks go out together; from the third on, a virtual block's activations
+// go out while the block multiplies the one before it. Each virtual block's
+// weight tile comes from the ring, filled by the producer long before.
 template <typename W>
-__device__ __forceinline__ void gemv_phase(const Gemv& g, char* smem) {
+__device__ __forceinline__ void gemv_phase(const Gemv& g, Ring& ring, char* act, Stamps& st,
+                                           int prod, int L) {
+  using S = GemvSmem<W>;
   for (int i = 0, vb = blockIdx.x; i < 2 && vb < g.nvb; ++i, vb += gridDim.x)
-    gemv_issue_acts<W>(g, vb, i, smem);
+    gemv_issue_acts<W>(g, vb, i, act);
   cp_async_commit();
   for (int i = 0, vb = blockIdx.x; vb < g.nvb; ++i, vb += gridDim.x) {
-    if (i == 0) {
-      cp_async_wait<0>();   // the first two virtual blocks' copies are done
-    } else {
+    if (i > 0) {
       const int next = vb + gridDim.x;   // goes to the buffer of vb - gridDim.x
-      if (next < g.nvb) {
-        gemv_issue_weights<W>(g, next, (i + 1) & 1, smem);
-        gemv_issue_acts<W>(g, next, (i + 1) & 1, smem);
-      }
+      if (next < g.nvb) gemv_issue_acts<W>(g, next, (i + 1) & 1, act);
       cp_async_commit();
-      cp_async_wait<1>();   // all but the next virtual block's copies are done
     }
-    __syncthreads();        // ... in every thread of the block
-    gemv_compute<W>(g, vb, i & 1, smem);
-    __syncthreads();        // buffer i & 1 is free for virtual block vb + 2 * gridDim.x
+    uint64_t* full = ring.full + ring.slot;
+    if (st.s != nullptr && threadIdx.x == 0) {   // profiling: the ring counters
+      const bool hit = mbar_test(full, ring.phase);
+      const unsigned long long t0 = globaltimer();
+      if (!hit) mbar_wait(full, ring.phase);
+      const int r = 8 * L + 2 + 3 * prod;
+      *st.at(r, blockIdx.x) += 1;
+      *st.at(r + 1, blockIdx.x) += hit;
+      *st.at(r + 2, blockIdx.x) += hit ? 0 : globaltimer() - t0;
+    }
+    mbar_wait(full, ring.phase);   // the tile is in its slot
+    if (i == 0) cp_async_wait<0>();   // the first two virtual blocks' activations are in
+    else cp_async_wait<1>();          // all but the next virtual block's are in
+    consumer_sync();                  // ... in every consumer thread
+    gemv_compute<W>(g, vb, ring.slot0 + (size_t)ring.slot * S::kWBytes,
+                    act + (i & 1) * S::kXBytes, ring.empty + ring.slot);
+    ring.advance();
+    consumer_sync();   // buffer i & 1 is free for virtual block vb + 2 * gridDim.x
   }
 }
 
@@ -597,7 +707,9 @@ __device__ __forceinline__ void attention(int h, int b, const float* part, int s
                                           int t, float scale, float* sm, float* scratch) {
   constexpr bool kQ = std::is_same<KV, int8_t>::value;
   constexpr int VEC = Vec<KV>::n;
-  constexpr int U = 8;                    // cache rows a thread loads before using any
+  // cache rows a thread loads before using any: 4 of an int8 cache (16 levels a load, unpacked
+  // at once), where 8 would crowd the 96 registers a thread; every sum keeps its order
+  constexpr int U = kQ ? 4 : 8;
   const int d = C / n_head;
   const int lpr = d / VEC;                // lanes per cache row
   const int rpw = 32 / lpr;               // rows per warp load
@@ -608,7 +720,7 @@ __device__ __forceinline__ void attention(int h, int b, const float* part, int s
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t stride = (size_t)B * 3 * C;
 
-  __syncthreads();   // the block's previous use of sm is over
+  consumer_sync();   // the block's previous use of sm is over
   // the self score uses the unrounded f32 q and k
   float self = 0.f;
   for (int i = tid; i < d; i += kThreads) {
@@ -655,7 +767,7 @@ __device__ __forceinline__ void attention(int h, int b, const float* part, int s
       if (lane % lpr == 0 && n < t) s[n] = kQ ? p * __ldg(rsc + 2 * n) : p;
     }
   }
-  __syncthreads();
+  consumer_sync();
 
   // softmax over [history, self]; with t == 0 only the self term remains
   float m = self;
@@ -699,7 +811,7 @@ __device__ __forceinline__ void attention(int h, int b, const float* part, int s
   }
 #pragma unroll
   for (int v = 0; v < VEC; ++v) vpart[g * d + vc + v] = acc[v];
-  __syncthreads();
+  consumer_sync();
   for (int i = tid; i < d; i += kThreads) {
     float num = 0.f;
     for (int gg = 0; gg < G; ++gg) num += vpart[gg * d + i];
@@ -767,51 +879,113 @@ struct Args {
   float *xn, *yb, *hb, *part;
   int L, B, N, C, n_head, t;
   float scale;
+  int slots, consumer;   // ring slots; bytes of the consumer area
   unsigned long long* stamps;
 };
 
-// Phase stamps of one launch, in nanoseconds of %globaltimer, written by
-// thread 0 of a block: after a header {grid size, rows}, rows of gridDim.x + 1
-// values. Row 0: each block's start. Row i = 1 .. 8L: barrier i, column b
-// the arrival of block b, column gridDim.x the moment block 0 leaves it.
-// The last row: each block's end.
-struct Stamps {
-  unsigned long long* s;
-  int row;
-  __device__ __forceinline__ void mark(int col) {
-    if (s != nullptr && threadIdx.x == 0) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      s[2 + (size_t)row * (gridDim.x + 1) + col] = now;
-    }
-  }
-};
+// The consumers' grid barrier, arrivals counted in g_arrived as cooperative
+// groups count them: block 0 adds 2^31 - (gridDim.x - 1), every other block
+// 1, so the top bit flips when the last block arrives and the low bits come
+// back to 0. A block's consumer threads meet first, so their writes come
+// before thread 0's arrival, a release at GPU scope; thread 0 waits for the
+// flip with acquire loads, and they meet again: every consumer write before
+// the barrier, in any block, is visible to every consumer read after it
+// (through L2). The same orderings as cooperative groups' grid.sync() on
+// sm_70 and later, without its fences.
+__device__ unsigned g_arrived = 0;
 
-// The grid barrier between two dependent phases: every write before it, in
-// any block, is visible to every read after it.
-__device__ __forceinline__ void grid_barrier(cg::grid_group& grid, Stamps& st) {
+__device__ __forceinline__ void grid_barrier(Stamps& st) {
   st.mark(blockIdx.x);
-  grid.sync();
+  consumer_sync();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    unsigned old, now;
+    asm volatile("atom.add.release.gpu.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(&g_arrived), "r"(add)
+                 : "memory");
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(now) : "l"(&g_arrived) : "memory");
+    } while (((old ^ now) & 0x80000000u) == 0);
+  }
+  consumer_sync();
   if (blockIdx.x == 0) st.mark(gridDim.x);
   ++st.row;
 }
 
+// The producer warp: every weight tile of the launch into the ring, in the
+// consumers' order (per layer QKV, proj, fc1, fc2; in each the virtual
+// blocks vb = blockIdx.x + i * gridDim.x), a slot as soon as the consumers
+// have released it. Lane r copies row r of the tile: the slice's
+// kslice * bits / 8 bytes of weight row j0 + r (rows past N are left as they
+// are; their sums are never written). At the end it waits until the
+// consumers have released every slot, so no copy outlives the warp.
+template <typename W>
+__device__ __forceinline__ void produce(const Params& p, int L, int B, Ring ring) {
+  using S = GemvSmem<W>;
+  const int lane = threadIdx.x & 31;
+  unsigned long long policy;   // weights are read once a launch: first out of L2
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  for (int l = 0; l < L; ++l)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const Gemv g = layer_gemv<W>(q == 0 ? p.qkv : q == 1 ? p.proj : q == 2 ? p.fc1 : p.fc2, l,
+                                   nullptr, nullptr, B);
+      const unsigned bytes = g.kslice * kBits<W> / 8;
+      for (int vb = blockIdx.x; vb < g.nvb; vb += gridDim.x) {
+        const int j0 = (vb % g.nrb) * kRowsPerBlock;
+        const int k0 = (vb / (g.nrb * g.nbb)) * g.kslice;
+        const int rows = min(kRowsPerBlock, g.N - j0);
+        uint64_t* full = ring.full + ring.slot;
+        mbar_wait(ring.empty + ring.slot, ring.phase ^ 1);
+        if (lane == 0) mbar_expect(full, rows * bytes);
+        __syncwarp();
+        if (lane < rows)
+          bulk_copy(ring.slot0 + (size_t)ring.slot * S::kWBytes + lane * S::kRowBytes,
+                    g.w + ((size_t)(j0 + lane) * g.K + k0) * kBits<W> / 8, bytes, full, policy);
+        ring.advance();
+      }
+    }
+  for (int i = 0; i < ring.slots; ++i) {
+    mbar_wait(ring.empty + ring.slot, ring.phase ^ 1);
+    ring.advance();
+  }
+}
+
 // T: the compute type operands are rounded to; W: the weights' storage (T,
 // Int8W or Int4W); KV: the cache's type (T, or int8_t with kv_sc [L, B, N, 2]
-// and the new rows' scales sc_new [L, B, 2]). No block leaves before the
-// last barrier: every phase loop runs to its end in every block.
+// and the new rows' scales sc_new [L, B, 2]). Warps 0 .. kWarps - 1 are the
+// consumers, warp kWarps the producer. No consumer leaves before the last
+// barrier: every phase loop runs to its end in every block.
 template <typename T, typename W, typename KV>
-__global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const Args a) {
+__global__ void __launch_bounds__(kBlockThreads, kBlocksPerSm) decode_stack_kernel(const Args a) {
   constexpr bool kQ = std::is_same<KV, int8_t>::value;
-  extern __shared__ __align__(16) char smem[];
-  float* const sm = reinterpret_cast<float*>(smem);
-  __shared__ float scratch[32];
-  cg::grid_group grid = cg::this_grid();
+  using S = GemvSmem<W>;
+  extern __shared__ __align__(128) char smem[];
+  __shared__ float scratch[kScratchBytes / sizeof(float)];
+  char* const act = smem + (size_t)a.slots * S::kWBytes;   // the consumer area
+  float* const sm = reinterpret_cast<float*>(act);
+  Ring ring{smem, reinterpret_cast<uint64_t*>(act + a.consumer), nullptr, a.slots, 0, 0};
+  ring.empty = ring.full + a.slots;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.slots; ++i) {
+      mbar_init(ring.full + i, 1);        // the producer's arrival with the tile's bytes
+      mbar_init(ring.empty + i, kWarps);  // each consumer warp's release
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int B = a.B, C = a.C, nh = a.n_head;
+  const Params& p = a.p;
+  if (threadIdx.x >= kThreads) {
+    produce<W>(p, a.L, B, ring);
+    return;
+  }
   Stamps st{a.stamps, 0};
   st.mark(blockIdx.x);
   st.row = 1;
-  const int B = a.B, C = a.C, nh = a.n_head;
-  const Params& p = a.p;
+  if (st.s != nullptr && threadIdx.x == 0)
+    for (int r = 8 * a.L + 2; r < 8 * a.L + 14; ++r) *st.at(r, blockIdx.x) = 0;
   const KV* kv = static_cast<const KV*>(a.kv);
   KV* kv_new = static_cast<KV*>(a.kv_new);
   const int nq = kQ ? B : 0;                // new-row quantization, one a batch row
@@ -822,11 +996,9 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const Args a)
       residual_layernorm<T>(vb, l ? a.x : a.x_in, a.x, a.part, l ? p.fc2.split : 0,
                             l ? p.bfc2 + (l - 1) * C : nullptr, p.ln1_s + l * C,
                             p.ln1_b + l * C, a.xn, B, C, scratch);
-    const Gemv qkv = layer_gemv<W>(p.qkv, l, a.xn, a.part, B);
-    gemv_prefetch<W>(qkv, smem);
-    grid_barrier(grid, st);
-    gemv_phase<W>(qkv, smem);
-    grid_barrier(grid, st);
+    grid_barrier(st);
+    gemv_phase<W>(layer_gemv<W>(p.qkv, l, a.xn, a.part, B), ring, act, st, 0, a.L);
+    grid_barrier(st);
 
     // the new int8 rows (int8 cache), then attention of every (head, row)
     const size_t cache = (size_t)l * B * a.N * 2 * C;
@@ -844,29 +1016,23 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const Args a)
                          scratch);
       }
     }
-    const Gemv proj = layer_gemv<W>(p.proj, l, a.yb, a.part, B);
-    gemv_prefetch<W>(proj, smem);
-    grid_barrier(grid, st);
-    gemv_phase<W>(proj, smem);
-    grid_barrier(grid, st);
+    grid_barrier(st);
+    gemv_phase<W>(layer_gemv<W>(p.proj, l, a.yb, a.part, B), ring, act, st, 1, a.L);
+    grid_barrier(st);
 
     // x += proj + bias; xn = LN2(x)
     for (int vb = blockIdx.x; vb < B; vb += gridDim.x)
       residual_layernorm<T>(vb, a.x, a.x, a.part, p.proj.split, p.bproj + l * C,
                             p.ln2_s + l * C, p.ln2_b + l * C, a.xn, B, C, scratch);
-    const Gemv fc1 = layer_gemv<W>(p.fc1, l, a.xn, a.part, B);
-    gemv_prefetch<W>(fc1, smem);
-    grid_barrier(grid, st);
-    gemv_phase<W>(fc1, smem);
-    grid_barrier(grid, st);
+    grid_barrier(st);
+    gemv_phase<W>(layer_gemv<W>(p.fc1, l, a.xn, a.part, B), ring, act, st, 2, a.L);
+    grid_barrier(st);
 
     for (int vb = blockIdx.x; vb < n_gelu; vb += gridDim.x)
       gelu<T>(vb, a.part, p.fc1.split, p.bfc1 + l * 4 * C, a.hb, B, 4 * C);
-    const Gemv fc2 = layer_gemv<W>(p.fc2, l, a.hb, a.part, B);
-    gemv_prefetch<W>(fc2, smem);
-    grid_barrier(grid, st);
-    gemv_phase<W>(fc2, smem);
-    grid_barrier(grid, st);
+    grid_barrier(st);
+    gemv_phase<W>(layer_gemv<W>(p.fc2, l, a.hb, a.part, B), ring, act, st, 3, a.L);
+    grid_barrier(st);
   }
   // x += the last fc2 + bias
   for (int vb = blockIdx.x; vb < B; vb += gridDim.x)
@@ -875,20 +1041,23 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const Args a)
   st.mark(blockIdx.x);
   if (st.s != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     st.s[0] = gridDim.x;
-    st.s[1] = st.row + 1;
+    st.s[1] = st.row + 13;   // the barriers' rows, the end, the ring counters
   }
 }
 
 // The K split of an [N, K] product with G scale groups along K (1 for float
-// weights): slices of at most kKT columns, a multiple of 8, none straddling a
-// group, then halved (down to 128 columns, one 16-byte f32 load a lane)
-// while the product has fewer than kTargetBlocks virtual blocks.
-int choose_split(int N, int K, int G = 1) {
+// weights) and weights of `bits` (0: float): slices of at most kKT columns,
+// a multiple of 8 columns and of 16 bytes of weights (the row copies), none
+// straddling a group, then halved (down to 128 columns, one 16-byte f32
+// load a lane) while the product has fewer than kTargetBlocks virtual
+// blocks.
+int choose_split(int N, int K, int G, int bits) {
+  const int align = bits == 4 ? 32 : bits == 8 ? 16 : 8;
   const int blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
   int s = (K + kKT - 1) / kKT;
   if (s < G) s = G;
-  while (K % s != 0 || (K / s) % 8 != 0 || s % G != 0) ++s;
-  while (blocks * s < kTargetBlocks && K % (2 * s) == 0 && (K / (2 * s)) % 8 == 0 &&
+  while (K % s != 0 || (K / s) % align != 0 || s % G != 0) ++s;
+  while (blocks * s < kTargetBlocks && K % (2 * s) == 0 && (K / (2 * s)) % align == 0 &&
          K / (2 * s) >= 128)
     s *= 2;
   return s;
@@ -897,15 +1066,16 @@ int choose_split(int N, int K, int G = 1) {
 // Scale groups along K of the products for weights of `bits` (0: float):
 // int8 one, fc2 two (its two 2C-wide input halves); int4 8, fc2 16.
 struct Groups {
-  int g, g2;
-  explicit Groups(int bits) : g(bits == 4 ? 8 : 1), g2(bits == 4 ? 16 : bits == 8 ? 2 : 1) {}
+  int bits, g, g2;
+  explicit Groups(int bits)
+      : bits(bits), g(bits == 4 ? 8 : 1), g2(bits == 4 ? 16 : bits == 8 ? 2 : 1) {}
 };
 
 struct Splits {
   int qkv, proj, fc1, fc2;
   Splits(int C, const Groups& gr)
-      : qkv(choose_split(3 * C, C, gr.g)), proj(choose_split(C, C, gr.g)),
-        fc1(choose_split(4 * C, C, gr.g)), fc2(choose_split(C, 4 * C, gr.g2)) {}
+      : qkv(choose_split(3 * C, C, gr.g, gr.bits)), proj(choose_split(C, C, gr.g, gr.bits)),
+        fc1(choose_split(4 * C, C, gr.g, gr.bits)), fc2(choose_split(C, 4 * C, gr.g2, gr.bits)) {}
   // the largest partial buffer, in units of B floats
   long long max_partials(int C) const {
     long long m = (long long)qkv * 3 * C;
@@ -921,9 +1091,28 @@ struct Splits {
 unsigned long long* g_stamps = nullptr;
 long long g_stamps_cap = 0;
 
+// The consumer area: two activation buffers, or attention's scratch of
+// `attn` bytes where that is larger, in whole 16 bytes.
+int consumer_bytes(int attn) {
+  const int act = 2 * kBT * kKT * 4;
+  return attn > act ? (attn + 15) / 16 * 16 : act;
+}
+
+// Ring slots of `slot` bytes beside a consumer area of `consumer` bytes: as
+// many as a block's half of the SM holds, each with its two mbarriers.
+int ring_slots(int slot, int consumer) {
+  return (kBlockSmem - kScratchBytes - consumer) / (slot + 16);
+}
+
+// The dynamic shared memory of a launch: the slots, the consumer area, the
+// mbarriers.
+int decode_smem(int slot, int slots, int consumer) {
+  return slots * slot + consumer + 16 * slots;
+}
+
 // The largest grid of decode_stack_kernel<T, W, KV> whose blocks are all
 // resident at once with `smem` bytes of dynamic shared memory (two blocks an
-// SM at the main path's shapes), cached for the last device and size.
+// SM), cached for the last device and size.
 template <typename T, typename W, typename KV>
 cudaError_t resident_grid(size_t smem, int* grid) {
   static int cached_dev = -1, cached_grid = 0;
@@ -937,7 +1126,7 @@ cudaError_t resident_grid(size_t smem, int* grid) {
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
         (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)smem)) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem)))
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlockThreads, smem)))
       return err;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     cached_dev = dev;
@@ -991,23 +1180,24 @@ int decode_stack(const float* x_in, float* x, const Weights& w, const KV* kv,
   a.t = t;
   a.scale = (float)(1.0 / sqrt((double)d));
   a.stamps = nullptr;
-  // the largest any phase needs: the GEMV's two buffers of weights and
-  // activations, or attention's scores (for N rows, whatever t), queries,
-  // values and sums
-  size_t smem = GemvSmem<W>::kBytes;
-  const size_t attn = sizeof(float) * (2 * d + kThreads * Vec<KV>::n + N);
-  if (attn > smem) smem = attn;
+  // the consumer area holds attention's scores (for N rows, whatever t),
+  // queries, values and sums where they outgrow the activation buffers
+  a.consumer = consumer_bytes((int)sizeof(float) * (2 * d + kThreads * Vec<KV>::n + N));
+  a.slots = ring_slots(GemvSmem<W>::kWBytes, a.consumer);
+  if (a.slots < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = decode_smem(GemvSmem<W>::kWBytes, a.slots, a.consumer);
   int grid = 0;
   cudaError_t err = resident_grid<T, W, KV>(smem, &grid);
   if (err != cudaSuccess) return (int)err;
   if (g_stamps != nullptr) {
-    if (2 + (long long)(8 * L + 2) * (grid + 1) > g_stamps_cap) return (int)cudaErrorInvalidValue;
+    if (2 + (long long)(8 * L + 14) * (grid + 1) > g_stamps_cap)
+      return (int)cudaErrorInvalidValue;
     a.stamps = g_stamps;
   }
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&decode_stack_kernel<T, W, KV>), dim3(grid),
-      dim3(kThreads), args, smem, stream);
+      dim3(kBlockThreads), args, smem, stream);
 }
 
 template <typename T, typename W>

@@ -11,7 +11,10 @@ The PyTorch counterpart of the JAX ``ops/gpt_decode_pallas.py``:
   (``csrc/gpt_decode.cu``: one persistent cooperative launch a call) for
   CUDA tensors and run the plain version for CPU tensors;
 - :func:`record_phase_stamps` is the kernel's profiling switch
-  (``profile_decode.py``).
+  (``profile_decode.py``);
+- :func:`ring_plan` is the kernel's block and shared-memory plan: 8 consumer
+  warps and one producer warp a block, two blocks an SM, the weight ring's
+  slots beside the activation buffers or attention's scratch.
 
 Per layer: LN1 -> joint QKV -> attention over the cache rows < t, with the
 current token's k/v folded into the softmax analytically -> proj + residual
@@ -41,6 +44,67 @@ from ._build import library
 
 _MAX_CACHE_ROWS = 8192   # the kernel keeps t scores in shared memory
 _MAX_WIDTH = 4096        # a LayerNorm thread holds at most 16 of a row's C values
+
+# The kernel's block and its ring of weight tiles (csrc/gpt_decode.cu repeats
+# these; tests/test_torch_port_decode_plan.py holds the two equal). A block is
+# 8 consumer warps, which run the phases, and one producer warp, which streams
+# the block's weight tiles into the ring ahead of them; two blocks an SM.
+CONSUMER_THREADS = 256   # kThreads
+BLOCK_THREADS = 288      # kBlockThreads: the consumers and the producer warp
+BLOCKS_PER_SM = 2        # kBlocksPerSm
+ROWS_PER_BLOCK = 32      # kRowsPerBlock: a tile's weight rows, one a producer lane
+BT = 16                  # kBT: activation rows of a virtual block
+KT = 256                 # kKT: the largest K slice of a tile
+BLOCK_SMEM = 115_712     # kBlockSmem: a block's half of the SM, (233,472 - 2 x 1,024) / 2
+SMEM_LIMIT = 232_448     # the most shared memory one block may use on sm_90
+SCRATCH_BYTES = 128      # kScratchBytes: block_reduce's static scratch
+RING_PRODUCTS = ("QKV", "proj", "fc1", "fc2")   # the ring counters' order in the stamps
+
+
+def slot_bytes(bits: int) -> int:
+    """Bytes of a ring slot, one tile of weights stored in ``bits`` (32 f32,
+    16 bf16, 8 int8, 4 nibble-packed int4): ROWS_PER_BLOCK rows of KT
+    columns."""
+    return ROWS_PER_BLOCK * KT * bits // 8
+
+
+def attention_bytes(head_width: int, kv_vec: int, n: int) -> int:
+    """Attention's scratch: q and v of the head, CONSUMER_THREADS x kv_vec
+    partial V sums (kv_vec values of the cache a 16-byte load: 4 f32, 8 bf16,
+    16 int8) and the scores of N cache rows, all f32."""
+    return 4 * (2 * head_width + CONSUMER_THREADS * kv_vec + n)
+
+
+def consumer_bytes(attn: int) -> int:
+    """The consumer area: two activation buffers of BT x KT f32, or
+    attention's ``attn`` bytes where that is larger, in whole 16 bytes."""
+    act = 2 * BT * KT * 4
+    return -(-attn // 16) * 16 if attn > act else act
+
+
+def ring_slots(slot: int, consumer: int) -> int:
+    """Slots of ``slot`` bytes beside a consumer area of ``consumer`` bytes:
+    as many as a block's half of the SM holds, each with its two 8-byte
+    mbarriers."""
+    return (BLOCK_SMEM - SCRATCH_BYTES - consumer) // (slot + 16)
+
+
+def decode_smem(slot: int, slots: int, consumer: int) -> int:
+    """Dynamic shared memory of a launch: the slots, the consumer area and
+    the mbarriers (the static scratch comes on top)."""
+    return slots * slot + consumer + 16 * slots
+
+
+def ring_plan(weight_bits: int, kv_bits: int, c: int, n_head: int, n: int) -> Dict[str, int]:
+    """The kernel's shared-memory plan for weights of ``weight_bits`` and a
+    cache of ``kv_bits`` at width ``c``, ``n_head`` heads and ``n`` cache
+    rows: slot bytes, slots, consumer area, dynamic and total bytes a block."""
+    slot = slot_bytes(weight_bits)
+    consumer = consumer_bytes(attention_bytes(c // n_head, 128 // kv_bits, n))
+    slots = ring_slots(slot, consumer)
+    smem = decode_smem(slot, slots, consumer)
+    return {"slot": slot, "slots": slots, "consumer": consumer, "smem": smem,
+            "block": smem + SCRATCH_BYTES}
 
 
 QUANT_MODES = (None, "int8", "int8kv", "int4", "int4kv")   # decode_quant
@@ -283,9 +347,12 @@ def _check_cuda_args(x, packed, kv, t, n_head, kv_scales=None, compute_dtype=Non
         raise ValueError(f"an int8 cache needs a head width of at least 16, got {d}")
     if bits == 4 and c % (2 * _NG):
         raise ValueError(f"int4 needs n_embd % {2 * _NG} == 0, got {c}")
-    if bits == 4 and c % 64:
-        raise ValueError(f"the int4 kernel needs C % 64 == 0 (groups of C/8 in slices "
-                         f"of 8 columns), got {c}")
+    if bits == 8 and c % 16:
+        raise ValueError(f"the int8 kernel needs C % 16 == 0 (K slices of whole 16-byte "
+                         f"row copies), got {c}")
+    if bits == 4 and c % 256:
+        raise ValueError(f"the int4 kernel needs C % 256 == 0 (groups of C/8 in K slices "
+                         f"of whole 16-byte row copies), got {c}")
     if not 0 <= t < n or n > _MAX_CACHE_ROWS:
         raise ValueError(f"need 0 <= t < N <= {_MAX_CACHE_ROWS}, got t={t}, N={n}")
     wtype = {0: dtype, 8: torch.int8, 4: torch.uint8}[bits]
@@ -318,6 +385,11 @@ def _check_cuda_args(x, packed, kv, t, n_head, kv_scales=None, compute_dtype=Non
             raise ValueError(f"{name} is on {tensor.device}, kv on {kv.device}")
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in _WEIGHTS and tensor.device.type != "meta" and tensor.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (the kernel's row copies)")
+
+
+_WEIGHTS = ("wqkv", "wproj", "wfc1", "wfc2")
 
 
 def _route(name: str, kv: torch.Tensor) -> bool:
@@ -466,20 +538,26 @@ fused_decode_stack_qkv.launches = 0
 
 def stamp_rows(n_layer: int) -> int:
     """Rows of phase stamps a launch writes: its start, the 8 barriers of
-    each layer, its end."""
-    return 8 * n_layer + 2
+    each layer, its end, then three rows of ring counters for each of the
+    four products."""
+    return 8 * n_layer + 2 + 3 * len(RING_PRODUCTS)
 
 
 def record_phase_stamps(stamps: Optional[torch.Tensor]) -> None:
     """Profiling: every later decode-stack launch writes %globaltimer stamps
-    (nanoseconds) to ``stamps``, a contiguous int64 CUDA tensor, or refuses
-    to launch when they do not fit; None turns them off (the default, which
-    costs the serving path nothing). Layout: ``stamps[0]`` the grid size G,
-    ``stamps[1]`` the rows R (:func:`stamp_rows`), then [R, G + 1]: row 0
-    each block's start; row i = 1 .. 8L barrier i of the phases (LN1, QKV,
-    attention, proj, LN2, fc1, GELU, fc2 a layer), column b the arrival of
-    block b, column G the moment block 0 leaves it; row R - 1 each block's
-    end. The library holds a reference to the tensor while it is set."""
+    (nanoseconds) and ring counters to ``stamps``, a contiguous int64 CUDA
+    tensor, or refuses to launch when they do not fit; None turns them off
+    (the default, which costs the serving path nothing). Layout:
+    ``stamps[0]`` the grid size G, ``stamps[1]`` the rows R
+    (:func:`stamp_rows`), then [R, G + 1]: row 0 each block's start; row i =
+    1 .. 8L barrier i of the phases (LN1, QKV, attention, proj, LN2, fc1,
+    GELU, fc2 a layer), column b the arrival of block b, column G the moment
+    block 0 leaves it; row 8L + 1 each block's end; then for each product p
+    of :data:`RING_PRODUCTS`, rows 8L + 2 + 3p .. + 2, column b block b's
+    sums over the L layers as its thread 0 saw them: the tiles it took from
+    the ring, the hits among them (the tile's slot already full when first
+    tested), and the nanoseconds it waited on the others (column G 0). The
+    library holds a reference to the tensor while it is set."""
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device.type != "cuda"
                                or not stamps.is_contiguous()):
         raise ValueError("stamps must be a contiguous int64 CUDA tensor")

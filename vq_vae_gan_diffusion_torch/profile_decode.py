@@ -19,7 +19,12 @@ by phase comes from the kernel's own %globaltimer stamps
 for each phase, its work (from the barrier in front of it until the last
 block arrives at the next one) and the barrier (from that arrival until
 block 0 leaves it), summed by kind (GEMV, attention, LayerNorm, GELU) per
-call, and the launch ramp (first to last block's start).
+call, and the launch ramp (first to last block's start). Then the weight
+ring's counters, by product (the GEMV phases, the only ones that take tiles
+from the ring): the hit share, the share of tiles whose slot was already
+full when a block's thread 0 first tested it, over all calls and over the
+calls at t >= 16; and the consumers' wait on the ring, in us a call summed
+over the blocks (thread 0 of each), a block's mean and the slowest block's.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ import argparse
 import torch
 
 from .models.mingpt import GPT
-from .ops.gpt_decode import (fused_decode_stack, fused_decode_stack_q, fused_decode_stack_qkv,
-                             pack_decode_params, record_phase_stamps, stamp_rows)
+from .ops.gpt_decode import (RING_PRODUCTS, fused_decode_stack, fused_decode_stack_q,
+                             fused_decode_stack_qkv, pack_decode_params, record_phase_stamps,
+                             stamp_rows)
 from .utils.profiling import report
 
 L, C, H, B, N = 12, 1024, 16, 16, 256
@@ -57,7 +63,9 @@ def phase_report(call, calls: int) -> None:
     g, r = int(s[0, 0]), int(s[0, 1])
     if r != rows or not (s[:, 0] == g).all():
         raise RuntimeError(f"stamps header {g}, {r}: expected {rows} rows")
-    st = s[:, 2:2 + r * (g + 1)].reshape(calls, r, g + 1).double() / 1e3   # us
+    table = s[:, 2:2 + r * (g + 1)].reshape(calls, r, g + 1)
+    ring = table[:, 8 * L + 2:, :g].reshape(calls, len(RING_PRODUCTS), 3, g)
+    st = table[:, :8 * L + 2].double() / 1e3   # us
     start, end = st[:, 0, :g].min(1).values, st[:, -1, :g].max(1).values
     exits, arrive = st[:, 1:-1, g], st[:, 1:-1, :g].max(2).values
     prev = torch.cat([start[:, None], exits[:, :-1]], 1)
@@ -78,6 +86,24 @@ def phase_report(call, calls: int) -> None:
         print(f"  {kind:>10}: work {w:9.2f} us/call, barrier {b:8.2f} us/call")
     print(f"  {'all':>10}: work {sum(w for w, _ in by_kind.values()):9.2f} us/call, "
           f"barrier {sum(b for _, b in by_kind.values()):8.2f} us/call")
+    print("  by phase of a layer, summed over the layers: " + ", ".join(
+        f"{name} {work[i::8].sum().item():.2f} + {wait[i::8].sum().item():.2f}"
+        for i, name in enumerate(PHASES)) + " us/call (work + barrier)")
+    late = torch.arange(calls) >= 16
+    for name, counters in zip(RING_PRODUCTS, ring.unbind(1)):
+        tiles, hits, ns = counters.unbind(1)   # each [calls, blocks]
+        wait = ns.double().sum(1) / 1e3   # us a call, summed over the blocks
+        print(f"  ring {name:>4}: hit share {hits.sum().item() / tiles.sum().item():7.2%} "
+              f"(t >= 16: {hits[late].sum().item() / tiles[late].sum().item():7.2%}), "
+              f"{tiles.sum(1).double().mean().item():.0f} tiles/call; wait "
+              f"{wait.mean().item():9.2f} us/call over the blocks, "
+              f"{wait.mean().item() / g:7.3f} a block, "
+              f"{ns.max(1).values.double().mean().item() / 1e3:7.3f} the slowest block")
+    tiles, hits, ns = ring.sum(1).unbind(1)
+    print(f"  ring GEMV: hit share {hits.sum().item() / tiles.sum().item():7.2%} "
+          f"(t >= 16: {hits[late].sum().item() / tiles[late].sum().item():7.2%}); wait "
+          f"{ns.double().sum(1).mean().item() / 1e3:9.2f} us/call over the blocks, "
+          f"{ns.double().sum(1).mean().item() / 1e3 / g:7.3f} a block")
 
 
 def main(argv=None) -> int:
