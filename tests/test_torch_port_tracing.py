@@ -16,6 +16,7 @@ from port_bench.families import gpt as gpt_family
 from port_bench.metrics import span_idle
 from port_bench.run import Bench
 from port_bench.tests.tiny import tiny
+from vq_vae_gan_diffusion_torch.diffusion.discrete import DiscreteDiffusion
 from vq_vae_gan_diffusion_torch.diffusion.gaussian3d import GaussianDiffusion3D
 from vq_vae_gan_diffusion_torch.models.mingpt import GPT, sample_tokens
 from vq_vae_gan_diffusion_torch.utils import tracing
@@ -64,6 +65,48 @@ def test_ddpm_sample_gives_one_chain_span_holding_a_span_a_step():
     assert len(steps) == 5 and all(_inside(s, chain) for s in steps)
 
 
+def _discrete_chain(kind: str, steps: int):
+    """A tiny discrete chain of ``steps`` reverse steps: VQ_Official's
+    ``sample`` or ``sample_fast``, or the transformer prior's
+    ``fast_sample``."""
+    if kind == "transformer":
+        from vq_vae_gan_diffusion_torch.models.transformer_vq_diffusion import (
+            TransformerVQDiffusion)
+
+        torch.manual_seed(0)
+        prior = TransformerVQDiffusion(codebook_size=8, seq_len=4,
+                                       diffusion_steps=2 * steps - 1, embedding_dim=8,
+                                       num_layers=1, num_heads=2)
+        return lambda: prior.fast_sample(2, skip_step=2,
+                                         generator=torch.Generator().manual_seed(0))
+    d = DiscreteDiffusion(num_classes=9, seq_len=4, timesteps=steps)
+    d.model_fn = lambda log_x, t: 0.1 * log_x[..., :-1]
+    g = torch.Generator().manual_seed(0)
+    if kind == "sample":
+        return lambda: d.sample(2, generator=g)
+    return lambda: d.sample_fast(2, skip_step=0, generator=g)
+
+
+@pytest.mark.parametrize("kind", ["sample", "sample_fast", "transformer"])
+def test_a_discrete_chain_gives_one_chain_span_holding_a_span_a_step(kind, monkeypatch):
+    steps = 5
+    chain = _discrete_chain(kind, steps)
+    with bench_trace.profiler() as prof:
+        chain()
+    spans = _spans(prof)
+    (outer,) = [s for s in spans if s[0] == "discrete.chain"]
+    inner = [s for s in spans if s[0] == "discrete.step"]
+    assert len(inner) == steps and all(_inside(s, outer) for s in inner)
+    # without a profiler every span the chain opens is the shared no-op
+    opened = []
+    span = tracing.span
+    monkeypatch.setattr(tracing, "span", lambda name: opened.append((name, span(name))) or
+                        opened[-1][1])
+    chain()
+    assert [name for name, _ in opened] == ["discrete.chain"] + ["discrete.step"] * steps
+    assert all(ctx is span("gpt.position") for _, ctx in opened)
+
+
 @pytest.mark.parametrize("family", [gpt_family, g3d_family], ids=["gpt", "gaussian3d"])
 def test_a_train_step_gives_its_phases_in_order(family):
     cfg = Bench().config(f"{family.__name__.rsplit('.', 1)[1]}_flowers256")
@@ -99,7 +142,11 @@ def test_every_span_opened_is_named_in_spans_and_every_name_is_opened():
             for name in _span_calls(path)]
     assert set(used) <= set(tracing.SPANS), set(used) - set(tracing.SPANS)
     assert set(used) == set(tracing.SPANS)
-    assert span_idle.SPANS == tracing.SPANS
+    # the discrete chain's spans came after the harness's written-out list;
+    # the vqofficial step reader names discrete.step itself
+    assert set(tracing.SPANS) - set(span_idle.SPANS) == {"discrete.chain", "discrete.step"}
+    assert set(span_idle.SPANS) < set(tracing.SPANS)
+    assert Bench().reader("step_gap_us.vqofficial").SPAN == "discrete.step"
 
 
 def test_counts_reads_and_reset_counts_clears_every_counter():

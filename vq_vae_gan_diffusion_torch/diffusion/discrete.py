@@ -52,6 +52,7 @@ from ..ops.discrete_posterior import (LOG_ZERO, fits_kernel_route, fused_posteri
                                       gumbel_from_uniform, logaddexp,
                                       reference_posterior_sample_prng)
 from ..parallel.mesh import all_gather_rows, draw_rows
+from ..utils import tracing
 from .schedules import discrete_alpha_schedule
 
 LOG_EPS = -70.0
@@ -465,22 +466,25 @@ class DiscreteDiffusion:
         ``generator`` (drawn on its device) or is injected: ``init_uniform``
         [B, N, K] and ``step_gumbel[i]`` [B, N, K] for the i-th step (t =
         start - 1 - i)."""
-        device, shape, log_z = self._start(batch_size, generator, device, init_uniform)
-        start = self.sampling_timesteps
-        seeds = self.posterior_route() == "prng"
+        with tracing.span("discrete.chain"):
+            device, shape, log_z = self._start(batch_size, generator, device, init_uniform)
+            start = self.sampling_timesteps
+            seeds = self.posterior_route() == "prng"
 
-        # the dense first step on the chain-init noise (not a one-hot)
-        t0 = torch.full((batch_size,), start - 1, dtype=torch.long, device=device)
-        z_idx = self.sample_categorical_idx(
-            self.p_pred(log_z, t0), self._noise(0, shape, step_gumbel, generator, device))
-        frames = [z_idx]
-        for i, step in enumerate(range(start - 2, -1, -1), start=1):
-            t = torch.full((batch_size,), step, dtype=torch.long, device=device)
-            z_idx = self._step_idx(z_idx, t, t, self._noise(i, shape, step_gumbel, generator,
-                                                            device, seeds))
-            if return_all_timesteps:
-                frames.append(z_idx)
-        return (z_idx, torch.stack(frames, 1)) if return_all_timesteps else z_idx
+            # the dense first step on the chain-init noise (not a one-hot)
+            with tracing.span("discrete.step"):
+                t0 = torch.full((batch_size,), start - 1, dtype=torch.long, device=device)
+                z_idx = self.sample_categorical_idx(
+                    self.p_pred(log_z, t0), self._noise(0, shape, step_gumbel, generator, device))
+            frames = [z_idx]
+            for i, step in enumerate(range(start - 2, -1, -1), start=1):
+                with tracing.span("discrete.step"):
+                    t = torch.full((batch_size,), step, dtype=torch.long, device=device)
+                    z_idx = self._step_idx(z_idx, t, t, self._noise(i, shape, step_gumbel,
+                                                                    generator, device, seeds))
+                if return_all_timesteps:
+                    frames.append(z_idx)
+            return (z_idx, torch.stack(frames, 1)) if return_all_timesteps else z_idx
 
     @torch.no_grad()
     def sample_fast(self, batch_size: int = 16, skip_step: int = 1,
@@ -490,23 +494,26 @@ class DiscreteDiffusion:
         """Skip-step sampling over t = start-1, start-2-skip, ..., 0, each
         step's posterior taken at t - skip (t when t <= skip). Noise as in
         :meth:`sample`."""
-        device, shape, log_z = self._start(batch_size, generator, device, init_uniform)
-        start = self.sampling_timesteps
-        steps = list(range(start - 1, -1, -1 - skip_step))
-        if steps[-1] != 0:
-            steps.append(0)
-        seeds = self.posterior_route() == "prng"
+        with tracing.span("discrete.chain"):
+            device, shape, log_z = self._start(batch_size, generator, device, init_uniform)
+            start = self.sampling_timesteps
+            steps = list(range(start - 1, -1, -1 - skip_step))
+            if steps[-1] != 0:
+                steps.append(0)
+            seeds = self.posterior_route() == "prng"
 
-        def times(i: int):
-            t = torch.full((batch_size,), i, dtype=torch.long, device=device)
-            return t, (t - skip_step if i > skip_step else t)
+            def times(i: int):
+                t = torch.full((batch_size,), i, dtype=torch.long, device=device)
+                return t, (t - skip_step if i > skip_step else t)
 
-        t, t_post = times(steps[0])
-        prob = self.q_posterior(self.predict_start(log_z, t), log_z, t_post)
-        z_idx = self.sample_categorical_idx(
-            prob, self._noise(0, shape, step_gumbel, generator, device))
-        for i, step in enumerate(steps[1:], start=1):
-            t, t_post = times(step)
-            z_idx = self._step_idx(z_idx, t, t_post, self._noise(i, shape, step_gumbel,
-                                                                 generator, device, seeds))
-        return z_idx
+            with tracing.span("discrete.step"):
+                t, t_post = times(steps[0])
+                prob = self.q_posterior(self.predict_start(log_z, t), log_z, t_post)
+                z_idx = self.sample_categorical_idx(
+                    prob, self._noise(0, shape, step_gumbel, generator, device))
+            for i, step in enumerate(steps[1:], start=1):
+                with tracing.span("discrete.step"):
+                    t, t_post = times(step)
+                    z_idx = self._step_idx(z_idx, t, t_post, self._noise(
+                        i, shape, step_gumbel, generator, device, seeds))
+            return z_idx

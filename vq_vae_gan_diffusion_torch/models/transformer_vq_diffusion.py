@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.discrete import DiscreteDiffusion, LtState, log_onehot_to_index
+from ..utils import tracing
 from .blocks import at_least_f32
 
 DROPOUT = 0.1          # the flax blocks' default, read when a block is built
@@ -257,10 +258,13 @@ class TransformerVQDiffusion(nn.Module):
         steps = np.arange(d.num_timesteps - 1, -1, -skip_step)
         log_z = d._chain_init(num_samples, None, device)
         t0 = torch.full((num_samples,), int(steps[0]), dtype=torch.long, device=device)
-        z_idx = d.sample_categorical_truncated_idx(
-            d.p_pred(log_z, t0), d._noise(0, shape, step_gumbel, generator, device))
-        for i, step in enumerate(steps[1:], start=1):
-            t = torch.full((num_samples,), int(step), dtype=torch.long, device=device)
-            z_idx = d._step_idx(z_idx, t, t, d._noise(i, shape, step_gumbel, generator, device,
-                                                      seeds), truncated=True)
+        with tracing.span("discrete.chain"):
+            with tracing.span("discrete.step"):
+                z_idx = d.sample_categorical_truncated_idx(
+                    d.p_pred(log_z, t0), d._noise(0, shape, step_gumbel, generator, device))
+            for i, step in enumerate(steps[1:], start=1):
+                with tracing.span("discrete.step"):
+                    t = torch.full((num_samples,), int(step), dtype=torch.long, device=device)
+                    z_idx = d._step_idx(z_idx, t, t, d._noise(i, shape, step_gumbel, generator,
+                                                              device, seeds), truncated=True)
         return self._grid(z_idx)

@@ -30,6 +30,8 @@ SPANS = (
     "gaussian3d.chain",    # GaussianDiffusion3D.ddpm_sample / ddim_sample
     "gaussian3d.step",     # one reverse step of either
     "gaussian3d.readout",  # VQGaussianDiffusion3D.gaussian_to_indices
+    "discrete.chain",      # DiscreteDiffusion.sample / sample_fast
+    "discrete.step",       # one reverse step of either, or of the transformer prior's fast_sample
     "vqgan.encode",        # models/vqvae.VQVAE.encode
     "vqgan.decode",        # models/vqvae.VQVAE.decode_indices
     "serve.request",       # ServingWorker._sample_and_decode
